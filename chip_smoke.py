@@ -6,16 +6,20 @@ Phases, each printing one JSON line; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device  -- the card's name, and its name and power limit from nvidia-smi.
-2. build   -- compile every CUDA source under vcr_tpu_torch/ops/csrc/.
+2. build   -- compile every CUDA source under vcr_tpu_torch/ops/csrc/, one
+   nvcc each, all started together.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at ragged batch sizes, in bf16 and float32.
-4. main path -- the flagship S2VT greedy captioner (features -> tokens, full
-   width, random weights from a seed) through serving.build_captioner, with
-   the kernel launch counts read around that run; float32 tokens on the card
-   against the CPU.
-5. timing  -- CUDA events, best of 3 after warm-up: captions/s, a stage
-   breakdown, each kernel's time beside its bound, its plain version and a
-   library yardstick.
+   the main paths' shapes and at ragged batch sizes, in bf16 and float32
+   (and both directions for the LSTM).
+4. main paths -- each greedy captioner (features -> tokens, full width,
+   random weights from a seed) through serving.build_captioner, with the
+   kernel launch counts set to 0 just before and read just after its run:
+   the flagship S2VT (B1 twice), then RationaleNet over that S2VT (B2 once
+   per direction, then B1 twice); float32 tokens on the card against the
+   CPU, with shared Gumbel noise for RationaleNet.
+5. timing  -- CUDA events, best of 3 after warm-up: captions/s of each
+   captioner, a stage breakdown, each kernel's time beside its bound, its
+   plain version and a library yardstick.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -24,6 +28,7 @@ imports only the port.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -40,9 +45,16 @@ PEAKS = (989e12, 67e12, 3.35e12)
 
 SMOKE_BATCH = 256      # main-path batch of the correctness phases
 TIMING_BATCH = 2048    # flagship serving batch of the timing phase
+RATIONALE_BATCH = 1024  # RationaleNet serving batch of the timing phase
 BF16_TOL = 2e-3        # f32 dots summed in other orders over 30 dependent steps;
                        # readings were 6.6e-4 (B=256) and 9.8e-4 (B=2048)
 F32_TOL = 1e-4         # the same, in float32 with TF32 off
+LSTM_BF16_TOL = 1e-3   # B2 (outs and c_last), the same reason: twice the worst
+                       # reading (4.5e-4 at B=256), 2.6x below the control's
+                       # 2.6e-3 (float32 plain on bf16 inputs)
+LSTM_F32_TOL = 1e-4    # readings <= 1.9e-6
+LOGIT_TOL = 1e-3       # float32 logits card vs CPU: dot orders through the
+                       # recurrences and 20 decode steps; readings ~2.5e-7
 
 
 class SmokeFailure(RuntimeError):
@@ -84,6 +96,30 @@ def gru_inputs(t, b, hidden, dtype, seed):
     return x_gates, w_hh, b_hh, h0
 
 
+def lstm_inputs(t, b, hidden, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x_gates = torch.randn((t, b, 4 * hidden), generator=g, device="cuda").to(dtype)
+    w_hh = (torch.randn((hidden, 4 * hidden), generator=g, device="cuda")
+            * (2.0 / (5 * hidden)) ** 0.5).to(dtype)
+    b_hh = torch.randn((4 * hidden,), generator=g, device="cuda")
+    h0 = torch.randn((b, hidden), generator=g, device="cuda")
+    c0 = torch.randn((b, hidden), generator=g, device="cuda")
+    return x_gates, w_hh, b_hh, h0, c0
+
+
+def max_err(got, want) -> float:
+    """Largest absolute difference over a tensor or a tuple of tensors."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    return max((x - y).abs().max().item() for x, y in zip(got, want))
+
+
+def all_finite(got) -> bool:
+    if isinstance(got, torch.Tensor):
+        got = (got,)
+    return all(bool(torch.isfinite(x).all()) for x in got)
+
+
 def gru_bound_ms(t, b, hidden, peaks):
     """Least time of one B1 call in bf16: bytes of each input read once and
     the output written once, or the recurrent product at the bf16 tensor-core
@@ -97,6 +133,20 @@ def gru_bound_ms(t, b, hidden, peaks):
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
 
 
+def lstm_bound_ms(t, b, hidden, peaks):
+    """Least time of one B2 call (one direction) in bf16: bytes of each input
+    read once and each output written once, or the recurrent product at the
+    bf16 tensor-core rate plus the gate math (counted as 23 float32
+    operations per hidden element: 8 adds, 3 sigmoids at 3, 2 tanh at 1, 4
+    for the c and h updates) at the float32 rate, whichever is larger."""
+    bf16_rate, f32_rate, mem_rate = peaks
+    nbytes = (t * b * 4 * hidden * 2 + hidden * 4 * hidden * 2 + 4 * hidden * 4
+              + 2 * b * hidden * 4 + t * b * hidden * 4 + b * hidden * 4)
+    ops_s = 2 * t * b * hidden * 4 * hidden / bf16_rate + 23 * t * b * hidden / f32_rate
+    bytes_s = nbytes / mem_rate
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -105,9 +155,9 @@ def main() -> int:
 
     from vcr_tpu_torch import entry, serving
     from vcr_tpu_torch.device import params_to
-    from vcr_tpu_torch.models import s2vt
+    from vcr_tpu_torch.models import rationale, s2vt
     from vcr_tpu_torch.nn.layers import vdot
-    from vcr_tpu_torch.ops import cuda_gru
+    from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -123,8 +173,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    cuda_gru._lib()
-    emit("build", seconds=round(time.perf_counter() - t0, 2))
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for built in [pool.submit(lib) for lib in (cuda_gru._lib, cuda_lstm._lib)]:
+            built.result()
+    emit("build", seconds=round(time.perf_counter() - t0, 2),
+         kernels=["gru_seq", "lstm_seq"])
 
     # 3. kernels against their plain versions on the card
     spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
@@ -137,45 +190,70 @@ def main() -> int:
                 ).abs().max().item()
     check(vdot_err <= 1e-3, f"bf16 vdot with a float32 result: err {vdot_err}")
 
-    cases = []
+    # every case is run and printed before any is checked, so a failing
+    # run still shows all the errors
+    cases, lstm_cases, failures = [], [], []
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for b in (SMOKE_BATCH, 1, 3, 17):
             args = gru_inputs(frames, b, hidden, dtype, seed=b)
             got = cuda_gru.gru_recurrence_cuda(*args, dtype)
             want = cuda_gru.gru_recurrence_plain(*args, dtype)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+            err = max_err(got, want)
             cases.append({"dtype": str(dtype).split(".")[-1], "batch": b,
                           "max_abs_err": err, "tolerance": tol})
-            check(bool(torch.isfinite(got).all()) and err <= tol,
-                  f"gru_seq kernel vs plain, {dtype} B={b}: err {err} > {tol}")
-    # control: the float32 plain version (h never rounded to bf16) on the bf16
-    # inputs must miss the bf16 limit, or the limit could not see that fault
+            if not (all_finite(got) and err <= tol):
+                failures.append(f"gru_seq kernel vs plain, {dtype} B={b}: err {err} > {tol}")
+    for dtype, tol in ((torch.bfloat16, LSTM_BF16_TOL), (torch.float32, LSTM_F32_TOL)):
+        for reverse in (False, True):
+            for b in (SMOKE_BATCH, 1, 3, 17):
+                args = lstm_inputs(frames, b, hidden, dtype, seed=b)
+                got = cuda_lstm.lstm_recurrence_cuda(*args, dtype, reverse)
+                want = cuda_lstm.lstm_recurrence_plain(*args, dtype, reverse)
+                torch.cuda.synchronize()
+                err = max_err(got, want)  # outs and c_last
+                lstm_cases.append({"dtype": str(dtype).split(".")[-1], "batch": b,
+                                   "reverse": reverse, "max_abs_err": err,
+                                   "tolerance": tol})
+                if not (all_finite(got) and err <= tol):
+                    failures.append(f"lstm_seq kernel vs plain, {dtype} B={b} "
+                                    f"reverse={reverse}: err {err} > {tol}")
+    # controls: the float32 plain version (h never rounded to bf16) on the
+    # bf16 inputs must miss the bf16 limit, or the limit could not see that
+    # fault
     args = gru_inputs(frames, SMOKE_BATCH, hidden, torch.bfloat16, seed=SMOKE_BATCH)
-    control_err = (cuda_gru.gru_recurrence_plain(*args, torch.float32)
-                   - cuda_gru.gru_recurrence_plain(*args, torch.bfloat16)
-                   ).abs().max().item()
-    check(control_err > BF16_TOL,
-          f"bf16 limit {BF16_TOL} does not catch an unrounded h: err {control_err}")
+    control_err = max_err(cuda_gru.gru_recurrence_plain(*args, torch.float32),
+                          cuda_gru.gru_recurrence_plain(*args, torch.bfloat16))
+    if control_err <= BF16_TOL:
+        failures.append(f"bf16 limit {BF16_TOL} does not catch an unrounded h "
+                        f"in B1: err {control_err}")
+    args = lstm_inputs(frames, SMOKE_BATCH, hidden, torch.bfloat16, seed=SMOKE_BATCH)
+    lstm_control_err = max_err(cuda_lstm.lstm_recurrence_plain(*args, torch.float32),
+                               cuda_lstm.lstm_recurrence_plain(*args, torch.bfloat16))
+    if lstm_control_err <= LSTM_BF16_TOL:
+        failures.append(f"bf16 limit {LSTM_BF16_TOL} does not catch an unrounded h "
+                        f"in B2: err {lstm_control_err}")
     emit("kernels_vs_plain", vdot_bf16_err=vdot_err, gru_seq=cases,
-         bf16_control_err=control_err)
+         bf16_control_err=control_err, lstm_seq=lstm_cases,
+         lstm_bf16_control_err=lstm_control_err)
+    check(not failures, "; ".join(failures))
 
     # 4. the main path: counts set to 0 just before, read just after
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(rng.standard_normal(
         (SMOKE_BATCH, frames, spec.vid_feat_size)).astype(np.float32)).cuda()
     caption = serving.build_captioner(params, spec, featurizer="none")
-    cuda_gru.launches = 0
+    cuda_gru.launches = cuda_lstm.launches = 0
     tokens = caption(feats)
     torch.cuda.synchronize()
-    main_launches = {"gru_seq": cuda_gru.launches}
+    main_launches = {"gru_seq": cuda_gru.launches, "lstm_seq": cuda_lstm.launches}
     check(tuple(tokens.shape) == (SMOKE_BATCH, spec.max_len)
           and tokens.dtype == torch.int32,
           f"tokens {tuple(tokens.shape)} {tokens.dtype}")
     check(int(tokens.min()) >= 0 and int(tokens.max()) < spec.vocab_size,
           "token outside the vocabulary")
-    check(main_launches["gru_seq"] == 2,
-          f"B1 launched {main_launches['gru_seq']} times, not 2, in one call")
+    check(main_launches == {"gru_seq": 2, "lstm_seq": 0},
+          f"the S2VT captioner launched {main_launches}, not B1 twice and no B2")
 
     spec32 = spec.with_(compute_dtype="float32")
     few = feats[:4]
@@ -187,11 +265,59 @@ def main() -> int:
                                 few.cpu(), emit="logits")
     logit_err = (logits_card - logits_cpu).abs().max().item()
     check(torch.equal(on_card, on_cpu), "float32 tokens differ, card vs CPU")
-    check(bool(torch.isfinite(logits_card).all()) and logit_err <= 1e-3,
+    check(bool(torch.isfinite(logits_card).all()) and logit_err <= LOGIT_TOL,
           f"float32 logits card vs CPU: err {logit_err}")
     emit("main_path", batch=SMOKE_BATCH, tokens_shape=list(tokens.shape),
          tokens_dtype="int32", launches=main_launches,
          f32_tokens_card_eq_cpu=True, f32_logits_max_abs_err=logit_err)
+
+    # 4b. the RationaleNet path: counts set to 0 just before, read just after
+    rspec, rparams = entry.make_spec_and_params(**entry.RATIONALE, device="cuda")
+    rcaption = serving.build_captioner(rparams, rspec, featurizer="none")
+    cuda_gru.launches = cuda_lstm.launches = 0
+    rtokens = rcaption(feats)
+    torch.cuda.synchronize()
+    rationale_launches = {"gru_seq": cuda_gru.launches, "lstm_seq": cuda_lstm.launches}
+    check(tuple(rtokens.shape) == (SMOKE_BATCH, rspec.max_len)
+          and rtokens.dtype == torch.int32,
+          f"rationale tokens {tuple(rtokens.shape)} {rtokens.dtype}")
+    check(int(rtokens.min()) >= 0 and int(rtokens.max()) < rspec.vocab_size,
+          "rationale token outside the vocabulary")
+    check(rationale_launches == {"gru_seq": 2, "lstm_seq": 2},
+          f"the rationale captioner launched {rationale_launches}, not B2 and B1 "
+          "twice each")
+    with torch.inference_mode():
+        # the captioner's own selection: the same default rng
+        again, probs = rationale.apply(rparams, rspec, feats, emit="tokens")
+    share = probs[..., 1].mean().item()
+    check(torch.equal(again, rtokens), "rationale.apply and its captioner disagree")
+    check(0.0 < share < 1.0, f"share of frames selected {share}, not in (0, 1)")
+
+    rspec32 = rspec.with_(compute_dtype="float32")
+    noise = torch.from_numpy(np.random.default_rng(2).gumbel(
+        size=(4, frames, 2)).astype(np.float32))
+    rparams_cpu = params_to(rparams, "cpu")
+    with torch.inference_mode():
+        rlogits_card, rprobs_card = rationale.apply(rparams, rspec32, few,
+                                                    gumbel_noise=noise.cuda())
+        rlogits_cpu, rprobs_cpu = rationale.apply(rparams_cpu, rspec32, few.cpu(),
+                                                  gumbel_noise=noise)
+        rtok_card, _ = rationale.apply(rparams, rspec32, few, emit="tokens",
+                                       gumbel_noise=noise.cuda())
+        rtok_cpu, _ = rationale.apply(rparams_cpu, rspec32, few.cpu(), emit="tokens",
+                                      gumbel_noise=noise)
+    rlogit_err = (rlogits_card.cpu() - rlogits_cpu).abs().max().item()
+    check(torch.equal(rprobs_card.cpu(), rprobs_cpu),
+          "float32 frame selection differs, card vs CPU")
+    check(torch.equal(rtok_card.cpu(), rtok_cpu),
+          "float32 rationale tokens differ, card vs CPU")
+    check(bool(torch.isfinite(rlogits_card).all()) and rlogit_err <= LOGIT_TOL,
+          f"float32 rationale logits card vs CPU: err {rlogit_err}")
+    emit("rationale_path", batch=SMOKE_BATCH, tokens_shape=list(rtokens.shape),
+         tokens_dtype="int32", launches=rationale_launches,
+         frames_selected_share=share, f32_probs_card_eq_cpu=True,
+         f32_tokens_card_eq_cpu=True, f32_logits_max_abs_err=rlogit_err,
+         f32_frames_selected_share=rprobs_cpu[..., 1].mean().item())
 
     # 5. timing at the flagship serving batch
     feats = torch.from_numpy(rng.standard_normal(
@@ -238,17 +364,81 @@ def main() -> int:
                   "max_abs_err": timed_err},
          nvidia_smi=smi)
 
-    worst_bf16 = max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16")
-    worst_f32 = max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")
+    # 5b. RationaleNet timing at its serving batch
+    rfeats = torch.from_numpy(rng.standard_normal(
+        (RATIONALE_BATCH, frames, rspec.vid_feat_size)).astype(np.float32)).cuda()
+    rationale_ms = time_ms(lambda: rcaption(rfeats))
+    gen_params = rparams["gen"]
+    # yardstick only, never called by the port: cuDNN's LSTM, one direction,
+    # on the same xs, which also does the input projection
+    fwd = gen_params["rnn"]["fwd"]
+    lstm = torch.nn.LSTM(rspec.vid_feat_size, hidden).to("cuda", cd)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(fwd["w_ih"].t())
+        lstm.weight_hh_l0.copy_(fwd["w_hh"].t())
+        lstm.bias_ih_l0.copy_(fwd["b_ih"])
+        lstm.bias_hh_l0.copy_(fwd["b_hh"])
+    lstm.flatten_parameters()
+    with torch.inference_mode():
+        rvf = rfeats.to(cd)
+        sel, _ = rationale.generator(
+            gen_params, rspec, rvf, torch.Generator(device="cuda").manual_seed(0))
+        rstages = {
+            "generator_ms": time_ms(lambda: rationale.generator(
+                gen_params, rspec, rvf, torch.Generator(device="cuda").manual_seed(0))),
+            "caption_net_ms": time_ms(lambda: s2vt.apply(
+                rparams["caption_net"], rspec, sel, emit="tokens")),
+        }
+        rxs = rvf.transpose(0, 1).contiguous()
+        per_direction = {}
+        for direction, reverse in (("forward", False), ("backward", True)):
+            p = gen_params["rnn"]["bwd" if reverse else "fwd"]
+            xg = (vdot(rxs.reshape(-1, rxs.shape[-1]), p["w_ih"], cd)
+                  + p["b_ih"]).reshape(frames, RATIONALE_BATCH, 4 * hidden).to(cd)
+            zeros = torch.zeros((RATIONALE_BATCH, hidden), device="cuda")
+            lstm_args = (xg, p["w_hh"].to(cd).contiguous(), p["b_hh"], zeros, zeros,
+                         cd, reverse)
+            k_ms = time_ms(lambda: cuda_lstm.lstm_recurrence_cuda(*lstm_args), iters=5)
+            p_ms = time_ms(lambda: cuda_lstm.lstm_recurrence_plain(*lstm_args))
+            err = max_err(cuda_lstm.lstm_recurrence_cuda(*lstm_args),
+                          cuda_lstm.lstm_recurrence_plain(*lstm_args))
+            check(err <= LSTM_BF16_TOL,
+                  f"lstm_seq {direction} at B={RATIONALE_BATCH}: err {err}")
+            per_direction[direction] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
+        lstm_library_ms = time_ms(lambda: lstm(rxs))
+    lstm_bound, lstm_bound_by = lstm_bound_ms(frames, RATIONALE_BATCH, hidden, PEAKS)
+    lstm_ms = sum(d["ms"] for d in per_direction.values()) / 2
+    lstm_plain_ms = sum(d["plain_ms"] for d in per_direction.values()) / 2
+    emit("timing_rationale", batch=RATIONALE_BATCH, caption_ms=rationale_ms,
+         captions_per_s=RATIONALE_BATCH / (rationale_ms / 1e3), stages=rstages,
+         lstm_seq={"by_direction": per_direction, "library_ms": lstm_library_ms,
+                   "library": "torch.nn.LSTM (cuDNN), one direction, input "
+                              "projection included",
+                   "bound_ms": lstm_bound, "bound_by": lstm_bound_by},
+         nvidia_smi=smi)
+
+    def worst(rows, dtype):
+        return max(c["max_abs_err"] for c in rows if c["dtype"] == dtype)
+
     print(json.dumps({"kernels": [{
         "name": "gru_seq", "route": "cuda",
         "source": "vcr_tpu_torch/ops/csrc/gru_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:24",
         "launches": main_launches["gru_seq"],
-        "max_abs_err": worst_bf16, "tolerance": BF16_TOL,
-        "f32_max_abs_err": worst_f32, "f32_tolerance": F32_TOL,
+        "launches_rationale": rationale_launches["gru_seq"],
+        "max_abs_err": worst(cases, "bfloat16"), "tolerance": BF16_TOL,
+        "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms}]}))
+        "bound_by": bound_by, "library_ms": library_ms}, {
+        "name": "lstm_seq", "route": "cuda",
+        "source": "vcr_tpu_torch/ops/csrc/lstm_seq.cu",
+        "replaces": "vcr_tpu/ops/pallas_gru.py:320",
+        "launches": rationale_launches["lstm_seq"],
+        "max_abs_err": worst(lstm_cases, "bfloat16"), "tolerance": LSTM_BF16_TOL,
+        "f32_max_abs_err": worst(lstm_cases, "float32"),
+        "f32_tolerance": LSTM_F32_TOL,
+        "ms": lstm_ms, "plain_ms": lstm_plain_ms, "bound_ms": lstm_bound,
+        "bound_by": lstm_bound_by, "library_ms": lstm_library_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

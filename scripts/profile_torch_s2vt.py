@@ -1,12 +1,14 @@
-"""Where the time of the port's flagship captioner goes, on one CUDA card.
+"""Where the time of the port's captioners goes, on one CUDA card.
 
-    python scripts/profile_torch_s2vt.py [--batch 2048] [--calls 3]
+    python scripts/profile_torch_s2vt.py [--model s2vt|rationale] [--batch N] [--calls 3]
 
-Builds the flagship S2VT greedy captioner (vcr_tpu_torch.entry.FLAGSHIP, random
-weights from a seed), warms it up, then runs ``--calls`` captioner calls under
-torch.profiler. Prints JSON lines: the wall time per call, the share of that
-time in which the card ran no kernel (the union of kernel intervals against
-the host clock), and the kernels by device time per call. Needs a card.
+Builds the flagship S2VT greedy captioner (vcr_tpu_torch.entry.FLAGSHIP), or
+RationaleNet over it (entry.RATIONALE), with random weights from a seed, at
+its serving batch (2048 and 1024) unless ``--batch`` says otherwise, warms it
+up, then runs ``--calls`` captioner calls under torch.profiler. Prints JSON
+lines: the wall time per call, the share of that time in which the card ran
+no kernel (the union of kernel intervals against the host clock), and the
+kernels by device time per call. Needs a card.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--model", choices=("s2vt", "rationale"), default="s2vt")
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
@@ -54,9 +57,12 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
+    config, serving_batch = {"s2vt": (entry.FLAGSHIP, 2048),
+                             "rationale": (entry.RATIONALE, 1024)}[args.model]
+    batch = args.batch or serving_batch
+    spec, params = entry.make_spec_and_params(**config, device="cuda")
     feats = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (args.batch, spec.num_frames, spec.vid_feat_size)).astype(np.float32)).cuda()
+        (batch, spec.num_frames, spec.vid_feat_size)).astype(np.float32)).cuda()
     caption = serving.build_captioner(params, spec)
     for _ in range(2):
         caption(feats)
@@ -76,7 +82,7 @@ def main() -> int:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
-    print(json.dumps({"batch": args.batch, "calls": args.calls,
+    print(json.dumps({"model": args.model, "batch": batch, "calls": args.calls,
                       "wall_ms_per_call": wall_us / 1e3 / args.calls,
                       "kernel_busy_ms_per_call": busy / 1e3 / args.calls,
                       "device_idle_share": 1.0 - busy / wall_us,

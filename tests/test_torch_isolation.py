@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points never fall back to the CPU unasked, and on a card its kernel
-agrees with its plain version.
+entry points never fall back to the CPU unasked, and on a card its kernels
+agree with their plain versions.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_isolation.py
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from vcr_tpu_torch import entry, serving
-from vcr_tpu_torch.ops import cuda_gru
+from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,7 +32,8 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
     mods = json.loads(out.strip().splitlines()[-1])
-    assert "vcr_tpu_torch.serving" in mods and "vcr_tpu_torch.ops.cuda_gru" in mods
+    for name in ("serving", "ops.cuda_gru", "ops.cuda_lstm", "models.rationale"):
+        assert f"vcr_tpu_torch.{name}" in mods
     bad = [m for m in mods
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "vcr_tpu" or m.startswith("vcr_tpu.")]
@@ -50,6 +51,12 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
         serving.build_captioner(params, spec)
     tokens = serving.build_captioner(params, spec, device="cpu")(
         torch.zeros((2, 2, 6)))
+    assert tokens.shape == (2, 3) and tokens.device.type == "cpu"
+    spec, params = entry.make_spec_and_params(**dims, arch="rationale", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.build_captioner(params, spec)
+    tokens = serving.build_captioner(params, spec, device="cpu")(
+        torch.randn((2, 2, 6)))
     assert tokens.shape == (2, 3) and tokens.device.type == "cpu"
 
 
@@ -77,3 +84,26 @@ def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
         want = cuda_gru.gru_recurrence_plain(x_gates, w_hh, b_hh, h0, dtype)
         torch.cuda.synchronize()
         assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
+def test_lstm_kernel_matches_plain_on_the_card(cuda, dtype, tol, reverse):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t, hidden = 7, 128
+    for b in (1, 3, 8, 17):
+        x_gates = torch.randn((t, b, 4 * hidden), generator=g, device=cuda).to(dtype)
+        w_hh = (torch.randn((hidden, 4 * hidden), generator=g, device=cuda) * 0.06).to(dtype)
+        b_hh = torch.randn((4 * hidden,), generator=g, device=cuda)
+        h0 = torch.randn((b, hidden), generator=g, device=cuda)
+        c0 = torch.randn((b, hidden), generator=g, device=cuda)
+        before = cuda_lstm.launches
+        got = cuda_lstm.lstm_recurrence(x_gates, w_hh, b_hh, h0, c0, dtype, reverse)
+        assert cuda_lstm.launches == before + 1
+        want = cuda_lstm.lstm_recurrence_plain(x_gates, w_hh, b_hh, h0, c0, dtype,
+                                               reverse)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):  # outs, c_last
+            assert (x - y).abs().max().item() <= tol

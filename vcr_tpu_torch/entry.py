@@ -1,5 +1,5 @@
 """Build a model spec and seeded random parameters, as the JAX package's
-``__graft_entry__._make_spec_and_params`` does for its flagship."""
+``__graft_entry__._make_spec_and_params`` does."""
 
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ from vcr_tpu_torch.models import base
 # N=30 frames, L=20 tokens, vocab 9000 padded to 128, bf16 products.
 FLAGSHIP = dict(vocab_size=9000, embed_size=300, hidden=512, vid_feat=4096,
                 max_len=20, num_frames=30)
+# RationaleNet over that S2VT at the same widths (bench_all.py's rationale
+# row): a BiLSTM generator with H=512 picks frames by hard Gumbel-Softmax.
+RATIONALE = dict(FLAGSHIP, arch="rationale", base_arch="s2vt", tau=1.0)
 
 
 def make_spec_and_params(vocab_size: int, embed_size: int, hidden: int,

@@ -58,7 +58,6 @@ _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
 # Families of the JAX package not ported yet, with their ROADMAP items.
 _NOT_PORTED = {
     "s2vt-att": "ROADMAP A9 (S2VT-att)",
-    "rationale": "ROADMAP A10 (RationaleNet)",
     "spatial": "ROADMAP A11 (SpatialNet)",
     "transformer": "ROADMAP A12 (Transformer)",
 }
@@ -69,7 +68,8 @@ def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:
 
 
 def build_model(name: str) -> Tuple[Callable, Callable]:
-    """-> (init_params, apply). Only ``s2vt`` is ported so far."""
+    """-> (init_params, apply). Ported so far: ``s2vt`` and ``rationale``."""
+    import vcr_tpu_torch.models.rationale  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt  # noqa: F401  (registers itself)
 
     if name in _REGISTRY:

@@ -1,12 +1,14 @@
-"""Plain GRU cells with torch.nn.GRU's gate semantics.
+"""Plain GRU and LSTM cells with torch.nn.GRU's and torch.nn.LSTM's gate
+semantics.
 
-The input-to-hidden projection for a whole sequence is one (T·B, I) @ (I, 3H)
-product outside the recurrence; each step then does the (B, H) @ (H, 3H)
-recurrent product and the gate math. Gate order is r, z, n as in torch, and
-the hidden state is carried in float32.
+The input-to-hidden projection for a whole sequence is one (T·B, I) @ (I, kH)
+product outside the recurrence; each step then does the (B, H) @ (H, kH)
+recurrent product and the gate math. Gate order is r, z, n (GRU) and
+i, f, g, o (LSTM) as in torch, and the state is carried in float32.
 
-This is the plain recurrence. The serving path's recurrences go through
-``vcr_tpu_torch.ops.cuda_gru``, whose plain version is :func:`gru_scan`.
+These are the plain recurrences. The serving path's recurrences go through
+``vcr_tpu_torch.ops.cuda_gru`` and ``ops.cuda_lstm``, whose plain versions are
+:func:`gru_scan` and :func:`lstm_scan`.
 """
 
 from __future__ import annotations
@@ -76,3 +78,85 @@ def gru_sequence(params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
         h0 = torch.zeros((b, hidden), dtype=torch.float32, device=xs.device)
     outs = gru_scan(x_gates, params, h0, compute_dtype)
     return outs, outs[-1]
+
+
+# ---------------- LSTM ----------------
+
+def lstm_init(gen: torch.Generator, input_size: int, hidden_size: int) -> dict:
+    """Params for a single-layer LSTM, stored (in, 4H) / (H, 4H), gate order
+    [i | f | g | o]."""
+    return {
+        "w_ih": vinit.rnn_mat_init(gen, input_size, 4 * hidden_size),
+        "w_hh": vinit.rnn_mat_init(gen, hidden_size, 4 * hidden_size),
+        "b_ih": vinit.const_bias(4 * hidden_size),
+        "b_hh": vinit.const_bias(4 * hidden_size),
+    }
+
+
+def lstm_gates(x_gates: torch.Tensor, hc: Tuple[torch.Tensor, torch.Tensor],
+               params, compute_dtype: torch.dtype = torch.bfloat16,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step given precomputed input gates x_gates = x @ w_ih + b_ih.
+
+    i, f, o = σ(x + h·W_hh + b_hh); g = tanh(...); c' = f∘c + i∘g;
+    h' = o∘tanh(c').
+    """
+    h, c = hc
+    h_gates = vdot(h, params["w_hh"], compute_dtype) + params["b_hh"]
+    xi, xf, xg, xo = x_gates.chunk(4, dim=-1)
+    hi, hf, hg, ho = h_gates.chunk(4, dim=-1)
+    i = torch.sigmoid(xi + hi)
+    f = torch.sigmoid(xf + hf)
+    g = torch.tanh(xg + hg)
+    o = torch.sigmoid(xo + ho)
+    c_next = f * c + i * g
+    return o * torch.tanh(c_next), c_next
+
+
+def lstm_scan(x_gates: torch.Tensor, params,
+              hc0: Tuple[torch.Tensor, torch.Tensor],
+              compute_dtype: torch.dtype = torch.bfloat16, reverse: bool = False,
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The recurrence alone: x_gates (T, B, 4H) float32, hc0 two (B, H)
+    float32 -> (outputs (T, B, H), (h_last, c_last)). ``reverse`` walks t
+    from T-1 down to 0 and stores each step's h at its own time index, as
+    ``lax.scan(reverse=True)`` does; the last state is then that of t=0."""
+    hc, outs = hc0, [None] * x_gates.shape[0]
+    order = range(x_gates.shape[0] - 1, -1, -1) if reverse else range(x_gates.shape[0])
+    for t in order:
+        hc = lstm_gates(x_gates[t], hc, params, compute_dtype)
+        outs[t] = hc[0]
+    return torch.stack(outs), hc
+
+
+def lstm_sequence(params, xs: torch.Tensor,
+                  hc0: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  reverse: bool = False,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run an LSTM over xs (T, B, I) -> (outputs (T, B, H), (h_last, c_last)).
+    The input gates stay float32 here."""
+    t, b, i = xs.shape
+    hidden = params["w_hh"].shape[0]
+    x_gates = (vdot(xs.reshape(t * b, i), params["w_ih"], compute_dtype)
+               + params["b_ih"]).reshape(t, b, 4 * hidden)
+    if hc0 is None:
+        zeros = torch.zeros((b, hidden), dtype=torch.float32, device=xs.device)
+        hc0 = (zeros, zeros)
+    return lstm_scan(x_gates, params, hc0, compute_dtype, reverse)
+
+
+def bilstm_init(gen: torch.Generator, input_size: int, hidden_size: int) -> dict:
+    """Bidirectional LSTM: one LSTM per direction."""
+    return {"fwd": lstm_init(gen, input_size, hidden_size),
+            "bwd": lstm_init(gen, input_size, hidden_size)}
+
+
+def bilstm_sequence(params, xs: torch.Tensor,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """xs (T, B, I) -> outputs (T, B, 2H): [forward ; backward], torch's
+    bidirectional layout."""
+    outs_f, _ = lstm_sequence(params["fwd"], xs, compute_dtype=compute_dtype)
+    outs_b, _ = lstm_sequence(params["bwd"], xs, reverse=True,
+                              compute_dtype=compute_dtype)
+    return torch.cat([outs_f, outs_b], dim=-1)

@@ -1,0 +1,144 @@
+"""Fused LSTM sequence: the hand-written CUDA kernel and its plain version.
+
+Counterpart of ``vcr_tpu/ops/pallas_gru.py::lstm_sequence_pallas`` and
+``bilstm_sequence_pallas``. The input projection is one product outside the
+kernel, and its result ``x_gates`` is rounded to the compute dtype as the TPU
+path does; the kernel (``csrc/lstm_seq.cu``) then runs all T steps of the
+recurrence, in either direction, with ``(h, c)`` kept on chip.
+
+A CUDA tensor launches the kernel or raises; the plain version
+:func:`lstm_recurrence_plain` serves CPU tensors only. Forward only: the
+backward comes with the training path (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from vcr_tpu_torch.nn.layers import vdot
+from vcr_tpu_torch.nn.rnn import lstm_scan
+from vcr_tpu_torch.ops import _build
+
+# kernel launches made by lstm_recurrence, for showing that a run went
+# through the kernel
+launches = 0
+
+
+def lstm_recurrence_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                          b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                          compute_dtype: torch.dtype, reverse: bool = False,
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: x_gates (T, B, 4H) in the
+    compute dtype, h0 and c0 (B, H) float32 -> (outs (T, B, H), c_last (B, H))
+    float32."""
+    outs, (_, c_last) = lstm_scan(x_gates.float(), {"w_hh": w_hh, "b_hh": b_hh},
+                                  (h0, c0), compute_dtype, reverse)
+    return outs, c_last
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("lstm_seq")
+    lib.lstm_seq_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                     + [ctypes.c_void_p])
+    lib.lstm_seq_forward.restype = ctypes.c_int
+    lib.lstm_seq_error_string.argtypes = [ctypes.c_int]
+    lib.lstm_seq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def lstm_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                         b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                         compute_dtype: torch.dtype, reverse: bool = False,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current stream; same contract as
+    :func:`lstm_recurrence_plain`, on CUDA tensors."""
+    global launches
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported compute dtype {compute_dtype}")
+    if x_gates.dim() != 3:
+        raise ValueError(f"x_gates must be (T, B, 4H), got {tuple(x_gates.shape)}")
+    if not x_gates.is_cuda:
+        raise ValueError(f"the lstm_seq kernel takes CUDA tensors, got {x_gates.device}")
+    t, b, h4 = x_gates.shape
+    hidden = h4 // 4
+    expected = {
+        "x_gates": (x_gates, (t, b, 4 * hidden), compute_dtype),
+        "w_hh": (w_hh, (hidden, 4 * hidden), compute_dtype),
+        "b_hh": (b_hh, (4 * hidden,), torch.float32),
+        "h0": (h0, (b, hidden), torch.float32),
+        "c0": (c0, (b, hidden), torch.float32),
+    }
+    for name, (x, shape, dtype) in expected.items():
+        if x.device != x_gates.device:
+            raise ValueError(f"{name} must be on {x_gates.device}, got {x.device}")
+        if tuple(x.shape) != shape or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape "
+                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+    if hidden % 4 or t < 1 or b < 1:
+        raise ValueError(f"x_gates shape {tuple(x_gates.shape)}: need T, B >= 1 "
+                         "and a hidden size that is a multiple of 4")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (x_gates, w_hh, b_hh, h0, c0)):
+        raise NotImplementedError(
+            "the CUDA LSTM kernel is forward only; its backward comes with the "
+            "training path (ROADMAP A5)")
+    lib = _lib()
+    out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
+    c_last = torch.empty((b, hidden), dtype=torch.float32, device=x_gates.device)
+    with torch.cuda.device(x_gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lstm_seq_forward(
+            x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), out.data_ptr(), c_last.data_ptr(), t, b, hidden,
+            int(compute_dtype == torch.bfloat16), int(reverse), stream)
+    if err != 0:
+        raise RuntimeError("lstm_seq kernel launch failed: "
+                           + lib.lstm_seq_error_string(err).decode())
+    launches += 1
+    return out, c_last
+
+
+def lstm_recurrence(x_gates, w_hh, b_hh, h0, c0, compute_dtype,
+                    reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x_gates.device.type == "cuda":
+        return lstm_recurrence_cuda(x_gates, w_hh, b_hh, h0, c0, compute_dtype, reverse)
+    if x_gates.device.type == "cpu":
+        return lstm_recurrence_plain(x_gates, w_hh, b_hh, h0, c0, compute_dtype, reverse)
+    raise ValueError(f"no LSTM recurrence for device {x_gates.device}")
+
+
+def lstm_sequence_fused(params, xs: torch.Tensor,
+                        hc0: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        reverse: bool = False,
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """xs (T, B, I) -> (outputs (T, B, H), (h_last, c_last)), all float32.
+    Reversed, the last state is that of t=0, so h_last is outputs[0]."""
+    t, b, i = xs.shape
+    hidden = params["w_hh"].shape[0]
+    x_gates = (vdot(xs.reshape(t * b, i), params["w_ih"], compute_dtype)
+               + params["b_ih"]).reshape(t, b, 4 * hidden).to(compute_dtype)
+    if hc0 is None:
+        zeros = torch.zeros((b, hidden), dtype=torch.float32, device=xs.device)
+        hc0 = (zeros, zeros)
+    outs, c_last = lstm_recurrence(
+        x_gates, params["w_hh"].to(compute_dtype).contiguous(),
+        params["b_hh"].float().contiguous(), hc0[0].float().contiguous(),
+        hc0[1].float().contiguous(), compute_dtype, reverse)
+    return outs, (outs[0] if reverse else outs[-1], c_last)
+
+
+def bilstm_sequence_fused(params, xs: torch.Tensor,
+                          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """xs (T, B, I) -> (T, B, 2H) float32, [forward ; backward]: one kernel
+    launch per direction."""
+    outs_f, _ = lstm_sequence_fused(params["fwd"], xs, compute_dtype=compute_dtype)
+    outs_b, _ = lstm_sequence_fused(params["bwd"], xs, reverse=True,
+                                    compute_dtype=compute_dtype)
+    return torch.cat([outs_f, outs_b], dim=-1)

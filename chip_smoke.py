@@ -10,16 +10,20 @@ exit code and no result line:
    nvcc each, all started together.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged batch sizes, in bf16 and float32
-   (and both directions for the LSTM).
+   (and both directions for the LSTM); B3 and B4 also against B1, and B4
+   twice, since a missing copy fence shows only on some runs.
 4. main paths -- each greedy captioner (features -> tokens, full width,
    random weights from a seed) through serving.build_captioner, with the
    kernel launch counts set to 0 just before and read just after its run:
    the flagship S2VT (B1 twice), then RationaleNet over that S2VT (B2 once
    per direction, then B1 twice); float32 tokens on the card against the
-   CPU, with shared Gumbel noise for RationaleNet.
+   CPU, with shared Gumbel noise for RationaleNet. Then the GRU drop-ins on
+   the flagship encoder's weights and features: gru_sequence_fused_bt (B3
+   once) and gru_sequence_fused_dma (B4 once) against s2vt.encode.
 5. timing  -- CUDA events, best of 3 after warm-up: captions/s of each
    captioner, a stage breakdown, each kernel's time beside its bound, its
-   plain version and a library yardstick.
+   plain version and a library yardstick, and the flagship encoder with
+   and without its feature transpose (B1 against B3).
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -47,7 +51,8 @@ SMOKE_BATCH = 256      # main-path batch of the correctness phases
 TIMING_BATCH = 2048    # flagship serving batch of the timing phase
 RATIONALE_BATCH = 1024  # RationaleNet serving batch of the timing phase
 BF16_TOL = 2e-3        # f32 dots summed in other orders over 30 dependent steps;
-                       # readings were 6.6e-4 (B=256) and 9.8e-4 (B=2048)
+                       # B1, B3 and B4 readings were 8.0e-4 (B=256) and 9.8e-4
+                       # (B=2048)
 F32_TOL = 1e-4         # the same, in float32 with TF32 off
 LSTM_BF16_TOL = 1e-3   # B2 (outs and c_last), the same reason: twice the worst
                        # reading (4.5e-4 at B=256), 2.6x below the control's
@@ -105,6 +110,16 @@ def lstm_inputs(t, b, hidden, dtype, seed):
     h0 = torch.randn((b, hidden), generator=g, device="cuda")
     c0 = torch.randn((b, hidden), generator=g, device="cuda")
     return x_gates, w_hh, b_hh, h0, c0
+
+
+def launch_counts(cuda_gru, cuda_lstm) -> dict:
+    return {"gru_seq": cuda_gru.launches, "gru_seq_bt": cuda_gru.launches_bt,
+            "gru_seq_dma": cuda_gru.launches_dma, "lstm_seq": cuda_lstm.launches}
+
+
+def reset_counts(cuda_gru, cuda_lstm) -> None:
+    cuda_gru.launches = cuda_gru.launches_bt = cuda_gru.launches_dma = 0
+    cuda_lstm.launches = 0
 
 
 def max_err(got, want) -> float:
@@ -174,10 +189,11 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        for built in [pool.submit(lib) for lib in (cuda_gru._lib, cuda_lstm._lib)]:
+        for built in [pool.submit(lib) for lib in
+                      (cuda_gru._lib, cuda_gru._dma_lib, cuda_lstm._lib)]:
             built.result()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
-         kernels=["gru_seq", "lstm_seq"])
+         kernels=["gru_seq", "gru_seq_dma", "lstm_seq"])
 
     # 3. kernels against their plain versions on the card
     spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
@@ -218,6 +234,35 @@ def main() -> int:
                 if not (all_finite(got) and err <= tol):
                     failures.append(f"lstm_seq kernel vs plain, {dtype} B={b} "
                                     f"reverse={reverse}: err {err} > {tol}")
+    # B3 and B4 against their plain versions, and against B1 on the same
+    # inputs; T=1 has no copy ahead and one drain
+    variant_cases, dma_twice_equal = [], True
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for steps, b in [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17)] + [(1, 17)]:
+            args = gru_inputs(steps, b, hidden, dtype, seed=b)
+            want = cuda_gru.gru_recurrence_plain(*args, dtype)
+            b1 = cuda_gru.gru_recurrence_cuda(*args, dtype)
+            x_bt = args[0].transpose(0, 1).contiguous()
+            got = {"gru_seq_bt": cuda_gru.gru_recurrence_bt_cuda(
+                       x_bt, *args[1:], dtype).transpose(0, 1),
+                   "gru_seq_dma": cuda_gru.gru_recurrence_dma_cuda(*args, dtype)}
+            again = cuda_gru.gru_recurrence_dma_cuda(*args, dtype)
+            torch.cuda.synchronize()
+            for name, out in got.items():
+                err = max_err(out, want)
+                variant_cases.append({"kernel": name, "dtype": str(dtype).split(".")[-1],
+                                      "steps": steps, "batch": b, "max_abs_err": err,
+                                      "vs_b1_max_abs_err": max_err(out, b1),
+                                      "tolerance": tol})
+                if not (all_finite(out) and err <= tol):
+                    failures.append(f"{name} kernel vs plain, {dtype} T={steps} B={b}: "
+                                    f"err {err} > {tol}")
+            if not torch.equal(again, got["gru_seq_dma"]):
+                dma_twice_equal = False
+                failures.append(f"gru_seq_dma gave two outputs on one input, {dtype} "
+                                f"T={steps} B={b}")
+    dma_tiles = {str(dtype).split(".")[-1]: cuda_gru.dma_batch_tile(hidden, dtype)
+                 for dtype in (torch.bfloat16, torch.float32)}
     # controls: the float32 plain version (h never rounded to bf16) on the
     # bf16 inputs must miss the bf16 limit, or the limit could not see that
     # fault
@@ -235,7 +280,10 @@ def main() -> int:
                         f"in B2: err {lstm_control_err}")
     emit("kernels_vs_plain", vdot_bf16_err=vdot_err, gru_seq=cases,
          bf16_control_err=control_err, lstm_seq=lstm_cases,
-         lstm_bf16_control_err=lstm_control_err)
+         lstm_bf16_control_err=lstm_control_err, gru_variants=variant_cases,
+         gru_seq_dma_twice_equal=dma_twice_equal, gru_seq_dma_batch_tile=dma_tiles,
+         gru_seq_dma_blocks={k: -(-TIMING_BATCH // v) for k, v in dma_tiles.items()},
+         gru_seq_dma_blocks_batch=TIMING_BATCH)
     check(not failures, "; ".join(failures))
 
     # 4. the main path: counts set to 0 just before, read just after
@@ -243,17 +291,18 @@ def main() -> int:
     feats = torch.from_numpy(rng.standard_normal(
         (SMOKE_BATCH, frames, spec.vid_feat_size)).astype(np.float32)).cuda()
     caption = serving.build_captioner(params, spec, featurizer="none")
-    cuda_gru.launches = cuda_lstm.launches = 0
+    reset_counts(cuda_gru, cuda_lstm)
     tokens = caption(feats)
     torch.cuda.synchronize()
-    main_launches = {"gru_seq": cuda_gru.launches, "lstm_seq": cuda_lstm.launches}
+    main_launches = launch_counts(cuda_gru, cuda_lstm)
     check(tuple(tokens.shape) == (SMOKE_BATCH, spec.max_len)
           and tokens.dtype == torch.int32,
           f"tokens {tuple(tokens.shape)} {tokens.dtype}")
     check(int(tokens.min()) >= 0 and int(tokens.max()) < spec.vocab_size,
           "token outside the vocabulary")
-    check(main_launches == {"gru_seq": 2, "lstm_seq": 0},
-          f"the S2VT captioner launched {main_launches}, not B1 twice and no B2")
+    check(main_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
+                            "lstm_seq": 0},
+          f"the S2VT captioner launched {main_launches}, not B1 twice and nothing else")
 
     spec32 = spec.with_(compute_dtype="float32")
     few = feats[:4]
@@ -274,18 +323,19 @@ def main() -> int:
     # 4b. the RationaleNet path: counts set to 0 just before, read just after
     rspec, rparams = entry.make_spec_and_params(**entry.RATIONALE, device="cuda")
     rcaption = serving.build_captioner(rparams, rspec, featurizer="none")
-    cuda_gru.launches = cuda_lstm.launches = 0
+    reset_counts(cuda_gru, cuda_lstm)
     rtokens = rcaption(feats)
     torch.cuda.synchronize()
-    rationale_launches = {"gru_seq": cuda_gru.launches, "lstm_seq": cuda_lstm.launches}
+    rationale_launches = launch_counts(cuda_gru, cuda_lstm)
     check(tuple(rtokens.shape) == (SMOKE_BATCH, rspec.max_len)
           and rtokens.dtype == torch.int32,
           f"rationale tokens {tuple(rtokens.shape)} {rtokens.dtype}")
     check(int(rtokens.min()) >= 0 and int(rtokens.max()) < rspec.vocab_size,
           "rationale token outside the vocabulary")
-    check(rationale_launches == {"gru_seq": 2, "lstm_seq": 2},
+    check(rationale_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
+                                 "lstm_seq": 2},
           f"the rationale captioner launched {rationale_launches}, not B2 and B1 "
-          "twice each")
+          "twice each and nothing else")
     with torch.inference_mode():
         # the captioner's own selection: the same default rng
         again, probs = rationale.apply(rparams, rspec, feats, emit="tokens")
@@ -319,21 +369,57 @@ def main() -> int:
          f32_tokens_card_eq_cpu=True, f32_logits_max_abs_err=rlogit_err,
          f32_frames_selected_share=rprobs_cpu[..., 1].mean().item())
 
+    # 4c. the GRU drop-ins on the flagship encoder's own weights and features:
+    # counts set to 0 just before each call, read just after
+    cd = spec.cdtype
+    rnn1 = params["rnn1"]
+    with torch.inference_mode():
+        vf = feats.to(cd)
+        enc_outs, enc_last = s2vt.encode(params, spec, vf)  # B1, (N, B, H)
+        reset_counts(cuda_gru, cuda_lstm)
+        bt_outs, bt_last = cuda_gru.gru_sequence_fused_bt(rnn1, vf, compute_dtype=cd)
+        torch.cuda.synchronize()
+        bt_launches = launch_counts(cuda_gru, cuda_lstm)
+        reset_counts(cuda_gru, cuda_lstm)
+        dma_outs, dma_last = cuda_gru.gru_sequence_fused_dma(
+            rnn1, vf.transpose(0, 1), compute_dtype=cd)
+        torch.cuda.synchronize()
+        dma_launches = launch_counts(cuda_gru, cuda_lstm)
+    check(bt_launches == {"gru_seq": 0, "gru_seq_bt": 1, "gru_seq_dma": 0, "lstm_seq": 0},
+          f"gru_sequence_fused_bt launched {bt_launches}, not B3 once and nothing else")
+    check(dma_launches == {"gru_seq": 0, "gru_seq_bt": 0, "gru_seq_dma": 1, "lstm_seq": 0},
+          f"gru_sequence_fused_dma launched {dma_launches}, not B4 once and nothing else")
+    check(tuple(bt_outs.shape) == (SMOKE_BATCH, frames, hidden)
+          and tuple(dma_outs.shape) == (frames, SMOKE_BATCH, hidden),
+          f"drop-in outputs {tuple(bt_outs.shape)} and {tuple(dma_outs.shape)}")
+    bt_enc_err = max_err((bt_outs.transpose(0, 1), bt_last), (enc_outs, enc_last))
+    dma_enc_err = max_err((dma_outs, dma_last), (enc_outs, enc_last))
+    check(all_finite((bt_outs, dma_outs)) and bt_enc_err <= BF16_TOL
+          and dma_enc_err <= BF16_TOL,
+          f"drop-ins against s2vt.encode: B3 err {bt_enc_err}, B4 err {dma_enc_err}")
+    emit("gru_variants_path", batch=SMOKE_BATCH, frames=frames, hidden=hidden,
+         input_size=spec.vid_feat_size, launches_bt=bt_launches,
+         launches_dma=dma_launches, bt_vs_encode_max_abs_err=bt_enc_err,
+         dma_vs_encode_max_abs_err=dma_enc_err, tolerance=BF16_TOL)
+
     # 5. timing at the flagship serving batch
     feats = torch.from_numpy(rng.standard_normal(
         (TIMING_BATCH, frames, spec.vid_feat_size)).astype(np.float32)).cuda()
     caption_ms = time_ms(lambda: caption(feats))
-    cd = spec.cdtype
-    # yardstick only, never called by the port: cuDNN's GRU on the same xs,
-    # which also does the input projection
-    rnn1 = params["rnn1"]
-    gru = torch.nn.GRU(spec.vid_feat_size, hidden).to("cuda", cd)
-    with torch.no_grad():
-        gru.weight_ih_l0.copy_(rnn1["w_ih"].t())
-        gru.weight_hh_l0.copy_(rnn1["w_hh"].t())
-        gru.bias_ih_l0.copy_(rnn1["b_ih"])
-        gru.bias_hh_l0.copy_(rnn1["b_hh"])
-    gru.flatten_parameters()
+    # yardsticks only, never called by the port: cuDNN's GRU on the same xs,
+    # time-major and batch-major, which also does the input projection
+    grus = {}
+    for batch_first in (False, True):
+        gru = torch.nn.GRU(spec.vid_feat_size, hidden,
+                           batch_first=batch_first).to("cuda", cd)
+        with torch.no_grad():
+            gru.weight_ih_l0.copy_(rnn1["w_ih"].t())
+            gru.weight_hh_l0.copy_(rnn1["w_hh"].t())
+            gru.bias_ih_l0.copy_(rnn1["b_ih"])
+            gru.bias_hh_l0.copy_(rnn1["b_hh"])
+        gru.flatten_parameters()
+        grus[batch_first] = gru
+    gru = grus[False]
     with torch.inference_mode():
         vf = feats.to(cd)
         enc_outs, state1 = s2vt.encode(params, spec, vf)
@@ -349,12 +435,38 @@ def main() -> int:
                    + rnn1["b_ih"]).reshape(frames, TIMING_BATCH, 3 * hidden).to(cd)
         gru_args = (x_gates, rnn1["w_hh"].to(cd).contiguous(), rnn1["b_hh"],
                     torch.zeros((TIMING_BATCH, hidden), device="cuda"), cd)
-        kernel_ms = time_ms(lambda: cuda_gru.gru_recurrence_cuda(*gru_args), iters=5)
+        # B1, then B3 on the same gates in batch-major layout and B4 on B1's
+        # inputs, timed in turns (forward order, then backward) on one card
+        bt_args = (x_gates.transpose(0, 1).contiguous(),) + gru_args[1:]
+        gru_runs = {
+            "gru_seq": lambda: cuda_gru.gru_recurrence_cuda(*gru_args),
+            "gru_seq_bt": lambda: cuda_gru.gru_recurrence_bt_cuda(*bt_args),
+            "gru_seq_dma": lambda: cuda_gru.gru_recurrence_dma_cuda(*gru_args)}
+        gru_ms = dict.fromkeys(gru_runs, float("inf"))
+        for order in (list(gru_runs), list(gru_runs)[::-1]):
+            for name in order:
+                gru_ms[name] = min(gru_ms[name], time_ms(gru_runs[name], iters=5))
+        kernel_ms, bt_ms, dma_ms = gru_ms.values()
+        # B4's plain version is B1's
         plain_ms = time_ms(lambda: cuda_gru.gru_recurrence_plain(*gru_args))
-        timed_err = (cuda_gru.gru_recurrence_cuda(*gru_args)
-                     - cuda_gru.gru_recurrence_plain(*gru_args)).abs().max().item()
-        check(timed_err <= BF16_TOL, f"gru_seq at B={TIMING_BATCH}: err {timed_err}")
+        bt_plain_ms = time_ms(lambda: cuda_gru.gru_recurrence_bt_plain(*bt_args))
+        want = cuda_gru.gru_recurrence_plain(*gru_args)
+        b1_out = gru_runs["gru_seq"]()
+        bt_out = gru_runs["gru_seq_bt"]().transpose(0, 1)
+        dma_out = gru_runs["gru_seq_dma"]()
+        timed_err, bt_err, dma_err = (max_err(out, want) for out in (b1_out, bt_out, dma_out))
+        check(max(timed_err, bt_err, dma_err) <= BF16_TOL,
+              f"B1, B3 and B4 at B={TIMING_BATCH}: errs {timed_err}, {bt_err}, {dma_err}")
         library_ms = time_ms(lambda: gru(xs))
+        bt_library_ms = time_ms(lambda: grus[True](vf))
+        # the whole encoder both ways, in turns: feature transpose + projection
+        # + B1, against projection + B3 on the features as they come
+        encoder = {"transpose_b1_ms": float("inf"), "b3_ms": float("inf")}
+        for _ in range(2):
+            encoder["transpose_b1_ms"] = min(encoder["transpose_b1_ms"], time_ms(
+                lambda: s2vt.encode(params, spec, vf)))
+            encoder["b3_ms"] = min(encoder["b3_ms"], time_ms(
+                lambda: cuda_gru.gru_sequence_fused_bt(rnn1, vf, compute_dtype=cd)))
     bound_ms, bound_by = gru_bound_ms(frames, TIMING_BATCH, hidden, PEAKS)
     emit("timing", batch=TIMING_BATCH, caption_ms=caption_ms,
          captions_per_s=TIMING_BATCH / (caption_ms / 1e3), stages=stages,
@@ -362,7 +474,18 @@ def main() -> int:
                   "library": "torch.nn.GRU (cuDNN), input projection included",
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "max_abs_err": timed_err},
-         nvidia_smi=smi)
+         gru_seq_bt={"ms": bt_ms, "plain_ms": bt_plain_ms, "library_ms": bt_library_ms,
+                     "library": "torch.nn.GRU(batch_first=True) (cuDNN), input "
+                                "projection included",
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": bt_err,
+                     "vs_b1_max_abs_err": max_err(bt_out, b1_out)},
+         gru_seq_dma={"ms": dma_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "library": "torch.nn.GRU (cuDNN), input projection included",
+                      "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": dma_err,
+                      "vs_b1_max_abs_err": max_err(dma_out, b1_out),
+                      "batch_tile": dma_tiles["bfloat16"],
+                      "blocks": -(-TIMING_BATCH // dma_tiles["bfloat16"])},
+         encoder=encoder, nvidia_smi=smi)
 
     # 5b. RationaleNet timing at its serving batch
     rfeats = torch.from_numpy(rng.standard_normal(
@@ -417,8 +540,9 @@ def main() -> int:
                    "bound_ms": lstm_bound, "bound_by": lstm_bound_by},
          nvidia_smi=smi)
 
-    def worst(rows, dtype):
-        return max(c["max_abs_err"] for c in rows if c["dtype"] == dtype)
+    def worst(rows, dtype, kernel=None):
+        return max(c["max_abs_err"] for c in rows
+                   if c["dtype"] == dtype and c.get("kernel") == kernel)
 
     print(json.dumps({"kernels": [{
         "name": "gru_seq", "route": "cuda",
@@ -430,6 +554,28 @@ def main() -> int:
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms}, {
+        "name": "gru_seq_bt", "route": "cuda",
+        "source": "vcr_tpu_torch/ops/csrc/gru_seq.cu",
+        "replaces": "vcr_tpu/ops/pallas_gru.py:24",
+        "via": "vcr_tpu/ops/pallas_gru.py:297 (time_major=False)",
+        "launches": bt_launches["gru_seq_bt"],
+        "max_abs_err": worst(variant_cases, "bfloat16", "gru_seq_bt"),
+        "tolerance": BF16_TOL,
+        "f32_max_abs_err": worst(variant_cases, "float32", "gru_seq_bt"),
+        "f32_tolerance": F32_TOL,
+        "ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": bt_library_ms}, {
+        "name": "gru_seq_dma", "route": "cuda",
+        "source": "vcr_tpu_torch/ops/csrc/gru_seq_dma.cu",
+        "replaces": "vcr_tpu/ops/pallas_gru.py:181",
+        "launches": dma_launches["gru_seq_dma"],
+        "max_abs_err": worst(variant_cases, "bfloat16", "gru_seq_dma"),
+        "tolerance": BF16_TOL,
+        "f32_max_abs_err": worst(variant_cases, "float32", "gru_seq_dma"),
+        "f32_tolerance": F32_TOL,
+        "ms": dma_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "batch_tile": dma_tiles["bfloat16"]}, {
         "name": "lstm_seq", "route": "cuda",
         "source": "vcr_tpu_torch/ops/csrc/lstm_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:320",

@@ -87,8 +87,39 @@ def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("variant", ["bt", "dma"])
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
+def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
+    """B3 (batch-major) and B4 (bulk-copy pipeline) against their plain
+    versions; each launch moves its own counter and not B1's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t, hidden = 7, 128
+    wrapper, plain, counter = {
+        "bt": (cuda_gru.gru_recurrence_bt, cuda_gru.gru_recurrence_bt_plain,
+               "launches_bt"),
+        "dma": (cuda_gru.gru_recurrence_dma, cuda_gru.gru_recurrence_plain,
+                "launches_dma"),
+    }[variant]
+    for b in (1, 3, 8, 17):
+        shape = (b, t, 3 * hidden) if variant == "bt" else (t, b, 3 * hidden)
+        x_gates = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        w_hh = (torch.randn((hidden, 3 * hidden), generator=g, device=cuda) * 0.06).to(dtype)
+        b_hh = torch.randn((3 * hidden,), generator=g, device=cuda)
+        h0 = torch.randn((b, hidden), generator=g, device=cuda)
+        before, b1_before = getattr(cuda_gru, counter), cuda_gru.launches
+        got = wrapper(x_gates, w_hh, b_hh, h0, dtype)
+        assert getattr(cuda_gru, counter) == before + 1
+        assert cuda_gru.launches == b1_before
+        want = plain(x_gates, w_hh, b_hh, h0, dtype)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 1e-3), (torch.float32, 1e-4)])
 def test_lstm_kernel_matches_plain_on_the_card(cuda, dtype, tol, reverse):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(0)

@@ -1,14 +1,24 @@
-"""Fused GRU sequence: the hand-written CUDA kernel and its plain version.
+"""Fused GRU sequences: the hand-written CUDA kernels and their plain version.
 
-Counterpart of ``vcr_tpu/ops/pallas_gru.py::gru_sequence_pallas``. The input
-projection is one product outside the kernel, and its result ``x_gates`` is
-rounded to the compute dtype as the TPU path does; the kernel
-(``csrc/gru_seq.cu``) then runs all T steps of the recurrence with the hidden
-state kept on chip.
+Three drop-ins, one per kernel of ``vcr_tpu/ops/pallas_gru.py``, all
+computing one function:
 
-A CUDA tensor launches the kernel or raises; the plain version
-:func:`gru_recurrence_plain` serves CPU tensors only. Forward only: the
-backward comes with the training path (ROADMAP A5).
+* :func:`gru_sequence_fused`, counterpart of ``gru_sequence_pallas``
+  (kernel B1, time-major, ``csrc/gru_seq.cu``): the captioners' path;
+* :func:`gru_sequence_fused_bt`, counterpart of ``gru_sequence_pallas_bt``
+  (kernel B3, the same source in its batch-major form): (B, T, I) in,
+  (B, T, H) out, with no transpose;
+* :func:`gru_sequence_fused_dma`, counterpart of ``gru_sequence_pallas_dma``
+  (kernel B4, ``csrc/gru_seq_dma.cu``): B1's function, with ``x_gates``
+  copied ahead and outputs copied back by TMA bulk copies on ``mbarrier``s.
+
+Each does the input projection as one product outside the kernel and rounds
+its result ``x_gates`` to the compute dtype as the TPU path does; the kernel
+then runs all T steps of the recurrence with the hidden state kept on chip.
+
+A CUDA tensor launches the kernel or raises; the plain versions serve CPU
+tensors only. Forward only: B1's backward comes with the training path
+(ROADMAP A5); B3 and B4 have none in the JAX package either.
 """
 
 from __future__ import annotations
@@ -23,47 +33,76 @@ from vcr_tpu_torch.nn.layers import vdot
 from vcr_tpu_torch.nn.rnn import gru_scan
 from vcr_tpu_torch.ops import _build
 
-# kernel launches made by gru_recurrence, for showing that a run went
-# through the kernel
+# kernel launches made by gru_recurrence (B1), gru_recurrence_bt (B3) and
+# gru_recurrence_dma (B4), for showing that a run went through each kernel
 launches = 0
+launches_bt = 0
+launches_dma = 0
 
 
 def gru_recurrence_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
                          b_hh: torch.Tensor, h0: torch.Tensor,
                          compute_dtype: torch.dtype) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: x_gates (T, B, 3H) in the
-    compute dtype, h0 (B, H) float32 -> outs (T, B, H) float32."""
+    """The function of kernels B1 and B4 in plain PyTorch: x_gates (T, B, 3H)
+    in the compute dtype, h0 (B, H) float32 -> outs (T, B, H) float32."""
     return gru_scan(x_gates.float(), {"w_hh": w_hh, "b_hh": b_hh}, h0,
                     compute_dtype)
+
+
+def gru_recurrence_bt_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                            b_hh: torch.Tensor, h0: torch.Tensor,
+                            compute_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel B3's function in plain PyTorch: x_gates (B, T, 3H) -> outs
+    (B, T, H) float32."""
+    return gru_recurrence_plain(x_gates.transpose(0, 1), w_hh, b_hh, h0,
+                                compute_dtype).transpose(0, 1)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru_seq")
-    lib.gru_seq_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                                    + [ctypes.c_void_p])
-    lib.gru_seq_forward.restype = ctypes.c_int
+    for fn in (lib.gru_seq_forward, lib.gru_seq_bt_forward):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.gru_seq_error_string.argtypes = [ctypes.c_int]
     lib.gru_seq_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def gru_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
-                        b_hh: torch.Tensor, h0: torch.Tensor,
-                        compute_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the kernel on the current stream; same contract as
-    :func:`gru_recurrence_plain`, on CUDA tensors."""
-    global launches
+@functools.lru_cache(maxsize=None)
+def _dma_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_seq_dma")
+    lib.gru_seq_dma_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p])
+    lib.gru_seq_dma_forward.restype = ctypes.c_int
+    lib.gru_seq_dma_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gru_seq_dma_rows.restype = ctypes.c_int
+    lib.gru_seq_dma_error_string.argtypes = [ctypes.c_int]
+    lib.gru_seq_dma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def dma_batch_tile(hidden: int, compute_dtype: torch.dtype) -> int:
+    """Batch rows per block that kernel B4 takes on the current card: the
+    largest of 16, 8, 4, 2, 1 whose buffers fit a block's shared memory."""
+    return _dma_lib().gru_seq_dma_rows(hidden, int(compute_dtype == torch.bfloat16))
+
+
+def _check(kernel: str, x_gates, w_hh, b_hh, h0, compute_dtype, batch_major: bool,
+           hidden_multiple: int, no_grad_reason: str) -> Tuple[int, int, int]:
+    """Raise on what ``kernel`` cannot take; return (T, B, H)."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported compute dtype {compute_dtype}")
+    layout = "(B, T, 3H)" if batch_major else "(T, B, 3H)"
     if x_gates.dim() != 3:
-        raise ValueError(f"x_gates must be (T, B, 3H), got {tuple(x_gates.shape)}")
-    if not x_gates.is_cuda:
-        raise ValueError(f"the gru_seq kernel takes CUDA tensors, got {x_gates.device}")
-    t, b, h3 = x_gates.shape
+        raise ValueError(f"x_gates must be {layout}, got {tuple(x_gates.shape)}")
+    if batch_major:
+        b, t, h3 = x_gates.shape
+    else:
+        t, b, h3 = x_gates.shape
     hidden = h3 // 3
     expected = {
-        "x_gates": (x_gates, (t, b, 3 * hidden), compute_dtype),
+        "x_gates": (x_gates, tuple(x_gates.shape[:2]) + (3 * hidden,), compute_dtype),
         "w_hh": (w_hh, (hidden, 3 * hidden), compute_dtype),
         "b_hh": (b_hh, (3 * hidden,), torch.float32),
         "h0": (h0, (b, hidden), torch.float32),
@@ -74,49 +113,151 @@ def gru_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
         if tuple(x.shape) != shape or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape "
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
-    if h3 % 3 or hidden % 4 or t < 1 or b < 1:
-        raise ValueError(f"x_gates shape {tuple(x_gates.shape)}: need T, B >= 1 "
-                         "and a hidden size that is a multiple of 4")
+    if hidden % hidden_multiple or t < 1 or b < 1:
+        raise ValueError(f"x_gates shape {tuple(x_gates.shape)}: need T, B >= 1 and "
+                         f"a hidden size that is a multiple of {hidden_multiple}")
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (x_gates, w_hh, b_hh, h0)):
-        raise NotImplementedError(
-            "the CUDA GRU kernel is forward only; its backward comes with the "
-            "training path (ROADMAP A5)")
-    lib = _lib()
-    out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
+        raise NotImplementedError(f"the CUDA {kernel} kernel is forward only; "
+                                  + no_grad_reason)
+    if not x_gates.is_cuda:
+        raise ValueError(f"the {kernel} kernel takes CUDA tensors, got {x_gates.device}")
+    return t, b, hidden
+
+
+def _launch(fn, error_string, kernel: str, x_gates, w_hh, b_hh, h0, out, t, b, hidden,
+            compute_dtype) -> None:
     with torch.cuda.device(x_gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_seq_forward(
-            x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-            out.data_ptr(), t, b, hidden, int(compute_dtype == torch.bfloat16),
-            stream)
+        err = fn(x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+                 out.data_ptr(), t, b, hidden, int(compute_dtype == torch.bfloat16),
+                 stream)
     if err != 0:
-        raise RuntimeError("gru_seq kernel launch failed: "
-                           + lib.gru_seq_error_string(err).decode())
+        raise RuntimeError(f"{kernel} kernel launch failed: "
+                           + error_string(err).decode())
+
+
+_B1_NO_GRAD = "its backward comes with the training path (ROADMAP A5)"
+_DROP_IN_NO_GRAD = ("the JAX package's gru_sequence_pallas_bt and "
+                    "gru_sequence_pallas_dma have no gradient either")
+
+
+def gru_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                        b_hh: torch.Tensor, h0: torch.Tensor,
+                        compute_dtype: torch.dtype) -> torch.Tensor:
+    """Launch kernel B1 on the current stream; same contract as
+    :func:`gru_recurrence_plain`, on CUDA tensors."""
+    global launches
+    t, b, hidden = _check("gru_seq", x_gates, w_hh, b_hh, h0, compute_dtype,
+                          batch_major=False, hidden_multiple=4,
+                          no_grad_reason=_B1_NO_GRAD)
+    lib = _lib()
+    out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
+    _launch(lib.gru_seq_forward, lib.gru_seq_error_string, "gru_seq", x_gates, w_hh,
+            b_hh, h0, out, t, b, hidden, compute_dtype)
     launches += 1
     return out
 
 
-def gru_recurrence(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
+def gru_recurrence_bt_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                           b_hh: torch.Tensor, h0: torch.Tensor,
+                           compute_dtype: torch.dtype) -> torch.Tensor:
+    """Launch kernel B3 on the current stream; same contract as
+    :func:`gru_recurrence_bt_plain`, on CUDA tensors."""
+    global launches_bt
+    t, b, hidden = _check("gru_seq_bt", x_gates, w_hh, b_hh, h0, compute_dtype,
+                          batch_major=True, hidden_multiple=4,
+                          no_grad_reason=_DROP_IN_NO_GRAD)
+    lib = _lib()
+    out = torch.empty((b, t, hidden), dtype=torch.float32, device=x_gates.device)
+    _launch(lib.gru_seq_bt_forward, lib.gru_seq_error_string, "gru_seq_bt", x_gates,
+            w_hh, b_hh, h0, out, t, b, hidden, compute_dtype)
+    launches_bt += 1
+    return out
+
+
+def gru_recurrence_dma_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                            b_hh: torch.Tensor, h0: torch.Tensor,
+                            compute_dtype: torch.dtype) -> torch.Tensor:
+    """Launch kernel B4 on the current stream. Its plain version is
+    :func:`gru_recurrence_plain`: B4 computes B1's function. Bulk copies need
+    16-byte rows, so the hidden size must be a multiple of 8."""
+    global launches_dma
+    t, b, hidden = _check("gru_seq_dma", x_gates, w_hh, b_hh, h0, compute_dtype,
+                          batch_major=False, hidden_multiple=8,
+                          no_grad_reason=_DROP_IN_NO_GRAD)
+    if x_gates.data_ptr() % 16:
+        raise ValueError("the gru_seq_dma kernel needs x_gates on a 16-byte boundary")
+    lib = _dma_lib()
+    out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
+    _launch(lib.gru_seq_dma_forward, lib.gru_seq_dma_error_string, "gru_seq_dma",
+            x_gates, w_hh, b_hh, h0, out, t, b, hidden, compute_dtype)
+    launches_dma += 1
+    return out
+
+
+def _dispatch(cuda_fn, plain_fn, x_gates, *args) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if x_gates.device.type == "cuda":
-        return gru_recurrence_cuda(x_gates, w_hh, b_hh, h0, compute_dtype)
+        return cuda_fn(x_gates, *args)
     if x_gates.device.type == "cpu":
-        return gru_recurrence_plain(x_gates, w_hh, b_hh, h0, compute_dtype)
+        return plain_fn(x_gates, *args)
     raise ValueError(f"no GRU recurrence for device {x_gates.device}")
+
+
+def gru_recurrence(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
+    """B1 on CUDA tensors, the plain version on CPU tensors."""
+    return _dispatch(gru_recurrence_cuda, gru_recurrence_plain,
+                     x_gates, w_hh, b_hh, h0, compute_dtype)
+
+
+def gru_recurrence_bt(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
+    """B3 on CUDA tensors, the plain version on CPU tensors."""
+    return _dispatch(gru_recurrence_bt_cuda, gru_recurrence_bt_plain,
+                     x_gates, w_hh, b_hh, h0, compute_dtype)
+
+
+def gru_recurrence_dma(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
+    """B4 on CUDA tensors, the plain version on CPU tensors."""
+    return _dispatch(gru_recurrence_dma_cuda, gru_recurrence_plain,
+                     x_gates, w_hh, b_hh, h0, compute_dtype)
+
+
+def _run(recurrence, params, xs, h0, batch, compute_dtype):
+    """Project xs (..., I) to x_gates in the compute dtype, with one product
+    over all rows in their given order, then run ``recurrence`` on it."""
+    hidden = params["w_hh"].shape[0]
+    x_gates = (vdot(xs.reshape(-1, xs.shape[-1]), params["w_ih"], compute_dtype)
+               + params["b_ih"]).reshape(*xs.shape[:2], 3 * hidden).to(compute_dtype)
+    if h0 is None:
+        h0 = torch.zeros((batch, hidden), dtype=torch.float32, device=xs.device)
+    return recurrence(x_gates, params["w_hh"].to(compute_dtype).contiguous(),
+                      params["b_hh"].float().contiguous(), h0.float().contiguous(),
+                      compute_dtype)
 
 
 def gru_sequence_fused(params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
                        compute_dtype: torch.dtype = torch.bfloat16,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xs (T, B, I) -> (outputs (T, B, H) float32, h_last (B, H) float32)."""
-    t, b, i = xs.shape
-    hidden = params["w_hh"].shape[0]
-    x_gates = (vdot(xs.reshape(t * b, i), params["w_ih"], compute_dtype)
-               + params["b_ih"]).reshape(t, b, 3 * hidden).to(compute_dtype)
-    if h0 is None:
-        h0 = torch.zeros((b, hidden), dtype=torch.float32, device=xs.device)
-    outs = gru_recurrence(x_gates, params["w_hh"].to(compute_dtype).contiguous(),
-                          params["b_hh"].float().contiguous(),
-                          h0.float().contiguous(), compute_dtype)
+    """xs (T, B, I) -> (outputs (T, B, H) float32, h_last (B, H) float32),
+    through kernel B1."""
+    outs = _run(gru_recurrence, params, xs, h0, xs.shape[1], compute_dtype)
+    return outs, outs[-1]
+
+
+def gru_sequence_fused_bt(params, xs_bt: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-major: xs (B, T, I) -> (outputs (B, T, H) float32, h_last (B, H)
+    float32), through kernel B3. Neither xs nor x_gates is transposed."""
+    outs = _run(gru_recurrence_bt, params, xs_bt, h0, xs_bt.shape[0], compute_dtype)
+    return outs, outs[:, -1]
+
+
+def gru_sequence_fused_dma(params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                           compute_dtype: torch.dtype = torch.bfloat16,
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xs (T, B, I) -> (outputs (T, B, H) float32, h_last (B, H) float32),
+    through kernel B4."""
+    outs = _run(gru_recurrence_dma, params, xs, h0, xs.shape[1], compute_dtype)
     return outs, outs[-1]

@@ -7,23 +7,30 @@ exit code and no result line:
 
 1. device  -- the card's name, and its name and power limit from nvidia-smi.
 2. build   -- compile every CUDA source under vcr_tpu_torch/ops/csrc/, one
-   nvcc each, all started together.
+   nvcc each, all started together; then the geometry of B1's and B3's
+   tensor-core body: cluster size, the clusters the card holds at once
+   (cudaOccupancyMaxActiveClusters) and the rows per cluster at each
+   checked batch.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged batch sizes, in bf16 and float32
-   (and both directions for the LSTM); B3 and B4 also against B1, and B4
-   twice, since a missing copy fence shows only on some runs.
+   (and both directions for the LSTM), B1 and B3 also at the serving
+   batches 1024 and 2048 in bf16; B3 equal to B1 bit for bit (one body),
+   B4 against B1 reported, and B4 twice, since a missing copy fence shows
+   only on some runs.
 4. main paths -- each greedy captioner (features -> tokens, full width,
    random weights from a seed) through serving.build_captioner, with the
    kernel launch counts set to 0 just before and read just after its run:
-   the flagship S2VT (B1 twice), then RationaleNet over that S2VT (B2 once
-   per direction, then B1 twice); float32 tokens on the card against the
-   CPU, with shared Gumbel noise for RationaleNet. Then the GRU drop-ins on
-   the flagship encoder's weights and features: gru_sequence_fused_bt (B3
-   once) and gru_sequence_fused_dma (B4 once) against s2vt.encode.
+   the flagship S2VT (B1 twice, both on the tensor-core body), then
+   RationaleNet over that S2VT (B2 once per direction, then B1 twice);
+   float32 tokens on the card against the CPU, with shared Gumbel noise for
+   RationaleNet. Then the GRU drop-ins on the flagship encoder's weights and
+   features: gru_sequence_fused_bt (B3 once) and gru_sequence_fused_dma (B4
+   once) against s2vt.encode.
 5. timing  -- CUDA events, best of 3 after warm-up: captions/s of each
    captioner, a stage breakdown, each kernel's time beside its bound, its
-   plain version and a library yardstick, and the flagship encoder with
-   and without its feature transpose (B1 against B3).
+   plain version and a library yardstick (B1 at both serving batches, and
+   the input projection alone, which the yardstick includes), and the
+   flagship encoder with and without its feature transpose (B1 against B3).
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -51,8 +58,8 @@ SMOKE_BATCH = 256      # main-path batch of the correctness phases
 TIMING_BATCH = 2048    # flagship serving batch of the timing phase
 RATIONALE_BATCH = 1024  # RationaleNet serving batch of the timing phase
 BF16_TOL = 2e-3        # f32 dots summed in other orders over 30 dependent steps;
-                       # B1, B3 and B4 readings were 8.0e-4 (B=256) and 9.8e-4
-                       # (B=2048)
+                       # readings: B1 and B3 (tensor-core body) 8.2e-4 (B=256),
+                       # 1.15e-3 (B=1024); B4 9.8e-4 (B=2048)
 F32_TOL = 1e-4         # the same, in float32 with TF32 off
 LSTM_BF16_TOL = 1e-3   # B2 (outs and c_last), the same reason: twice the worst
                        # reading (4.5e-4 at B=256), 2.6x below the control's
@@ -113,12 +120,16 @@ def lstm_inputs(t, b, hidden, dtype, seed):
 
 
 def launch_counts(cuda_gru, cuda_lstm) -> dict:
+    """Kernel launches by counter; gru_seq_tc counts the B1 and B3 launches
+    that ran the tensor-core body."""
     return {"gru_seq": cuda_gru.launches, "gru_seq_bt": cuda_gru.launches_bt,
-            "gru_seq_dma": cuda_gru.launches_dma, "lstm_seq": cuda_lstm.launches}
+            "gru_seq_dma": cuda_gru.launches_dma, "gru_seq_tc": cuda_gru.launches_tc,
+            "lstm_seq": cuda_lstm.launches}
 
 
 def reset_counts(cuda_gru, cuda_lstm) -> None:
     cuda_gru.launches = cuda_gru.launches_bt = cuda_gru.launches_dma = 0
+    cuda_gru.launches_tc = 0
     cuda_lstm.launches = 0
 
 
@@ -206,20 +217,71 @@ def main() -> int:
                 ).abs().max().item()
     check(vdot_err <= 1e-3, f"bf16 vdot with a float32 result: err {vdot_err}")
 
+    # the tensor-core body's geometry (bf16 B1 and B3 at this hidden size)
+    max_clusters = {layout: cuda_gru.tc_max_clusters(hidden, time_major)
+                    for layout, time_major in (("time_major", True),
+                                               ("batch_major", False))}
+    check(min(max_clusters.values()) >= 1,
+          f"the card holds no cluster of the tensor-core GRU body: {max_clusters}")
+    emit("tc_geometry", hidden=hidden, cluster=cuda_gru.TC_CLUSTER,
+         max_active_clusters=max_clusters,
+         smem_bytes_per_cta=cuda_gru.tc_smem_bytes(hidden),
+         plans={b: dict(zip(("cluster", "clusters", "rows_per_cluster", "chunk"),
+                            cuda_gru.tc_plan(b, hidden, torch.bfloat16,
+                                             max_clusters["time_major"])))
+                for b in (1, 3, 17, SMOKE_BATCH, RATIONALE_BATCH, TIMING_BATCH)})
+
     # every case is run and printed before any is checked, so a failing
-    # run still shows all the errors
-    cases, lstm_cases, failures = [], [], []
+    # run still shows all the errors. B1, B3 and B4 on the same inputs: B3 is
+    # B1's body in the batch-major layout, so it must equal B1 exactly; B4
+    # keeps the scalar arithmetic, so it is held to the plain version only.
+    # T=1 has no copy ahead and one drain.
+    cases, variant_cases, failures = [], [], []
+    bt_equal = dma_twice_equal = True
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        for b in (SMOKE_BATCH, 1, 3, 17):
-            args = gru_inputs(frames, b, hidden, dtype, seed=b)
-            got = cuda_gru.gru_recurrence_cuda(*args, dtype)
+        shapes = [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17)] + [(1, 17)]
+        if dtype == torch.bfloat16:
+            shapes += [(frames, RATIONALE_BATCH), (frames, TIMING_BATCH)]
+        name = str(dtype).split(".")[-1]
+        for steps, b in shapes:
+            args = gru_inputs(steps, b, hidden, dtype, seed=b)
             want = cuda_gru.gru_recurrence_plain(*args, dtype)
+            tc_before = cuda_gru.launches_tc
+            b1 = cuda_gru.gru_recurrence_cuda(*args, dtype)
+            tc_launched = cuda_gru.launches_tc - tc_before
+            x_bt = args[0].transpose(0, 1).contiguous()
+            got = {"gru_seq_bt": cuda_gru.gru_recurrence_bt_cuda(
+                       x_bt, *args[1:], dtype).transpose(0, 1),
+                   "gru_seq_dma": cuda_gru.gru_recurrence_dma_cuda(*args, dtype)}
+            again = cuda_gru.gru_recurrence_dma_cuda(*args, dtype)
             torch.cuda.synchronize()
-            err = max_err(got, want)
-            cases.append({"dtype": str(dtype).split(".")[-1], "batch": b,
+            err = max_err(b1, want)
+            cases.append({"dtype": name, "steps": steps, "batch": b,
+                          "body": "tensor-core" if tc_launched else "scalar",
                           "max_abs_err": err, "tolerance": tol})
-            if not (all_finite(got) and err <= tol):
-                failures.append(f"gru_seq kernel vs plain, {dtype} B={b}: err {err} > {tol}")
+            if not (all_finite(b1) and err <= tol):
+                failures.append(f"gru_seq kernel vs plain, {dtype} T={steps} B={b}: "
+                                f"err {err} > {tol}")
+            if tc_launched != int(dtype == torch.bfloat16):
+                failures.append(f"gru_seq {dtype} at H={hidden} ran the "
+                                f"{'tensor-core' if tc_launched else 'scalar'} body")
+            for kernel, out in got.items():
+                err = max_err(out, want)
+                variant_cases.append({"kernel": kernel, "dtype": name, "steps": steps,
+                                      "batch": b, "max_abs_err": err,
+                                      "vs_b1_max_abs_err": max_err(out, b1),
+                                      "tolerance": tol})
+                if not (all_finite(out) and err <= tol):
+                    failures.append(f"{kernel} kernel vs plain, {dtype} T={steps} B={b}: "
+                                    f"err {err} > {tol}")
+            if not torch.equal(got["gru_seq_bt"], b1):
+                bt_equal = False
+                failures.append(f"gru_seq_bt differs from gru_seq, {dtype} T={steps} B={b}")
+            if not torch.equal(again, got["gru_seq_dma"]):
+                dma_twice_equal = False
+                failures.append(f"gru_seq_dma gave two outputs on one input, {dtype} "
+                                f"T={steps} B={b}")
+    lstm_cases = []
     for dtype, tol in ((torch.bfloat16, LSTM_BF16_TOL), (torch.float32, LSTM_F32_TOL)):
         for reverse in (False, True):
             for b in (SMOKE_BATCH, 1, 3, 17):
@@ -234,33 +296,6 @@ def main() -> int:
                 if not (all_finite(got) and err <= tol):
                     failures.append(f"lstm_seq kernel vs plain, {dtype} B={b} "
                                     f"reverse={reverse}: err {err} > {tol}")
-    # B3 and B4 against their plain versions, and against B1 on the same
-    # inputs; T=1 has no copy ahead and one drain
-    variant_cases, dma_twice_equal = [], True
-    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        for steps, b in [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17)] + [(1, 17)]:
-            args = gru_inputs(steps, b, hidden, dtype, seed=b)
-            want = cuda_gru.gru_recurrence_plain(*args, dtype)
-            b1 = cuda_gru.gru_recurrence_cuda(*args, dtype)
-            x_bt = args[0].transpose(0, 1).contiguous()
-            got = {"gru_seq_bt": cuda_gru.gru_recurrence_bt_cuda(
-                       x_bt, *args[1:], dtype).transpose(0, 1),
-                   "gru_seq_dma": cuda_gru.gru_recurrence_dma_cuda(*args, dtype)}
-            again = cuda_gru.gru_recurrence_dma_cuda(*args, dtype)
-            torch.cuda.synchronize()
-            for name, out in got.items():
-                err = max_err(out, want)
-                variant_cases.append({"kernel": name, "dtype": str(dtype).split(".")[-1],
-                                      "steps": steps, "batch": b, "max_abs_err": err,
-                                      "vs_b1_max_abs_err": max_err(out, b1),
-                                      "tolerance": tol})
-                if not (all_finite(out) and err <= tol):
-                    failures.append(f"{name} kernel vs plain, {dtype} T={steps} B={b}: "
-                                    f"err {err} > {tol}")
-            if not torch.equal(again, got["gru_seq_dma"]):
-                dma_twice_equal = False
-                failures.append(f"gru_seq_dma gave two outputs on one input, {dtype} "
-                                f"T={steps} B={b}")
     dma_tiles = {str(dtype).split(".")[-1]: cuda_gru.dma_batch_tile(hidden, dtype)
                  for dtype in (torch.bfloat16, torch.float32)}
     # controls: the float32 plain version (h never rounded to bf16) on the
@@ -281,6 +316,7 @@ def main() -> int:
     emit("kernels_vs_plain", vdot_bf16_err=vdot_err, gru_seq=cases,
          bf16_control_err=control_err, lstm_seq=lstm_cases,
          lstm_bf16_control_err=lstm_control_err, gru_variants=variant_cases,
+         gru_seq_bt_eq_gru_seq=bt_equal,
          gru_seq_dma_twice_equal=dma_twice_equal, gru_seq_dma_batch_tile=dma_tiles,
          gru_seq_dma_blocks={k: -(-TIMING_BATCH // v) for k, v in dma_tiles.items()},
          gru_seq_dma_blocks_batch=TIMING_BATCH)
@@ -301,8 +337,9 @@ def main() -> int:
     check(int(tokens.min()) >= 0 and int(tokens.max()) < spec.vocab_size,
           "token outside the vocabulary")
     check(main_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
-                            "lstm_seq": 0},
-          f"the S2VT captioner launched {main_launches}, not B1 twice and nothing else")
+                            "gru_seq_tc": 2, "lstm_seq": 0},
+          f"the S2VT captioner launched {main_launches}, not B1 twice on the "
+          "tensor-core body and nothing else")
 
     spec32 = spec.with_(compute_dtype="float32")
     few = feats[:4]
@@ -333,9 +370,9 @@ def main() -> int:
     check(int(rtokens.min()) >= 0 and int(rtokens.max()) < rspec.vocab_size,
           "rationale token outside the vocabulary")
     check(rationale_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
-                                 "lstm_seq": 2},
+                                 "gru_seq_tc": 2, "lstm_seq": 2},
           f"the rationale captioner launched {rationale_launches}, not B2 and B1 "
-          "twice each and nothing else")
+          "twice each (B1 on the tensor-core body) and nothing else")
     with torch.inference_mode():
         # the captioner's own selection: the same default rng
         again, probs = rationale.apply(rparams, rspec, feats, emit="tokens")
@@ -385,9 +422,12 @@ def main() -> int:
             rnn1, vf.transpose(0, 1), compute_dtype=cd)
         torch.cuda.synchronize()
         dma_launches = launch_counts(cuda_gru, cuda_lstm)
-    check(bt_launches == {"gru_seq": 0, "gru_seq_bt": 1, "gru_seq_dma": 0, "lstm_seq": 0},
-          f"gru_sequence_fused_bt launched {bt_launches}, not B3 once and nothing else")
-    check(dma_launches == {"gru_seq": 0, "gru_seq_bt": 0, "gru_seq_dma": 1, "lstm_seq": 0},
+    check(bt_launches == {"gru_seq": 0, "gru_seq_bt": 1, "gru_seq_dma": 0, "gru_seq_tc": 1,
+                          "lstm_seq": 0},
+          f"gru_sequence_fused_bt launched {bt_launches}, not B3 once on the "
+          "tensor-core body and nothing else")
+    check(dma_launches == {"gru_seq": 0, "gru_seq_bt": 0, "gru_seq_dma": 1, "gru_seq_tc": 0,
+                           "lstm_seq": 0},
           f"gru_sequence_fused_dma launched {dma_launches}, not B4 once and nothing else")
     check(tuple(bt_outs.shape) == (SMOKE_BATCH, frames, hidden)
           and tuple(dma_outs.shape) == (frames, SMOKE_BATCH, hidden),
@@ -459,6 +499,25 @@ def main() -> int:
               f"B1, B3 and B4 at B={TIMING_BATCH}: errs {timed_err}, {bt_err}, {dma_err}")
         library_ms = time_ms(lambda: gru(xs))
         bt_library_ms = time_ms(lambda: grus[True](vf))
+        # the input projection alone, which the yardsticks include and the
+        # kernels do not
+        projection_ms = time_ms(lambda: vdot(xs.reshape(-1, xs.shape[-1]), rnn1["w_ih"], cd))
+        # B1 at RationaleNet's serving batch, on the first rows of the same
+        # gates, beside cuDNN and the projection at that batch
+        half = RATIONALE_BATCH
+        args_half = (x_gates[:, :half].contiguous(),) + gru_args[1:3] + (
+            torch.zeros((half, hidden), device="cuda"), cd)
+        xs_half = xs[:, :half].contiguous()
+        half_err = max_err(cuda_gru.gru_recurrence_cuda(*args_half),
+                           cuda_gru.gru_recurrence_plain(*args_half))
+        check(half_err <= BF16_TOL, f"B1 at B={half}: err {half_err}")
+        b1_half = {"batch": half,
+                   "ms": time_ms(lambda: cuda_gru.gru_recurrence_cuda(*args_half), iters=5),
+                   "plain_ms": time_ms(lambda: cuda_gru.gru_recurrence_plain(*args_half)),
+                   "library_ms": time_ms(lambda: gru(xs_half)),
+                   "projection_ms": time_ms(lambda: vdot(
+                       xs_half.reshape(-1, xs_half.shape[-1]), rnn1["w_ih"], cd)),
+                   "max_abs_err": half_err}
         # the whole encoder both ways, in turns: feature transpose + projection
         # + B1, against projection + B3 on the features as they come
         encoder = {"transpose_b1_ms": float("inf"), "b3_ms": float("inf")}
@@ -468,12 +527,15 @@ def main() -> int:
             encoder["b3_ms"] = min(encoder["b3_ms"], time_ms(
                 lambda: cuda_gru.gru_sequence_fused_bt(rnn1, vf, compute_dtype=cd)))
     bound_ms, bound_by = gru_bound_ms(frames, TIMING_BATCH, hidden, PEAKS)
+    b1_half["bound_ms"], b1_half["bound_by"] = gru_bound_ms(frames, RATIONALE_BATCH,
+                                                            hidden, PEAKS)
     emit("timing", batch=TIMING_BATCH, caption_ms=caption_ms,
          captions_per_s=TIMING_BATCH / (caption_ms / 1e3), stages=stages,
          gru_seq={"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "library": "torch.nn.GRU (cuDNN), input projection included",
+                  "projection_ms": projection_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
-                  "max_abs_err": timed_err},
+                  "max_abs_err": timed_err, "at_rationale_batch": b1_half},
          gru_seq_bt={"ms": bt_ms, "plain_ms": bt_plain_ms, "library_ms": bt_library_ms,
                      "library": "torch.nn.GRU(batch_first=True) (cuDNN), input "
                                 "projection included",
@@ -549,16 +611,19 @@ def main() -> int:
         "source": "vcr_tpu_torch/ops/csrc/gru_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:24",
         "launches": main_launches["gru_seq"],
+        "launches_tc": main_launches["gru_seq_tc"],
         "launches_rationale": rationale_launches["gru_seq"],
         "max_abs_err": worst(cases, "bfloat16"), "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms}, {
+        "bound_by": bound_by, "library_ms": library_ms,
+        "projection_ms": projection_ms, "at_rationale_batch": b1_half}, {
         "name": "gru_seq_bt", "route": "cuda",
         "source": "vcr_tpu_torch/ops/csrc/gru_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:24",
         "via": "vcr_tpu/ops/pallas_gru.py:297 (time_major=False)",
         "launches": bt_launches["gru_seq_bt"],
+        "launches_tc": bt_launches["gru_seq_tc"],
         "max_abs_err": worst(variant_cases, "bfloat16", "gru_seq_bt"),
         "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(variant_cases, "float32", "gru_seq_bt"),

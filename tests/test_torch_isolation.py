@@ -67,23 +67,33 @@ def cuda():
     return torch.device("cuda")
 
 
+def _gru_case(g, cuda, t, b, hidden, dtype, batch_major=False):
+    shape = (b, t, 3 * hidden) if batch_major else (t, b, 3 * hidden)
+    x_gates = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w_hh = (torch.randn((hidden, 3 * hidden), generator=g, device=cuda)
+            * (2.0 / (4 * hidden)) ** 0.5).to(dtype)
+    b_hh = torch.randn((3 * hidden,), generator=g, device=cuda)
+    h0 = torch.randn((b, hidden), generator=g, device=cuda)
+    return x_gates, w_hh, b_hh, h0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
 def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
+    """B1 against its plain version; bf16 runs the tensor-core body (its
+    counter moves), float32 the scalar body (it does not)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(0)
-    t, hidden = 7, 128
-    for b in (1, 3, 8, 17):
-        x_gates = torch.randn((t, b, 3 * hidden), generator=g, device=cuda).to(dtype)
-        w_hh = (torch.randn((hidden, 3 * hidden), generator=g, device=cuda) * 0.06).to(dtype)
-        b_hh = torch.randn((3 * hidden,), generator=g, device=cuda)
-        h0 = torch.randn((b, hidden), generator=g, device=cuda)
-        before = cuda_gru.launches
-        got = cuda_gru.gru_recurrence(x_gates, w_hh, b_hh, h0, dtype)
-        assert cuda_gru.launches == before + 1
-        want = cuda_gru.gru_recurrence_plain(x_gates, w_hh, b_hh, h0, dtype)
-        torch.cuda.synchronize()
-        assert (got - want).abs().max().item() <= tol
+    for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1, 17, 256))):
+        for b in batches:
+            args = _gru_case(g, cuda, t, b, hidden, dtype)
+            before, tc_before = cuda_gru.launches, cuda_gru.launches_tc
+            got = cuda_gru.gru_recurrence(*args, dtype)
+            assert cuda_gru.launches == before + 1
+            assert cuda_gru.launches_tc == tc_before + int(dtype == torch.bfloat16)
+            want = cuda_gru.gru_recurrence_plain(*args, dtype)
+            torch.cuda.synchronize()
+            assert (got - want).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
@@ -91,30 +101,35 @@ def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
 def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
     """B3 (batch-major) and B4 (bulk-copy pipeline) against their plain
-    versions; each launch moves its own counter and not B1's."""
+    versions; each launch moves its own counter and not B1's. B3 is B1's
+    body in the other layout, so it equals B1 bit for bit; B4 keeps the
+    scalar arithmetic, and only bf16 B3 runs the tensor-core body."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(0)
-    t, hidden = 7, 128
     wrapper, plain, counter = {
         "bt": (cuda_gru.gru_recurrence_bt, cuda_gru.gru_recurrence_bt_plain,
                "launches_bt"),
         "dma": (cuda_gru.gru_recurrence_dma, cuda_gru.gru_recurrence_plain,
                 "launches_dma"),
     }[variant]
-    for b in (1, 3, 8, 17):
-        shape = (b, t, 3 * hidden) if variant == "bt" else (t, b, 3 * hidden)
-        x_gates = torch.randn(shape, generator=g, device=cuda).to(dtype)
-        w_hh = (torch.randn((hidden, 3 * hidden), generator=g, device=cuda) * 0.06).to(dtype)
-        b_hh = torch.randn((3 * hidden,), generator=g, device=cuda)
-        h0 = torch.randn((b, hidden), generator=g, device=cuda)
-        before, b1_before = getattr(cuda_gru, counter), cuda_gru.launches
-        got = wrapper(x_gates, w_hh, b_hh, h0, dtype)
-        assert getattr(cuda_gru, counter) == before + 1
-        assert cuda_gru.launches == b1_before
-        want = plain(x_gates, w_hh, b_hh, h0, dtype)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape
-        assert (got - want).abs().max().item() <= tol
+    for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1, 17, 256))):
+        for b in batches:
+            args = _gru_case(g, cuda, t, b, hidden, dtype, batch_major=variant == "bt")
+            before, b1_before = getattr(cuda_gru, counter), cuda_gru.launches
+            tc_before = cuda_gru.launches_tc
+            got = wrapper(*args, dtype)
+            assert getattr(cuda_gru, counter) == before + 1
+            assert cuda_gru.launches == b1_before
+            assert cuda_gru.launches_tc == tc_before + int(
+                variant == "bt" and dtype == torch.bfloat16)
+            want = plain(*args, dtype)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape
+            assert (got - want).abs().max().item() <= tol
+            if variant == "bt":
+                b1 = cuda_gru.gru_recurrence(args[0].transpose(0, 1).contiguous(),
+                                             *args[1:], dtype)
+                assert torch.equal(got, b1.transpose(0, 1))
 
 
 @pytest.mark.cuda

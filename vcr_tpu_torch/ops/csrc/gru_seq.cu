@@ -28,23 +28,32 @@
 //   bytes: x_gates 189 MB (bf16) + outs 126 MB (f32) ~ 315 MB -> 94 us.
 // So the least time is ~0.1 ms per call; the prime call has the same shape.
 //
-// Design. The TPU kernel carries h in scratch memory from one sequential grid
-// step to the next; CUDA blocks run in no order, so here the time loop runs
-// inside each block instead. One block owns a tile of kTileB batch rows for
-// the whole sequence. Batch rows are independent, so no block needs another
-// block's h. The tile keeps h in shared memory twice: float32 for the gate
-// update, and rounded to cd (stored as float, double-buffered) as the left
-// operand of the recurrent product, which is what h.astype(compute_dtype)
-// does in the TPU kernel. Each thread owns hidden columns j and computes the
-// three gate columns j, H+j, 2H+j for all rows of the tile with scalar FMAs.
-// The ragged last tile is masked here, so any B >= 1 is valid.
+// The TPU kernel carries h in scratch memory from one sequential grid step
+// to the next; CUDA blocks run in no order, so in both bodies below the time
+// loop runs inside the block instead, and the ragged last batch tile is
+// masked, so any B >= 1 is valid. Both round h to cd as the left operand of
+// the recurrent product, which is what h.astype(compute_dtype) does in the
+// TPU kernel, and keep the state itself in float32. The wrapper
+// (ops/cuda_gru.py) picks the body by dtype and shape alone:
 //
-// This first design streams W_hh from L2 every step (1.5 MiB at bf16 and
-// H=512, against 50 MB of L2) and uses neither wgmma nor TMA: it is bound by
-// FMA issue and L2 reads, far above the bound above.
+// * Tensor-core body (gru_seq_tc_forward): bf16 with H % 128 == 0 and
+//   H <= 768. W_hh stays in shared memory for the whole call, split by
+//   columns across a cluster of 16 CTAs, and the recurrent product runs on
+//   mma.sync; its design is described above gru_seq_tc_kernel.
+// * Scalar body (gru_seq_forward / gru_seq_bt_forward): float32, and bf16
+//   shapes the tensor-core body does not take. float32 needs true float32
+//   products (TF32 off), which tensor cores do not give. One block owns a
+//   tile of kTileB batch rows for the whole sequence; batch rows are
+//   independent, so no block needs another block's h. The tile keeps h in
+//   shared memory twice: float32 for the gate update, and rounded to cd
+//   (stored as float, double-buffered) as the left operand of the product.
+//   Each thread owns hidden columns j and computes the three gate columns j,
+//   H+j, 2H+j for all rows of the tile with scalar FMAs, streaming W_hh from
+//   L2 every step: bound by FMA issue and L2 reads, ~34x the bound above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -177,6 +186,352 @@ int forward(const void* x_gates, const void* w_hh, const void* b_hh, const void*
                                                hidden, s));
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core body (bf16).
+//
+// What bounds the scalar body is its recurrent product: 12.6 M FP32 FMAs per
+// block and step with W_hh re-read from L2 by every block. Here:
+//
+// * W_hh stays on chip for the whole call, split by columns across a
+//   cluster of kCluster = 16 CTAs. CTA `rank` owns the U = H/16
+//   hidden units rank*U .. rank*U+U-1, i.e. their r, z and n columns of W_hh:
+//   H x 3U bf16, 96 KB at H=512. It loads them once, into shared memory in
+//   the order of mma.sync's B fragments, so that a warp reads each fragment
+//   as one conflict-free 256-byte run. The gate math of a unit needs its
+//   r, z and n columns, so it stays inside one CTA.
+// * Each cluster owns a contiguous run of rows_per_cluster batch rows for
+//   all T steps; the clusters are independent (no grid-wide sync), and the
+//   wrapper sizes their number by cudaOccupancyMaxActiveClusters, so the
+//   whole card works at every serving batch.
+// * The product runs on tensor cores: mma.sync m16n8k16 bf16 -> f32. A warp
+//   owns a chunk of 16 batch rows and all 3U columns of its CTA: n-tile
+//   3g+q holds gate q of units 8g..8g+7, so each thread's accumulators hold
+//   r, z and n of the same (row, unit) positions and the gate update runs in
+//   registers. The accumulators start at b_hh.
+// * h moves between steps through L2. A thread's accumulator positions
+//   (rows gq and gq+8 of its chunk, units 2tq and 2tq+1 of an 8-unit group)
+//   are exactly the positions of an A fragment's registers in the next
+//   step's product. So each thread writes its new h, rounded to bf16, into a
+//   scratch `hs` (2 step parities x chunks x H/16 k-steps x 32 lanes, one
+//   uint4 each) already in fragment order, and a warp reads a whole k-step
+//   of A as one coalesced 512-byte run straight into registers (ld.global.cg,
+//   past L1), eight k-steps ahead. One cluster barrier per step
+//   (barrier.cluster.arrive.release / wait.acquire) orders those writes
+//   before the next step's reads; the scratch is double-buffered by step
+//   parity, so that barrier also ends the reads of a buffer before it is
+//   written again.
+// * The float32 state is read back from out[t-1] (h0 at t=0) by the thread
+//   that wrote it, and x_gates for the chunk: both are loaded before the
+//   product, so their latency hides behind it, and the gate functions avoid
+//   the IEEE division, whose slow-path branch would serialise them.
+//
+// Shared memory holds only the W_hh slice: 6*H*H/16 bytes, which fits the
+// 227 KB a block may have up to H=768. U must be a multiple of 8 (one n-tile
+// per gate and unit group): H % 128 == 0.
+//
+// Measured on an H100 (PERF.md, scripts/gru_tc_probe.py): at H=512 the card
+// holds 14 clusters, two CTAs per SM by the launch bounds below (7 with
+// one). The product takes ~70% of a step, ~28 clocks per mma.sync per warp.
+// A wgmma copy of the product is faster at B=2048 but then waits on A's
+// loads from L2; a TMA-fed wgmma pipeline is the next redesign.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kCluster = 16;  // CTAs per cluster
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 16;    // batch rows per warp tile (mma M)
+constexpr int kAhead = 8;     // k-steps of A loaded ahead together
+constexpr int kMaxGroups = 6; // 8-unit groups per CTA: H = 128 * groups <= 768
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, const uint2& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+}
+
+// all threads of the cluster; global and shared writes before it are seen
+// by all threads of the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The gate functions without an IEEE division: its slow-path branch splits
+// the gate update into one basic block per value and serialises them. expf
+// stays accurate; the reciprocal (__fdividef) is within 2 ulp.
+__device__ __forceinline__ float sigmoid_tc(float x) {
+  return __fdividef(1.0f, 1.0f + expf(-x));
+}
+__device__ __forceinline__ float tanh_tc(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + expf(2.0f * x));
+}
+
+// element e (0: low half, 1: high half) of a bf16 pair, exactly
+__device__ __forceinline__ float bf16_at(uint32_t pair, int e) {
+  return __uint_as_float(e ? pair & 0xffff0000u : pair << 16);
+}
+
+// The rounded h of rows (gq, gq+8) of chunk `chunk`, units u..u+1 (u even,
+// `group` = u's 8-unit group), into A-fragment order: k-step group/2,
+// registers {a0, a1} for an even group, {a2, a3} for an odd one.
+__device__ __forceinline__ void store_h(uint4* buf, size_t chunk, int ksteps, int group,
+                                        int lane, const float (&lo)[2],
+                                        const float (&hi)[2]) {
+  uint2* p = reinterpret_cast<uint2*>(buf + (chunk * ksteps + (group >> 1)) * 32 + lane)
+             + (group & 1);
+  __stcg(p, make_uint2(pack_bf16(lo[0], lo[1]), pack_bf16(hi[0], hi[1])));
+}
+
+// kTimeMajor: x_gates (T, B, 3H) and out (T, B, H); else (B, T, 3H), (B, T, H)
+// Up to H=512 two CTAs fit an SM (128 registers a thread, no spills), which
+// gives each SM twice the warps to hide the latency of A's loads with.
+template <int kGroups, bool kTimeMajor>
+__global__ void __launch_bounds__(kThreads, kGroups <= 4 ? 2 : 1)
+gru_seq_tc_kernel(const __nv_bfloat16* __restrict__ xg,  // x_gates, 4-byte aligned
+                  const __nv_bfloat16* __restrict__ whh, // (H, 3H)
+                  const float* __restrict__ bhh,         // (3H,)
+                  const float* __restrict__ h0,          // (B, H)
+                  float* __restrict__ out,
+                  uint4* __restrict__ hs,                // [2][chunks][H/16][32]
+                  int steps, int batch, int rows_per_cluster) {
+  constexpr int U = 8 * kGroups;       // hidden units of this CTA
+  constexpr int H = kCluster * U;
+  constexpr int KS = H / 16;           // k-steps of the product
+  constexpr int NT = 3 * kGroups;      // n-tiles: 3g+q = gate q of unit group g
+  constexpr int KB = KS / kAhead;
+  extern __shared__ uint2 w_s[];       // [KS][NT][32 lanes] B fragments
+
+  const int rank = blockIdx.x % kCluster;
+  const int cluster = blockIdx.x / kCluster;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // mma groupID, thread in group
+  const int g0 = rank * kGroups;            // first unit group (of 8) of this CTA
+  const int unit0 = rank * U + 2 * tq;      // this thread's first unit; group g adds 8g
+  const int chunks = rows_per_cluster / kChunk;
+  const size_t chunk0 = (size_t)cluster * chunks;
+  const size_t parity = (size_t)(gridDim.x / kCluster) * chunks * KS * 32;
+  const int row_base = cluster * rows_per_cluster + gq;
+
+  // W_hh columns of this CTA's units, in B-fragment order: element (k, n) of
+  // n-tile j goes to lane 4n + (k%8)/2 of fragment [k/16][j], register
+  // (k%16)/8, half k%2
+  for (int i = threadIdx.x; i < H * NT; i += kThreads) {
+    const int g = i % kGroups, q = (i / kGroups) % 3, k = i / NT, kk = k & 15;
+    const __nv_bfloat16* src = whh + (size_t)k * 3 * H + q * H + rank * U + 8 * g;
+    __nv_bfloat16* dst =
+        reinterpret_cast<__nv_bfloat16*>(w_s + ((k >> 4) * NT + 3 * g + q) * 32);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      dst[(4 * n + ((kk & 7) >> 1)) * 4 + (kk >> 3) * 2 + (kk & 1)] = src[n];
+  }
+  // h0, rounded, into step 0's buffer; rows past the batch hold 0
+  for (int c = warp; c < chunks; c += kWarps) {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      float v[2][2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row_base + c * kChunk + 8 * hh;
+        const float* p = h0 + (size_t)r * H + unit0 + 8 * g;
+        v[hh][0] = r < batch ? p[0] : 0.0f;
+        v[hh][1] = r < batch ? p[1] : 0.0f;
+      }
+      store_h(hs, chunk0 + c, KS, g0 + g, lane, v[0], v[1]);
+    }
+  }
+  cluster_sync();  // also: w_s complete
+
+  for (int t = 0; t < steps; ++t) {
+    const uint4* h_cur = hs + (t & 1) * parity;
+    uint4* h_next = hs + ((t + 1) & 1) * parity;
+    for (int c = warp; c < chunks; c += kWarps) {
+      // the gate update's operands first, so that their latency hides
+      // behind the product
+      uint32_t xw[kGroups][3][2];  // bf16 pairs of x_gates [group][gate][row]
+      float hp[kGroups][2][2];     // float32 h of step t-1 [group][row][unit]
+      size_t row[2];
+      bool ok[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row_base + c * kChunk + 8 * hh;
+        ok[hh] = r < batch;
+        row[hh] = kTimeMajor ? (size_t)t * batch + r : (size_t)r * steps + t;
+        const __nv_bfloat16* x = xg + row[hh] * 3 * H + unit0;
+        const float* h_prev =
+            t == 0 ? h0 + (size_t)r * H + unit0
+                   : out + (kTimeMajor ? row[hh] - batch : row[hh] - 1) * H + unit0;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            xw[g][q][hh] = ok[hh] ? __ldg(reinterpret_cast<const unsigned int*>(
+                                        x + q * H + 8 * g))
+                                  : 0u;
+          hp[g][hh][0] = ok[hh] ? h_prev[8 * g] : 0.0f;
+          hp[g][hh][1] = ok[hh] ? h_prev[8 * g + 1] : 0.0f;
+        }
+      }
+
+      // hg = h @ W_hh + b_hh, f32 accumulation; A from L2, B from shared
+      float acc[NT][4];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float b0 = __ldg(bhh + q * H + unit0 + 8 * g);
+          const float b1 = __ldg(bhh + q * H + unit0 + 8 * g + 1);
+          acc[3 * g + q][0] = acc[3 * g + q][2] = b0;
+          acc[3 * g + q][1] = acc[3 * g + q][3] = b1;
+        }
+      }
+      const uint4* a_src = h_cur + (chunk0 + c) * KS * 32 + lane;
+      uint4 a[2][kAhead];
+#pragma unroll
+      for (int s = 0; s < kAhead; ++s) a[0][s] = __ldcg(a_src + s * 32);
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        if (kb + 1 < KB) {
+#pragma unroll
+          for (int s = 0; s < kAhead; ++s)
+            a[(kb + 1) & 1][s] = __ldcg(a_src + ((kb + 1) * kAhead + s) * 32);
+        }
+#pragma unroll
+        for (int s = 0; s < kAhead; ++s) {
+          const uint2* b = w_s + (kb * kAhead + s) * NT * 32 + lane;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a[kb & 1][s], b[j * 32]);
+        }
+      }
+
+      // r, z, n and the new h, in registers
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        float hn[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * hh + e;
+            const float rg = sigmoid_tc(bf16_at(xw[g][0][hh], e) + acc[3 * g][i]);
+            const float zg = sigmoid_tc(bf16_at(xw[g][1][hh], e) + acc[3 * g + 1][i]);
+            const float ng = tanh_tc(bf16_at(xw[g][2][hh], e) + rg * acc[3 * g + 2][i]);
+            hn[hh][e] = (1.0f - zg) * ng + zg * hp[g][hh][e];
+          }
+          if (ok[hh])
+            *reinterpret_cast<float2*>(out + row[hh] * H + unit0 + 8 * g) =
+                make_float2(hn[hh][0], hn[hh][1]);
+        }
+        store_h(h_next, chunk0 + c, KS, g0 + g, lane, hn[0], hn[1]);
+      }
+    }
+    // step t's h is written everywhere before step t+1 reads it, and step
+    // t's reads of h_cur end before step t+1 overwrites it
+    if (t + 1 < steps) cluster_sync();
+  }
+}
+
+constexpr size_t smem_bytes(int groups) {
+  return (size_t)(16 * 8 * groups / 16) * (3 * groups) * 32 * sizeof(uint2);
+}
+
+// cluster launch configuration; `attr` must outlive the launch call
+cudaLaunchConfig_t config(int clusters, size_t smem, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int kGroups, bool kTimeMajor>
+cudaError_t prepare() {
+  cudaError_t err = cudaFuncSetAttribute(gru_seq_tc_kernel<kGroups, kTimeMajor>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(kGroups));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(gru_seq_tc_kernel<kGroups, kTimeMajor>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+template <int kGroups, bool kTimeMajor>
+cudaError_t max_clusters(int* n) {
+  cudaError_t err = prepare<kGroups, kTimeMajor>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(1, smem_bytes(kGroups), nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(n, gru_seq_tc_kernel<kGroups, kTimeMajor>, &cfg);
+}
+
+template <int kGroups, bool kTimeMajor>
+cudaError_t launch(const void* xg, const void* whh, const void* bhh, const void* h0,
+                   void* out, void* hs, int steps, int batch, int clusters,
+                   int rows_per_cluster, cudaStream_t stream) {
+  cudaError_t err = prepare<kGroups, kTimeMajor>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(clusters, smem_bytes(kGroups), stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gru_seq_tc_kernel<kGroups, kTimeMajor>,
+                           static_cast<const __nv_bfloat16*>(xg),
+                           static_cast<const __nv_bfloat16*>(whh),
+                           static_cast<const float*>(bhh), static_cast<const float*>(h0),
+                           static_cast<float*>(out), static_cast<uint4*>(hs), steps, batch,
+                           rows_per_cluster);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// unit groups per CTA at this hidden size, or 0 where the body does not apply
+int groups_for(int hidden) {
+  const int groups = hidden / (8 * kCluster);
+  return hidden % (8 * kCluster) == 0 && groups >= 1 && groups <= kMaxGroups ? groups : 0;
+}
+
+template <bool kTimeMajor>
+cudaError_t max_clusters_any(int hidden, int* n) {
+  switch (groups_for(hidden)) {
+    case 1: return max_clusters<1, kTimeMajor>(n);
+    case 2: return max_clusters<2, kTimeMajor>(n);
+    case 3: return max_clusters<3, kTimeMajor>(n);
+    case 4: return max_clusters<4, kTimeMajor>(n);
+    case 5: return max_clusters<5, kTimeMajor>(n);
+    case 6: return max_clusters<6, kTimeMajor>(n);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kTimeMajor>
+cudaError_t launch_any(const void* x, const void* w, const void* b, const void* h0,
+                       void* out, void* hs, int steps, int batch, int hidden,
+                       int clusters, int rows, cudaStream_t s) {
+  switch (groups_for(hidden)) {
+    case 1: return launch<1, kTimeMajor>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 2: return launch<2, kTimeMajor>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 3: return launch<3, kTimeMajor>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 4: return launch<4, kTimeMajor>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 5: return launch<5, kTimeMajor>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 6: return launch<6, kTimeMajor>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -199,6 +554,40 @@ int gru_seq_bt_forward(const void* x_gates, const void* w_hh, const void* b_hh,
                        int is_bf16, void* stream) {
   return forward<false>(x_gates, w_hh, b_hh, h0, out, steps, batch, hidden, is_bf16,
                         stream);
+}
+
+// Clusters of the tensor-core body that the current card holds at once, at
+// this hidden size, for the time-major (B1) or batch-major (B3) layout; 0 if
+// none, a negated cudaError_t if the query failed.
+int gru_seq_tc_clusters(int hidden, int time_major) {
+  int n = 0;
+  const cudaError_t err = time_major ? tc::max_clusters_any<true>(hidden, &n)
+                                     : tc::max_clusters_any<false>(hidden, &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Kernels B1 (time_major != 0) and B3 through the tensor-core body: the
+// contract of gru_seq_forward / gru_seq_bt_forward in bf16, with
+// H % 128 == 0 and H <= 768, x_gates 4-byte aligned. hs is a scratch of
+// 2 * clusters * rows_per_cluster * H bf16 values; `clusters` clusters of
+// 16 CTAs each own rows_per_cluster (a multiple of 16) batch rows, and
+// clusters * rows_per_cluster >= batch. Launches on `stream`, does not
+// synchronise, allocates nothing. Returns the cudaError_t of the launch.
+int gru_seq_tc_forward(const void* x_gates, const void* w_hh, const void* b_hh,
+                       const void* h0, void* out, void* hs, int steps, int batch,
+                       int hidden, int clusters, int rows_per_cluster, int time_major,
+                       void* stream) {
+  if (steps < 1 || batch < 1 || clusters < 1 || rows_per_cluster < tc::kChunk ||
+      rows_per_cluster % tc::kChunk != 0 ||
+      (long long)clusters * rows_per_cluster < batch || tc::groups_for(hidden) == 0 ||
+      reinterpret_cast<uintptr_t>(x_gates) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(time_major
+                   ? tc::launch_any<true>(x_gates, w_hh, b_hh, h0, out, hs, steps, batch,
+                                          hidden, clusters, rows_per_cluster, s)
+                   : tc::launch_any<false>(x_gates, w_hh, b_hh, h0, out, hs, steps, batch,
+                                           hidden, clusters, rows_per_cluster, s));
 }
 
 const char* gru_seq_error_string(int err) {

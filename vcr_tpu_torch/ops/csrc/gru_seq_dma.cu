@@ -35,14 +35,17 @@
 // 1-D bulk copy, the ragged last tile included. Bulk copies need 16-byte
 // addresses and sizes: H % 8 == 0.
 //
-// The recurrent product and gate math are B1's, in B1's FMA order and on the
-// same rounded h (float, double-buffered), so the two agree bit for bit. B1
-// keeps a separate float32 h; here the out slot of step t-1 holds exactly
-// that h while step t reads it (its store only reads it too), so the block
-// needs no third copy, and a 16-row tile fits in the 227 KB a block may have
-// at H=512 in bf16: 2 x_gates slots 96 KB, 2 out slots 64 KB, 2 rounded h
-// 64 KB. The tile is the largest of 16, 8, 4, 2, 1 rows that fits: 16 in
-// bf16 and 8 in float32 at H=512. W_hh streams from L2 every step, as in B1.
+// The recurrent product and gate math are those of B1's scalar body, in its
+// FMA order and on the same rounded h (float, double-buffered): B4 agrees
+// with B1 bit for bit in float32, where B1 runs that body. In bf16 B1 runs
+// its tensor-core body, which sums in another order, so there the two agree
+// only within the kernels' tolerance. B1's scalar body keeps a separate
+// float32 h; here the out slot of step t-1 holds exactly that h while step t
+// reads it (its store only reads it too), so the block needs no third copy,
+// and a 16-row tile fits in the 227 KB a block may have at H=512 in bf16:
+// 2 x_gates slots 96 KB, 2 out slots 64 KB, 2 rounded h 64 KB. The tile is
+// the largest of 16, 8, 4, 2, 1 rows that fits: 16 in bf16 and 8 in float32
+// at H=512. W_hh streams from L2 every step, as in B1's scalar body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

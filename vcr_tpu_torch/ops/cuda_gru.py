@@ -16,6 +16,12 @@ Each does the input projection as one product outside the kernel and rounds
 its result ``x_gates`` to the compute dtype as the TPU path does; the kernel
 then runs all T steps of the recurrence with the hidden state kept on chip.
 
+B1 and B3 have two bodies in ``csrc/gru_seq.cu``, chosen by dtype and shape
+alone (:func:`tc_takes`): bf16 at H % 128 == 0 (up to H = 768) runs on the
+tensor-core body, which holds W_hh in the shared memory of a 16-CTA cluster,
+with the launch geometry of :func:`tc_plan`; float32 and other bf16 shapes
+run on the scalar body.
+
 A CUDA tensor launches the kernel or raises; the plain versions serve CPU
 tensors only. Forward only: B1's backward comes with the training path
 (ROADMAP A5); B3 and B4 have none in the JAX package either.
@@ -34,10 +40,20 @@ from vcr_tpu_torch.nn.rnn import gru_scan
 from vcr_tpu_torch.ops import _build
 
 # kernel launches made by gru_recurrence (B1), gru_recurrence_bt (B3) and
-# gru_recurrence_dma (B4), for showing that a run went through each kernel
+# gru_recurrence_dma (B4), for showing that a run went through each kernel;
+# launches_tc counts the B1 and B3 launches that ran the tensor-core body
 launches = 0
 launches_bt = 0
 launches_dma = 0
+launches_tc = 0
+
+# The tensor-core body of B1 and B3: clusters of TC_CLUSTER CTAs, each CTA
+# holding the W_hh columns of H / TC_CLUSTER hidden units in shared memory,
+# each warp computing TC_CHUNK batch rows at a time. TC_SMEM_LIMIT is the
+# shared memory a block may opt into on sm_90.
+TC_CLUSTER = 16
+TC_CHUNK = 16
+TC_SMEM_LIMIT = 232448
 
 
 def gru_recurrence_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
@@ -64,6 +80,11 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.gru_seq_forward, lib.gru_seq_bt_forward):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.gru_seq_tc_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                                       + [ctypes.c_void_p])
+    lib.gru_seq_tc_forward.restype = ctypes.c_int
+    lib.gru_seq_tc_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gru_seq_tc_clusters.restype = ctypes.c_int
     lib.gru_seq_error_string.argtypes = [ctypes.c_int]
     lib.gru_seq_error_string.restype = ctypes.c_char_p
     return lib
@@ -80,6 +101,58 @@ def _dma_lib() -> ctypes.CDLL:
     lib.gru_seq_dma_error_string.argtypes = [ctypes.c_int]
     lib.gru_seq_dma_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tc_smem_bytes(hidden: int) -> int:
+    """Shared memory of one CTA of the tensor-core body: its W_hh slice,
+    H x 3H / TC_CLUSTER bf16 values."""
+    return hidden * 3 * (hidden // TC_CLUSTER) * 2
+
+
+def tc_takes(hidden: int, compute_dtype: torch.dtype) -> bool:
+    """Whether B1 and B3 run the tensor-core body: bf16, each CTA's hidden
+    units a whole number of 8-column mma tiles (H % 128 == 0), and its W_hh
+    slice within a block's shared memory (H <= 768)."""
+    return (compute_dtype == torch.bfloat16 and hidden >= 8 * TC_CLUSTER
+            and hidden % (8 * TC_CLUSTER) == 0
+            and tc_smem_bytes(hidden) <= TC_SMEM_LIMIT)
+
+
+def tc_plan(batch: int, hidden: int, compute_dtype: torch.dtype,
+            max_clusters: int) -> Optional[Tuple[int, int, int, int]]:
+    """Launch geometry of the tensor-core body, or None where it does not
+    apply (:func:`tc_takes`). Else (cluster, clusters, rows_per_cluster,
+    chunk): the batch cut into ``clusters`` <= ``max_clusters`` contiguous
+    runs of rows_per_cluster rows (a multiple of chunk; the last run may
+    reach past the batch), one per cluster of ``cluster`` CTAs."""
+    if not tc_takes(hidden, compute_dtype):
+        return None
+    if max_clusters < 1:
+        raise ValueError(f"the card holds no cluster of {TC_CLUSTER} CTAs of the "
+                         f"tensor-core GRU body at H={hidden}")
+    rows = -(-batch // max_clusters)
+    rows = -(-rows // TC_CHUNK) * TC_CHUNK
+    return TC_CLUSTER, -(-batch // rows), rows, TC_CHUNK
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_max_clusters(device: int, hidden: int, time_major: bool) -> int:
+    lib = _lib()
+    with torch.cuda.device(device):
+        n = lib.gru_seq_tc_clusters(hidden, int(time_major))
+    if n < 0:
+        raise RuntimeError("cluster occupancy query failed: "
+                           + lib.gru_seq_error_string(-n).decode())
+    return n
+
+
+def tc_max_clusters(hidden: int, time_major: bool = True,
+                    device: Optional[torch.device] = None) -> int:
+    """Clusters of the tensor-core body that the card holds at once, at this
+    hidden size and layout (cudaOccupancyMaxActiveClusters), queried once."""
+    index = torch.device(device if device is not None else "cuda").index
+    return _tc_max_clusters(torch.cuda.current_device() if index is None else index,
+                            hidden, time_major)
 
 
 def dma_batch_tile(hidden: int, compute_dtype: torch.dtype) -> int:
@@ -137,6 +210,36 @@ def _launch(fn, error_string, kernel: str, x_gates, w_hh, b_hh, h0, out, t, b, h
                            + error_string(err).decode())
 
 
+def _launch_b1_b3(kernel: str, x_gates, w_hh, b_hh, h0, out, t, b, hidden,
+                  compute_dtype, time_major: bool) -> None:
+    """Launch B1 (time-major) or B3 through the body that dtype and shape
+    pick (:func:`tc_takes`)."""
+    global launches_tc
+    lib = _lib()
+    if not tc_takes(hidden, compute_dtype):
+        _launch(lib.gru_seq_forward if time_major else lib.gru_seq_bt_forward,
+                lib.gru_seq_error_string, kernel, x_gates, w_hh, b_hh, h0, out, t, b,
+                hidden, compute_dtype)
+        return
+    if x_gates.data_ptr() % 4:
+        raise ValueError(f"the {kernel} kernel reads bf16 x_gates in pairs: it needs "
+                         "x_gates on a 4-byte boundary")
+    _, clusters, rows, _ = tc_plan(b, hidden, compute_dtype,
+                                   tc_max_clusters(hidden, time_major, x_gates.device))
+    # h rounded to bf16, double-buffered by step parity, in the kernel's own order
+    hs = torch.empty((2, clusters * rows, hidden), dtype=torch.bfloat16,
+                     device=x_gates.device)
+    with torch.cuda.device(x_gates.device):
+        err = lib.gru_seq_tc_forward(
+            x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            out.data_ptr(), hs.data_ptr(), t, b, hidden, clusters, rows,
+            int(time_major), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: "
+                           + lib.gru_seq_error_string(err).decode())
+    launches_tc += 1
+
+
 _B1_NO_GRAD = "its backward comes with the training path (ROADMAP A5)"
 _DROP_IN_NO_GRAD = ("the JAX package's gru_sequence_pallas_bt and "
                     "gru_sequence_pallas_dma have no gradient either")
@@ -151,10 +254,9 @@ def gru_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
     t, b, hidden = _check("gru_seq", x_gates, w_hh, b_hh, h0, compute_dtype,
                           batch_major=False, hidden_multiple=4,
                           no_grad_reason=_B1_NO_GRAD)
-    lib = _lib()
     out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
-    _launch(lib.gru_seq_forward, lib.gru_seq_error_string, "gru_seq", x_gates, w_hh,
-            b_hh, h0, out, t, b, hidden, compute_dtype)
+    _launch_b1_b3("gru_seq", x_gates, w_hh, b_hh, h0, out, t, b, hidden, compute_dtype,
+                  time_major=True)
     launches += 1
     return out
 
@@ -168,10 +270,9 @@ def gru_recurrence_bt_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
     t, b, hidden = _check("gru_seq_bt", x_gates, w_hh, b_hh, h0, compute_dtype,
                           batch_major=True, hidden_multiple=4,
                           no_grad_reason=_DROP_IN_NO_GRAD)
-    lib = _lib()
     out = torch.empty((b, t, hidden), dtype=torch.float32, device=x_gates.device)
-    _launch(lib.gru_seq_bt_forward, lib.gru_seq_error_string, "gru_seq_bt", x_gates,
-            w_hh, b_hh, h0, out, t, b, hidden, compute_dtype)
+    _launch_b1_b3("gru_seq_bt", x_gates, w_hh, b_hh, h0, out, t, b, hidden,
+                  compute_dtype, time_major=False)
     launches_bt += 1
     return out
 

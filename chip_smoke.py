@@ -7,21 +7,24 @@ exit code and no result line:
 
 1. device  -- the card's name, and its name and power limit from nvidia-smi.
 2. build   -- compile every CUDA source under vcr_tpu_torch/ops/csrc/, one
-   nvcc each, all started together; then the geometry of B1's and B3's
-   tensor-core body: cluster size, the clusters the card holds at once
-   (cudaOccupancyMaxActiveClusters) and the rows per cluster at each
-   checked batch.
+   nvcc each, all started together; then the geometry of the tensor-core
+   bodies of B1/B3 and of B2: cluster size, the clusters the card holds at
+   once (cudaOccupancyMaxActiveClusters), shared memory per CTA and the
+   rows per cluster at each checked batch.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged batch sizes, in bf16 and float32
-   (and both directions for the LSTM), B1 and B3 also at the serving
-   batches 1024 and 2048 in bf16; B3 equal to B1 bit for bit (one body),
-   B4 against B1 reported, and B4 twice, since a missing copy fence shows
-   only on some runs.
+   (and both directions for the LSTM), B1, B3 and B2 also at the serving
+   batches (1024 and 2048; 1024 for B2); the body each B1 and B2 case ran
+   (tensor-core in bf16, scalar in float32); B3 equal to B1 bit for bit
+   (one body), B4 against B1 reported; B4 and every bf16 B2 case twice
+   with identical outputs, since a missing copy fence or cluster barrier
+   shows only on some runs.
 4. main paths -- each greedy captioner (features -> tokens, full width,
    random weights from a seed) through serving.build_captioner, with the
    kernel launch counts set to 0 just before and read just after its run:
    the flagship S2VT (B1 twice, both on the tensor-core body), then
-   RationaleNet over that S2VT (B2 once per direction, then B1 twice);
+   RationaleNet over that S2VT (B2 once per direction, then B1 twice, all
+   on the tensor-core bodies);
    float32 tokens on the card against the CPU, with shared Gumbel noise for
    RationaleNet. Then the GRU drop-ins on the flagship encoder's weights and
    features: gru_sequence_fused_bt (B3 once) and gru_sequence_fused_dma (B4
@@ -29,8 +32,9 @@ exit code and no result line:
 5. timing  -- CUDA events, best of 3 after warm-up: captions/s of each
    captioner, a stage breakdown, each kernel's time beside its bound, its
    plain version and a library yardstick (B1 at both serving batches, and
-   the input projection alone, which the yardstick includes), and the
-   flagship encoder with and without its feature transpose (B1 against B3).
+   the input projection alone, which the yardsticks include, for B1 and
+   for B2), and the flagship encoder with and without its feature
+   transpose (B1 against B3).
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -121,16 +125,16 @@ def lstm_inputs(t, b, hidden, dtype, seed):
 
 def launch_counts(cuda_gru, cuda_lstm) -> dict:
     """Kernel launches by counter; gru_seq_tc counts the B1 and B3 launches
-    that ran the tensor-core body."""
+    that ran the tensor-core body, lstm_seq_tc the B2 launches that did."""
     return {"gru_seq": cuda_gru.launches, "gru_seq_bt": cuda_gru.launches_bt,
             "gru_seq_dma": cuda_gru.launches_dma, "gru_seq_tc": cuda_gru.launches_tc,
-            "lstm_seq": cuda_lstm.launches}
+            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc}
 
 
 def reset_counts(cuda_gru, cuda_lstm) -> None:
     cuda_gru.launches = cuda_gru.launches_bt = cuda_gru.launches_dma = 0
     cuda_gru.launches_tc = 0
-    cuda_lstm.launches = 0
+    cuda_lstm.launches = cuda_lstm.launches_tc = 0
 
 
 def max_err(got, want) -> float:
@@ -230,6 +234,17 @@ def main() -> int:
                             cuda_gru.tc_plan(b, hidden, torch.bfloat16,
                                              max_clusters["time_major"])))
                 for b in (1, 3, 17, SMOKE_BATCH, RATIONALE_BATCH, TIMING_BATCH)})
+    # the tensor-core LSTM body's geometry (bf16 B2 at this hidden size)
+    lstm_max_clusters = cuda_lstm.tc_max_clusters(hidden)
+    check(lstm_max_clusters >= 1,
+          f"the card holds no cluster of the tensor-core LSTM body: {lstm_max_clusters}")
+    emit("lstm_tc_geometry", hidden=hidden, cluster=cuda_lstm.TC_CLUSTER,
+         max_active_clusters=lstm_max_clusters,
+         smem_bytes_per_cta=cuda_lstm.tc_smem_bytes(hidden),
+         plans={b: dict(zip(("cluster", "clusters", "rows_per_cluster", "chunk"),
+                            cuda_lstm.tc_plan(b, hidden, torch.bfloat16,
+                                              lstm_max_clusters)))
+                for b in (1, 3, 17, SMOKE_BATCH, RATIONALE_BATCH)})
 
     # every case is run and printed before any is checked, so a failing
     # run still shows all the errors. B1, B3 and B4 on the same inputs: B3 is
@@ -281,21 +296,39 @@ def main() -> int:
                 dma_twice_equal = False
                 failures.append(f"gru_seq_dma gave two outputs on one input, {dtype} "
                                 f"T={steps} B={b}")
+    # B2: bf16 runs the tensor-core body, twice per case, since a missing
+    # cluster barrier shows only on some runs; float32 the scalar body
     lstm_cases = []
+    lstm_twice_equal = True
     for dtype, tol in ((torch.bfloat16, LSTM_BF16_TOL), (torch.float32, LSTM_F32_TOL)):
+        bf16 = dtype == torch.bfloat16
         for reverse in (False, True):
-            for b in (SMOKE_BATCH, 1, 3, 17):
-                args = lstm_inputs(frames, b, hidden, dtype, seed=b)
+            for steps, b in [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17, RATIONALE_BATCH)
+                             ] + [(1, 17)]:
+                args = lstm_inputs(steps, b, hidden, dtype, seed=b)
+                tc_before = cuda_lstm.launches_tc
                 got = cuda_lstm.lstm_recurrence_cuda(*args, dtype, reverse)
+                tc_launched = cuda_lstm.launches_tc - tc_before
+                again = cuda_lstm.lstm_recurrence_cuda(*args, dtype, reverse) if bf16 else got
                 want = cuda_lstm.lstm_recurrence_plain(*args, dtype, reverse)
                 torch.cuda.synchronize()
                 err = max_err(got, want)  # outs and c_last
-                lstm_cases.append({"dtype": str(dtype).split(".")[-1], "batch": b,
-                                   "reverse": reverse, "max_abs_err": err,
-                                   "tolerance": tol})
+                twice = all(torch.equal(x, y) for x, y in zip(got, again))
+                lstm_cases.append({"dtype": str(dtype).split(".")[-1], "steps": steps,
+                                   "batch": b, "reverse": reverse,
+                                   "body": "tensor-core" if tc_launched else "scalar",
+                                   "max_abs_err": err, "tolerance": tol,
+                                   "twice_equal": twice})
                 if not (all_finite(got) and err <= tol):
-                    failures.append(f"lstm_seq kernel vs plain, {dtype} B={b} "
+                    failures.append(f"lstm_seq kernel vs plain, {dtype} T={steps} B={b} "
                                     f"reverse={reverse}: err {err} > {tol}")
+                if tc_launched != int(bf16):
+                    failures.append(f"lstm_seq {dtype} at H={hidden} ran the "
+                                    f"{'tensor-core' if tc_launched else 'scalar'} body")
+                if not twice:
+                    lstm_twice_equal = False
+                    failures.append(f"lstm_seq gave two outputs on one input, {dtype} "
+                                    f"T={steps} B={b} reverse={reverse}")
     dma_tiles = {str(dtype).split(".")[-1]: cuda_gru.dma_batch_tile(hidden, dtype)
                  for dtype in (torch.bfloat16, torch.float32)}
     # controls: the float32 plain version (h never rounded to bf16) on the
@@ -315,7 +348,8 @@ def main() -> int:
                         f"in B2: err {lstm_control_err}")
     emit("kernels_vs_plain", vdot_bf16_err=vdot_err, gru_seq=cases,
          bf16_control_err=control_err, lstm_seq=lstm_cases,
-         lstm_bf16_control_err=lstm_control_err, gru_variants=variant_cases,
+         lstm_bf16_control_err=lstm_control_err, lstm_seq_twice_equal=lstm_twice_equal,
+         gru_variants=variant_cases,
          gru_seq_bt_eq_gru_seq=bt_equal,
          gru_seq_dma_twice_equal=dma_twice_equal, gru_seq_dma_batch_tile=dma_tiles,
          gru_seq_dma_blocks={k: -(-TIMING_BATCH // v) for k, v in dma_tiles.items()},
@@ -337,7 +371,7 @@ def main() -> int:
     check(int(tokens.min()) >= 0 and int(tokens.max()) < spec.vocab_size,
           "token outside the vocabulary")
     check(main_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
-                            "gru_seq_tc": 2, "lstm_seq": 0},
+                            "gru_seq_tc": 2, "lstm_seq": 0, "lstm_seq_tc": 0},
           f"the S2VT captioner launched {main_launches}, not B1 twice on the "
           "tensor-core body and nothing else")
 
@@ -370,9 +404,9 @@ def main() -> int:
     check(int(rtokens.min()) >= 0 and int(rtokens.max()) < rspec.vocab_size,
           "rationale token outside the vocabulary")
     check(rationale_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
-                                 "gru_seq_tc": 2, "lstm_seq": 2},
+                                 "gru_seq_tc": 2, "lstm_seq": 2, "lstm_seq_tc": 2},
           f"the rationale captioner launched {rationale_launches}, not B2 and B1 "
-          "twice each (B1 on the tensor-core body) and nothing else")
+          "twice each (both on their tensor-core bodies) and nothing else")
     with torch.inference_mode():
         # the captioner's own selection: the same default rng
         again, probs = rationale.apply(rparams, rspec, feats, emit="tokens")
@@ -423,11 +457,11 @@ def main() -> int:
         torch.cuda.synchronize()
         dma_launches = launch_counts(cuda_gru, cuda_lstm)
     check(bt_launches == {"gru_seq": 0, "gru_seq_bt": 1, "gru_seq_dma": 0, "gru_seq_tc": 1,
-                          "lstm_seq": 0},
+                          "lstm_seq": 0, "lstm_seq_tc": 0},
           f"gru_sequence_fused_bt launched {bt_launches}, not B3 once on the "
           "tensor-core body and nothing else")
     check(dma_launches == {"gru_seq": 0, "gru_seq_bt": 0, "gru_seq_dma": 1, "gru_seq_tc": 0,
-                           "lstm_seq": 0},
+                           "lstm_seq": 0, "lstm_seq_tc": 0},
           f"gru_sequence_fused_dma launched {dma_launches}, not B4 once and nothing else")
     check(tuple(bt_outs.shape) == (SMOKE_BATCH, frames, hidden)
           and tuple(dma_outs.shape) == (frames, SMOKE_BATCH, hidden),
@@ -591,6 +625,10 @@ def main() -> int:
                   f"lstm_seq {direction} at B={RATIONALE_BATCH}: err {err}")
             per_direction[direction] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
         lstm_library_ms = time_ms(lambda: lstm(rxs))
+        # the generator's input projection alone (one direction), which the
+        # yardstick includes and the kernel does not
+        lstm_projection_ms = time_ms(lambda: vdot(rxs.reshape(-1, rxs.shape[-1]),
+                                                  fwd["w_ih"], cd))
     lstm_bound, lstm_bound_by = lstm_bound_ms(frames, RATIONALE_BATCH, hidden, PEAKS)
     lstm_ms = sum(d["ms"] for d in per_direction.values()) / 2
     lstm_plain_ms = sum(d["plain_ms"] for d in per_direction.values()) / 2
@@ -599,6 +637,7 @@ def main() -> int:
          lstm_seq={"by_direction": per_direction, "library_ms": lstm_library_ms,
                    "library": "torch.nn.LSTM (cuDNN), one direction, input "
                               "projection included",
+                   "projection_ms": lstm_projection_ms,
                    "bound_ms": lstm_bound, "bound_by": lstm_bound_by},
          nvidia_smi=smi)
 
@@ -645,11 +684,13 @@ def main() -> int:
         "source": "vcr_tpu_torch/ops/csrc/lstm_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:320",
         "launches": rationale_launches["lstm_seq"],
+        "launches_tc": rationale_launches["lstm_seq_tc"],
         "max_abs_err": worst(lstm_cases, "bfloat16"), "tolerance": LSTM_BF16_TOL,
         "f32_max_abs_err": worst(lstm_cases, "float32"),
         "f32_tolerance": LSTM_F32_TOL,
         "ms": lstm_ms, "plain_ms": lstm_plain_ms, "bound_ms": lstm_bound,
-        "bound_by": lstm_bound_by, "library_ms": lstm_library_ms}]}))
+        "bound_by": lstm_bound_by, "library_ms": lstm_library_ms,
+        "projection_ms": lstm_projection_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

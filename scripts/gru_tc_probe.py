@@ -122,8 +122,8 @@ __device__ __forceinline__ void wg_wait() {
 }
 
 """
-    s = _patch(src, "// all threads of the cluster; global and shared writes before it are seen",
-               helpers + "// all threads of the cluster; global and shared writes before it are seen")
+    anchor = "// kTimeMajor: x_gates (T, B, 3H) and out (T, B, H); else (B, T, 3H), (B, T, H)\n"
+    s = _patch(src, anchor, helpers + anchor)
     # W_hh slice in the canonical layout, then made visible to the async proxy
     s = _patch(s, """    __nv_bfloat16* dst =
         reinterpret_cast<__nv_bfloat16*>(w_s + ((k >> 4) * NT + 3 * g + q) * 32);
@@ -201,7 +201,8 @@ def build(name: str, text: str, out_dir: str) -> ctypes.CDLL:
     src = Path(out_dir) / f"{name}.cu"
     src.write_text(text)
     lib = Path(out_dir) / f"lib{name}.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                           "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")

@@ -5,7 +5,8 @@ reports them.
 
 Compiles each ``vcr_tpu_torch/ops/csrc/*.cu`` (and any extra source given,
 e.g. an older copy of one, to compare) with the flags of ``ops/_build.py``
-plus ``-Xptxas -v``, all at once, into a temporary directory, and prints one
+plus ``-Xptxas -v`` (and ``csrc/`` on the include path, for a copy kept
+elsewhere), all at once, into a temporary directory, and prints one
 JSON line per kernel entry: registers, stack and spills, and a hash of its
 machine code (``cuobjdump -sass``), so that two builds of one kernel can be
 shown to be the same code. The hash covers the instructions and their
@@ -66,7 +67,8 @@ def _sass(lib: Path) -> dict:
 def report(source: Path, out_dir: str, sass_dir: Optional[Path] = None) -> list:
     lib = Path(out_dir) / f"{source.stem}-{abs(hash(str(source)))}.so"
     proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(source)],
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-Xptxas", "-v",
+         "-o", str(lib), str(source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")

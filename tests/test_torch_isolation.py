@@ -136,20 +136,26 @@ def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 1e-3), (torch.float32, 1e-4)])
 def test_lstm_kernel_matches_plain_on_the_card(cuda, dtype, tol, reverse):
+    """B2 against its plain version; bf16 runs the tensor-core body (its
+    counter moves), float32 the scalar body (it does not). H=512 at B=1024
+    is one direction of RationaleNet's serving call; H=640, the widest the
+    tensor-core body takes, runs it with fewer warps."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(0)
-    t, hidden = 7, 128
-    for b in (1, 3, 8, 17):
-        x_gates = torch.randn((t, b, 4 * hidden), generator=g, device=cuda).to(dtype)
-        w_hh = (torch.randn((hidden, 4 * hidden), generator=g, device=cuda) * 0.06).to(dtype)
-        b_hh = torch.randn((4 * hidden,), generator=g, device=cuda)
-        h0 = torch.randn((b, hidden), generator=g, device=cuda)
-        c0 = torch.randn((b, hidden), generator=g, device=cuda)
-        before = cuda_lstm.launches
-        got = cuda_lstm.lstm_recurrence(x_gates, w_hh, b_hh, h0, c0, dtype, reverse)
-        assert cuda_lstm.launches == before + 1
-        want = cuda_lstm.lstm_recurrence_plain(x_gates, w_hh, b_hh, h0, c0, dtype,
-                                               reverse)
-        torch.cuda.synchronize()
-        for x, y in zip(got, want):  # outs, c_last
-            assert (x - y).abs().max().item() <= tol
+    for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1024,)), (7, 640, (17,))):
+        for b in batches:
+            x_gates = torch.randn((t, b, 4 * hidden), generator=g, device=cuda).to(dtype)
+            w_hh = (torch.randn((hidden, 4 * hidden), generator=g, device=cuda)
+                    * (2.0 / (5 * hidden)) ** 0.5).to(dtype)
+            b_hh = torch.randn((4 * hidden,), generator=g, device=cuda)
+            h0 = torch.randn((b, hidden), generator=g, device=cuda)
+            c0 = torch.randn((b, hidden), generator=g, device=cuda)
+            before, tc_before = cuda_lstm.launches, cuda_lstm.launches_tc
+            got = cuda_lstm.lstm_recurrence(x_gates, w_hh, b_hh, h0, c0, dtype, reverse)
+            assert cuda_lstm.launches == before + 1
+            assert cuda_lstm.launches_tc == tc_before + int(dtype == torch.bfloat16)
+            want = cuda_lstm.lstm_recurrence_plain(x_gates, w_hh, b_hh, h0, c0, dtype,
+                                                   reverse)
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):  # outs, c_last
+                assert (x - y).abs().max().item() <= tol

@@ -47,10 +47,11 @@ launches_bt = 0
 launches_dma = 0
 launches_tc = 0
 
-# The tensor-core body of B1 and B3: clusters of TC_CLUSTER CTAs, each CTA
-# holding the W_hh columns of H / TC_CLUSTER hidden units in shared memory,
-# each warp computing TC_CHUNK batch rows at a time. TC_SMEM_LIMIT is the
-# shared memory a block may opt into on sm_90.
+# The tensor-core bodies of B1 and B3 (and of B2, ops/cuda_lstm.py):
+# clusters of TC_CLUSTER CTAs, each CTA holding the W_hh columns of
+# H / TC_CLUSTER hidden units in shared memory, each warp computing TC_CHUNK
+# batch rows at a time. TC_SMEM_LIMIT is the shared memory a block may opt
+# into on sm_90.
 TC_CLUSTER = 16
 TC_CHUNK = 16
 TC_SMEM_LIMIT = 232448
@@ -118,21 +119,28 @@ def tc_takes(hidden: int, compute_dtype: torch.dtype) -> bool:
             and tc_smem_bytes(hidden) <= TC_SMEM_LIMIT)
 
 
+def cluster_split(batch: int, max_clusters: int, body: str) -> Tuple[int, int]:
+    """The batch cut into ``clusters`` <= ``max_clusters`` contiguous runs of
+    ``rows`` rows each (a multiple of TC_CHUNK; the last run may reach past
+    the batch), one per cluster of a tensor-core body: (clusters, rows).
+    Raises where the card holds no cluster of ``body``."""
+    if max_clusters < 1:
+        raise ValueError(f"the card holds no cluster of {TC_CLUSTER} CTAs of {body}")
+    rows = -(-batch // max_clusters)
+    rows = -(-rows // TC_CHUNK) * TC_CHUNK
+    return -(-batch // rows), rows
+
+
 def tc_plan(batch: int, hidden: int, compute_dtype: torch.dtype,
             max_clusters: int) -> Optional[Tuple[int, int, int, int]]:
     """Launch geometry of the tensor-core body, or None where it does not
     apply (:func:`tc_takes`). Else (cluster, clusters, rows_per_cluster,
-    chunk): the batch cut into ``clusters`` <= ``max_clusters`` contiguous
-    runs of rows_per_cluster rows (a multiple of chunk; the last run may
-    reach past the batch), one per cluster of ``cluster`` CTAs."""
+    chunk), from :func:`cluster_split`."""
     if not tc_takes(hidden, compute_dtype):
         return None
-    if max_clusters < 1:
-        raise ValueError(f"the card holds no cluster of {TC_CLUSTER} CTAs of the "
-                         f"tensor-core GRU body at H={hidden}")
-    rows = -(-batch // max_clusters)
-    rows = -(-rows // TC_CHUNK) * TC_CHUNK
-    return TC_CLUSTER, -(-batch // rows), rows, TC_CHUNK
+    clusters, rows = cluster_split(batch, max_clusters,
+                                   f"the tensor-core GRU body at H={hidden}")
+    return TC_CLUSTER, clusters, rows, TC_CHUNK
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,6 +6,12 @@ kernel, and its result ``x_gates`` is rounded to the compute dtype as the TPU
 path does; the kernel (``csrc/lstm_seq.cu``) then runs all T steps of the
 recurrence, in either direction, with ``(h, c)`` kept on chip.
 
+The kernel has two bodies, chosen by dtype and shape alone
+(:func:`tc_takes`): bf16 at H % 128 == 0 up to H = 640 runs on the
+tensor-core body, which holds W_hh in the shared memory of a 16-CTA cluster
+(the design of B1's, ``ops/cuda_gru.py``), with the launch geometry of
+:func:`tc_plan`; float32 and other bf16 shapes run on the scalar body.
+
 A CUDA tensor launches the kernel or raises; the plain version
 :func:`lstm_recurrence_plain` serves CPU tensors only. Forward only: the
 backward comes with the training path (ROADMAP A5).
@@ -22,10 +28,13 @@ import torch
 from vcr_tpu_torch.nn.layers import vdot
 from vcr_tpu_torch.nn.rnn import lstm_scan
 from vcr_tpu_torch.ops import _build
+from vcr_tpu_torch.ops.cuda_gru import (TC_CHUNK, TC_CLUSTER, TC_SMEM_LIMIT,
+                                        cluster_split)
 
 # kernel launches made by lstm_recurrence, for showing that a run went
-# through the kernel
+# through the kernel; launches_tc counts those that ran the tensor-core body
 launches = 0
+launches_tc = 0
 
 
 def lstm_recurrence_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
@@ -46,24 +55,69 @@ def _lib() -> ctypes.CDLL:
     lib.lstm_seq_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                                      + [ctypes.c_void_p])
     lib.lstm_seq_forward.restype = ctypes.c_int
+    lib.lstm_seq_tc_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                                        + [ctypes.c_void_p])
+    lib.lstm_seq_tc_forward.restype = ctypes.c_int
+    lib.lstm_seq_tc_clusters.argtypes = [ctypes.c_int]
+    lib.lstm_seq_tc_clusters.restype = ctypes.c_int
     lib.lstm_seq_error_string.argtypes = [ctypes.c_int]
     lib.lstm_seq_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def lstm_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
-                         b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                         compute_dtype: torch.dtype, reverse: bool = False,
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream; same contract as
-    :func:`lstm_recurrence_plain`, on CUDA tensors."""
-    global launches
+def tc_smem_bytes(hidden: int) -> int:
+    """Shared memory of one CTA of the tensor-core body: its W_hh slice,
+    H x 4H / TC_CLUSTER bf16 values (H*H/2 bytes)."""
+    return hidden * 4 * (hidden // TC_CLUSTER) * 2
+
+
+def tc_takes(hidden: int, compute_dtype: torch.dtype) -> bool:
+    """Whether B2 runs the tensor-core body: bf16, each CTA's hidden units a
+    whole number of 8-column mma tiles (H % 128 == 0), and its W_hh slice
+    within a block's shared memory (H <= 640)."""
+    return (compute_dtype == torch.bfloat16 and hidden >= 8 * TC_CLUSTER
+            and hidden % (8 * TC_CLUSTER) == 0
+            and tc_smem_bytes(hidden) <= TC_SMEM_LIMIT)
+
+
+def tc_plan(batch: int, hidden: int, compute_dtype: torch.dtype,
+            max_clusters: int) -> Optional[Tuple[int, int, int, int]]:
+    """Launch geometry of the tensor-core body, or None where it does not
+    apply (:func:`tc_takes`). Else (cluster, clusters, rows_per_cluster,
+    chunk), the split of ``cuda_gru.cluster_split``."""
+    if not tc_takes(hidden, compute_dtype):
+        return None
+    clusters, rows = cluster_split(batch, max_clusters,
+                                   f"the tensor-core LSTM body at H={hidden}")
+    return TC_CLUSTER, clusters, rows, TC_CHUNK
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_max_clusters(device: int, hidden: int) -> int:
+    lib = _lib()
+    with torch.cuda.device(device):
+        n = lib.lstm_seq_tc_clusters(hidden)
+    if n < 0:
+        raise RuntimeError("cluster occupancy query failed: "
+                           + lib.lstm_seq_error_string(-n).decode())
+    return n
+
+
+def tc_max_clusters(hidden: int, device: Optional[torch.device] = None) -> int:
+    """Clusters of the tensor-core body that the card holds at once, at this
+    hidden size (cudaOccupancyMaxActiveClusters), queried once."""
+    index = torch.device(device if device is not None else "cuda").index
+    return _tc_max_clusters(torch.cuda.current_device() if index is None else index,
+                            hidden)
+
+
+def _check(x_gates, w_hh, b_hh, h0, c0, compute_dtype) -> Tuple[int, int, int]:
+    """Raise on what neither body takes, on any device, and then on a tensor
+    that is not on the card; return (T, B, H)."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported compute dtype {compute_dtype}")
     if x_gates.dim() != 3:
         raise ValueError(f"x_gates must be (T, B, 4H), got {tuple(x_gates.shape)}")
-    if not x_gates.is_cuda:
-        raise ValueError(f"the lstm_seq kernel takes CUDA tensors, got {x_gates.device}")
     t, b, h4 = x_gates.shape
     hidden = h4 // 4
     expected = {
@@ -87,19 +141,51 @@ def lstm_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
         raise NotImplementedError(
             "the CUDA LSTM kernel is forward only; its backward comes with the "
             "training path (ROADMAP A5)")
+    if tc_takes(hidden, compute_dtype) and x_gates.data_ptr() % 4:
+        raise ValueError("the lstm_seq kernel reads bf16 x_gates in pairs: it needs "
+                         "x_gates on a 4-byte boundary")
+    if not x_gates.is_cuda:
+        raise ValueError(f"the lstm_seq kernel takes CUDA tensors, got {x_gates.device}")
+    return t, b, hidden
+
+
+def lstm_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
+                         b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                         compute_dtype: torch.dtype, reverse: bool = False,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current stream, through the body that dtype
+    and shape pick (:func:`tc_takes`); same contract as
+    :func:`lstm_recurrence_plain`, on CUDA tensors."""
+    global launches, launches_tc
+    t, b, hidden = _check(x_gates, w_hh, b_hh, h0, c0, compute_dtype)
     lib = _lib()
     out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
     c_last = torch.empty((b, hidden), dtype=torch.float32, device=x_gates.device)
+    tc = tc_takes(hidden, compute_dtype)
+    if tc:
+        _, clusters, rows, _ = tc_plan(b, hidden, compute_dtype,
+                                       tc_max_clusters(hidden, x_gates.device))
+        # h rounded to bf16, double-buffered by step parity, in the kernel's
+        # own order; c_last doubles as the running c
+        hs = torch.empty((2, clusters * rows, hidden), dtype=torch.bfloat16,
+                         device=x_gates.device)
     with torch.cuda.device(x_gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lstm_seq_forward(
-            x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-            c0.data_ptr(), out.data_ptr(), c_last.data_ptr(), t, b, hidden,
-            int(compute_dtype == torch.bfloat16), int(reverse), stream)
+        if tc:
+            err = lib.lstm_seq_tc_forward(
+                x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+                c0.data_ptr(), out.data_ptr(), c_last.data_ptr(), hs.data_ptr(), t, b,
+                hidden, clusters, rows, int(reverse), stream)
+        else:
+            err = lib.lstm_seq_forward(
+                x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+                c0.data_ptr(), out.data_ptr(), c_last.data_ptr(), t, b, hidden,
+                int(compute_dtype == torch.bfloat16), int(reverse), stream)
     if err != 0:
         raise RuntimeError("lstm_seq kernel launch failed: "
                            + lib.lstm_seq_error_string(err).decode())
     launches += 1
+    launches_tc += int(tc)
     return out, c_last
 
 

@@ -8,17 +8,19 @@ exit code and no result line:
 1. device  -- the card's name, and its name and power limit from nvidia-smi.
 2. build   -- compile every CUDA source under vcr_tpu_torch/ops/csrc/, one
    nvcc each, all started together; then the geometry of the tensor-core
-   bodies of B1/B3 and of B2: cluster size, the clusters the card holds at
-   once (cudaOccupancyMaxActiveClusters), shared memory per CTA and the
-   rows per cluster at each checked batch.
+   bodies of B1/B3, of B2 and of B4: cluster size, the clusters the card
+   holds at once (cudaOccupancyMaxActiveClusters), shared memory per CTA
+   and the rows per cluster at each checked batch (for B4 also its warps
+   per CTA and the x_gates slots in each warp's copy ring).
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged batch sizes, in bf16 and float32
-   (and both directions for the LSTM), B1, B3 and B2 also at the serving
-   batches (1024 and 2048; 1024 for B2); the body each B1 and B2 case ran
-   (tensor-core in bf16, scalar in float32); B3 equal to B1 bit for bit
-   (one body), B4 against B1 reported; B4 and every bf16 B2 case twice
-   with identical outputs, since a missing copy fence or cluster barrier
-   shows only on some runs.
+   (and both directions for the LSTM), B1, B3, B4 and B2 also at the
+   serving batches (1024 and 2048 for the GRUs, at T=30 and T=1; 1024 for
+   B2); the body each B1, B4 and B2 case ran (tensor-core in bf16, scalar
+   in float32); B3 and bf16 B4 equal to B1 bit for bit (one body, one
+   order of sums), float32 B4 against B1 reported; B4 and every bf16 B2
+   case twice with identical outputs, since a missing copy wait, fence or
+   cluster barrier shows only on some runs.
 4. main paths -- each greedy captioner (features -> tokens, full width,
    random weights from a seed) through serving.build_captioner, with the
    kernel launch counts set to 0 just before and read just after its run:
@@ -28,11 +30,11 @@ exit code and no result line:
    float32 tokens on the card against the CPU, with shared Gumbel noise for
    RationaleNet. Then the GRU drop-ins on the flagship encoder's weights and
    features: gru_sequence_fused_bt (B3 once) and gru_sequence_fused_dma (B4
-   once) against s2vt.encode.
+   once, on its tensor-core body) against s2vt.encode.
 5. timing  -- CUDA events, best of 3 after warm-up: captions/s of each
    captioner, a stage breakdown, each kernel's time beside its bound, its
-   plain version and a library yardstick (B1 at both serving batches, and
-   the input projection alone, which the yardsticks include, for B1 and
+   plain version and a library yardstick (B1 and B4 at both serving
+   batches, and the input projection alone, which the yardsticks include, for B1 and
    for B2), and the flagship encoder with and without its feature
    transpose (B1 against B3).
 
@@ -125,15 +127,17 @@ def lstm_inputs(t, b, hidden, dtype, seed):
 
 def launch_counts(cuda_gru, cuda_lstm) -> dict:
     """Kernel launches by counter; gru_seq_tc counts the B1 and B3 launches
-    that ran the tensor-core body, lstm_seq_tc the B2 launches that did."""
+    that ran the tensor-core body, gru_seq_dma_tc the B4 launches and
+    lstm_seq_tc the B2 launches that ran theirs."""
     return {"gru_seq": cuda_gru.launches, "gru_seq_bt": cuda_gru.launches_bt,
             "gru_seq_dma": cuda_gru.launches_dma, "gru_seq_tc": cuda_gru.launches_tc,
+            "gru_seq_dma_tc": cuda_gru.launches_dma_tc,
             "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc}
 
 
 def reset_counts(cuda_gru, cuda_lstm) -> None:
     cuda_gru.launches = cuda_gru.launches_bt = cuda_gru.launches_dma = 0
-    cuda_gru.launches_tc = 0
+    cuda_gru.launches_tc = cuda_gru.launches_dma_tc = 0
     cuda_lstm.launches = cuda_lstm.launches_tc = 0
 
 
@@ -245,18 +249,38 @@ def main() -> int:
                             cuda_lstm.tc_plan(b, hidden, torch.bfloat16,
                                               lstm_max_clusters)))
                 for b in (1, 3, 17, SMOKE_BATCH, RATIONALE_BATCH)})
+    # B4's tensor-core body: one CTA per SM, a copy ring per warp
+    dma_max_clusters = cuda_gru.dma_tc_max_clusters(hidden)
+    check(dma_max_clusters >= 1,
+          f"the card holds no cluster of B4's tensor-core body: {dma_max_clusters}")
+    dma_plans = {b: cuda_gru.dma_tc_plan(b, hidden, torch.bfloat16, dma_max_clusters)
+                 for b in (1, 3, 17, SMOKE_BATCH, RATIONALE_BATCH, TIMING_BATCH)}
+    check(all(dma_plans.values()), f"B4's tensor-core plan refuses a checked batch: "
+                                   f"{dma_plans}")
+    dma_geometry = {
+        "hidden": hidden, "cluster": cuda_gru.TC_CLUSTER,
+        "max_active_clusters": dma_max_clusters, "warps": cuda_gru.DMA_TC_WARPS,
+        "slots": cuda_gru.DMA_TC_SLOTS,
+        "plans": {b: dict(zip(("cluster", "clusters", "rows_per_cluster", "chunk",
+                               "warps", "slots"), plan))
+                  | {"smem_bytes_per_cta": cuda_gru.dma_tc_smem_bytes(
+                         hidden, plan[2] // cuda_gru.TC_CHUNK)}
+                  for b, plan in dma_plans.items()}}
+    emit("dma_tc_geometry", **dma_geometry)
 
     # every case is run and printed before any is checked, so a failing
     # run still shows all the errors. B1, B3 and B4 on the same inputs: B3 is
-    # B1's body in the batch-major layout, so it must equal B1 exactly; B4
-    # keeps the scalar arithmetic, so it is held to the plain version only.
+    # B1's body in the batch-major layout, and bf16 B4 runs B1's product and
+    # gate math in B1's order, so both must equal B1 exactly; float32 B4
+    # keeps its own scalar arithmetic and is held to the plain version.
     # T=1 has no copy ahead and one drain.
     cases, variant_cases, failures = [], [], []
-    bt_equal = dma_twice_equal = True
+    bt_equal = dma_twice_equal = dma_bf16_eq_b1 = True
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         shapes = [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17)] + [(1, 17)]
         if dtype == torch.bfloat16:
-            shapes += [(frames, RATIONALE_BATCH), (frames, TIMING_BATCH)]
+            shapes += [(steps, b) for b in (RATIONALE_BATCH, TIMING_BATCH)
+                       for steps in (frames, 1)]
         name = str(dtype).split(".")[-1]
         for steps, b in shapes:
             args = gru_inputs(steps, b, hidden, dtype, seed=b)
@@ -265,9 +289,11 @@ def main() -> int:
             b1 = cuda_gru.gru_recurrence_cuda(*args, dtype)
             tc_launched = cuda_gru.launches_tc - tc_before
             x_bt = args[0].transpose(0, 1).contiguous()
+            dma_tc_before = cuda_gru.launches_dma_tc
             got = {"gru_seq_bt": cuda_gru.gru_recurrence_bt_cuda(
                        x_bt, *args[1:], dtype).transpose(0, 1),
                    "gru_seq_dma": cuda_gru.gru_recurrence_dma_cuda(*args, dtype)}
+            dma_tc_launched = cuda_gru.launches_dma_tc - dma_tc_before
             again = cuda_gru.gru_recurrence_dma_cuda(*args, dtype)
             torch.cuda.synchronize()
             err = max_err(b1, want)
@@ -286,6 +312,9 @@ def main() -> int:
                                       "batch": b, "max_abs_err": err,
                                       "vs_b1_max_abs_err": max_err(out, b1),
                                       "tolerance": tol})
+                if kernel == "gru_seq_dma":
+                    variant_cases[-1]["body"] = ("tensor-core" if dma_tc_launched
+                                                 else "scalar")
                 if not (all_finite(out) and err <= tol):
                     failures.append(f"{kernel} kernel vs plain, {dtype} T={steps} B={b}: "
                                     f"err {err} > {tol}")
@@ -296,6 +325,12 @@ def main() -> int:
                 dma_twice_equal = False
                 failures.append(f"gru_seq_dma gave two outputs on one input, {dtype} "
                                 f"T={steps} B={b}")
+            if dma_tc_launched != int(dtype == torch.bfloat16):
+                failures.append(f"gru_seq_dma {dtype} at H={hidden} B={b} ran the "
+                                f"{'tensor-core' if dma_tc_launched else 'scalar'} body")
+            if dtype == torch.bfloat16 and not torch.equal(got["gru_seq_dma"], b1):
+                dma_bf16_eq_b1 = False
+                failures.append(f"bf16 gru_seq_dma differs from gru_seq, T={steps} B={b}")
     # B2: bf16 runs the tensor-core body, twice per case, since a missing
     # cluster barrier shows only on some runs; float32 the scalar body
     lstm_cases = []
@@ -350,7 +385,7 @@ def main() -> int:
          bf16_control_err=control_err, lstm_seq=lstm_cases,
          lstm_bf16_control_err=lstm_control_err, lstm_seq_twice_equal=lstm_twice_equal,
          gru_variants=variant_cases,
-         gru_seq_bt_eq_gru_seq=bt_equal,
+         gru_seq_bt_eq_gru_seq=bt_equal, gru_seq_dma_bf16_eq_gru_seq=dma_bf16_eq_b1,
          gru_seq_dma_twice_equal=dma_twice_equal, gru_seq_dma_batch_tile=dma_tiles,
          gru_seq_dma_blocks={k: -(-TIMING_BATCH // v) for k, v in dma_tiles.items()},
          gru_seq_dma_blocks_batch=TIMING_BATCH)
@@ -371,7 +406,8 @@ def main() -> int:
     check(int(tokens.min()) >= 0 and int(tokens.max()) < spec.vocab_size,
           "token outside the vocabulary")
     check(main_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
-                            "gru_seq_tc": 2, "lstm_seq": 0, "lstm_seq_tc": 0},
+                            "gru_seq_tc": 2, "gru_seq_dma_tc": 0, "lstm_seq": 0,
+                            "lstm_seq_tc": 0},
           f"the S2VT captioner launched {main_launches}, not B1 twice on the "
           "tensor-core body and nothing else")
 
@@ -404,7 +440,8 @@ def main() -> int:
     check(int(rtokens.min()) >= 0 and int(rtokens.max()) < rspec.vocab_size,
           "rationale token outside the vocabulary")
     check(rationale_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
-                                 "gru_seq_tc": 2, "lstm_seq": 2, "lstm_seq_tc": 2},
+                                 "gru_seq_tc": 2, "gru_seq_dma_tc": 0, "lstm_seq": 2,
+                                 "lstm_seq_tc": 2},
           f"the rationale captioner launched {rationale_launches}, not B2 and B1 "
           "twice each (both on their tensor-core bodies) and nothing else")
     with torch.inference_mode():
@@ -457,12 +494,13 @@ def main() -> int:
         torch.cuda.synchronize()
         dma_launches = launch_counts(cuda_gru, cuda_lstm)
     check(bt_launches == {"gru_seq": 0, "gru_seq_bt": 1, "gru_seq_dma": 0, "gru_seq_tc": 1,
-                          "lstm_seq": 0, "lstm_seq_tc": 0},
+                          "gru_seq_dma_tc": 0, "lstm_seq": 0, "lstm_seq_tc": 0},
           f"gru_sequence_fused_bt launched {bt_launches}, not B3 once on the "
           "tensor-core body and nothing else")
     check(dma_launches == {"gru_seq": 0, "gru_seq_bt": 0, "gru_seq_dma": 1, "gru_seq_tc": 0,
-                           "lstm_seq": 0, "lstm_seq_tc": 0},
-          f"gru_sequence_fused_dma launched {dma_launches}, not B4 once and nothing else")
+                           "gru_seq_dma_tc": 1, "lstm_seq": 0, "lstm_seq_tc": 0},
+          f"gru_sequence_fused_dma launched {dma_launches}, not B4 once on its "
+          "tensor-core body and nothing else")
     check(tuple(bt_outs.shape) == (SMOKE_BATCH, frames, hidden)
           and tuple(dma_outs.shape) == (frames, SMOKE_BATCH, hidden),
           f"drop-in outputs {tuple(bt_outs.shape)} and {tuple(dma_outs.shape)}")
@@ -512,6 +550,7 @@ def main() -> int:
         # B1, then B3 on the same gates in batch-major layout and B4 on B1's
         # inputs, timed in turns (forward order, then backward) on one card
         bt_args = (x_gates.transpose(0, 1).contiguous(),) + gru_args[1:]
+        dma_counts = (cuda_gru.launches_dma, cuda_gru.launches_dma_tc)
         gru_runs = {
             "gru_seq": lambda: cuda_gru.gru_recurrence_cuda(*gru_args),
             "gru_seq_bt": lambda: cuda_gru.gru_recurrence_bt_cuda(*bt_args),
@@ -536,22 +575,31 @@ def main() -> int:
         # the input projection alone, which the yardsticks include and the
         # kernels do not
         projection_ms = time_ms(lambda: vdot(xs.reshape(-1, xs.shape[-1]), rnn1["w_ih"], cd))
-        # B1 at RationaleNet's serving batch, on the first rows of the same
-        # gates, beside cuDNN and the projection at that batch
+        # B1 and B4 at RationaleNet's serving batch, on the first rows of the
+        # same gates, beside cuDNN and the projection at that batch
         half = RATIONALE_BATCH
         args_half = (x_gates[:, :half].contiguous(),) + gru_args[1:3] + (
             torch.zeros((half, hidden), device="cuda"), cd)
         xs_half = xs[:, :half].contiguous()
-        half_err = max_err(cuda_gru.gru_recurrence_cuda(*args_half),
-                           cuda_gru.gru_recurrence_plain(*args_half))
-        check(half_err <= BF16_TOL, f"B1 at B={half}: err {half_err}")
-        b1_half = {"batch": half,
-                   "ms": time_ms(lambda: cuda_gru.gru_recurrence_cuda(*args_half), iters=5),
+        want_half = cuda_gru.gru_recurrence_plain(*args_half)
+        half_err = max_err(cuda_gru.gru_recurrence_cuda(*args_half), want_half)
+        dma_half_err = max_err(cuda_gru.gru_recurrence_dma_cuda(*args_half), want_half)
+        check(max(half_err, dma_half_err) <= BF16_TOL,
+              f"B1 and B4 at B={half}: errs {half_err}, {dma_half_err}")
+        # B1 and B4 at this batch, in turns
+        half_runs = {"gru_seq": lambda: cuda_gru.gru_recurrence_cuda(*args_half),
+                     "gru_seq_dma": lambda: cuda_gru.gru_recurrence_dma_cuda(*args_half)}
+        half_ms = dict.fromkeys(half_runs, float("inf"))
+        for order in (list(half_runs), list(half_runs)[::-1]):
+            for name in order:
+                half_ms[name] = min(half_ms[name], time_ms(half_runs[name], iters=5))
+        b1_half = {"batch": half, "ms": half_ms["gru_seq"],
                    "plain_ms": time_ms(lambda: cuda_gru.gru_recurrence_plain(*args_half)),
                    "library_ms": time_ms(lambda: gru(xs_half)),
                    "projection_ms": time_ms(lambda: vdot(
                        xs_half.reshape(-1, xs_half.shape[-1]), rnn1["w_ih"], cd)),
                    "max_abs_err": half_err}
+        dma_half = {**b1_half, "ms": half_ms["gru_seq_dma"], "max_abs_err": dma_half_err}
         # the whole encoder both ways, in turns: feature transpose + projection
         # + B1, against projection + B3 on the features as they come
         encoder = {"transpose_b1_ms": float("inf"), "b3_ms": float("inf")}
@@ -560,9 +608,16 @@ def main() -> int:
                 lambda: s2vt.encode(params, spec, vf)))
             encoder["b3_ms"] = min(encoder["b3_ms"], time_ms(
                 lambda: cuda_gru.gru_sequence_fused_bt(rnn1, vf, compute_dtype=cd)))
+    # every B4 launch of this phase ran the tensor-core body
+    dma_timed = cuda_gru.launches_dma - dma_counts[0]
+    check(cuda_gru.launches_dma_tc - dma_counts[1] == dma_timed > 0,
+          f"of {dma_timed} timed B4 launches, "
+          f"{cuda_gru.launches_dma_tc - dma_counts[1]} ran the tensor-core body")
     bound_ms, bound_by = gru_bound_ms(frames, TIMING_BATCH, hidden, PEAKS)
     b1_half["bound_ms"], b1_half["bound_by"] = gru_bound_ms(frames, RATIONALE_BATCH,
                                                             hidden, PEAKS)
+    dma_half["bound_ms"], dma_half["bound_by"] = b1_half["bound_ms"], b1_half["bound_by"]
+    dma_body = {"body": "tensor-core", "plan": dma_geometry["plans"][TIMING_BATCH]}
     emit("timing", batch=TIMING_BATCH, caption_ms=caption_ms,
          captions_per_s=TIMING_BATCH / (caption_ms / 1e3), stages=stages,
          gru_seq={"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -577,10 +632,10 @@ def main() -> int:
                      "vs_b1_max_abs_err": max_err(bt_out, b1_out)},
          gru_seq_dma={"ms": dma_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "library": "torch.nn.GRU (cuDNN), input projection included",
+                      "projection_ms": projection_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": dma_err,
-                      "vs_b1_max_abs_err": max_err(dma_out, b1_out),
-                      "batch_tile": dma_tiles["bfloat16"],
-                      "blocks": -(-TIMING_BATCH // dma_tiles["bfloat16"])},
+                      "vs_b1_max_abs_err": max_err(dma_out, b1_out), **dma_body,
+                      "at_rationale_batch": dma_half},
          encoder=encoder, nvidia_smi=smi)
 
     # 5b. RationaleNet timing at its serving batch
@@ -673,13 +728,15 @@ def main() -> int:
         "source": "vcr_tpu_torch/ops/csrc/gru_seq_dma.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:181",
         "launches": dma_launches["gru_seq_dma"],
+        "launches_tc": dma_launches["gru_seq_dma_tc"], **dma_body,
         "max_abs_err": worst(variant_cases, "bfloat16", "gru_seq_dma"),
         "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(variant_cases, "float32", "gru_seq_dma"),
         "f32_tolerance": F32_TOL,
         "ms": dma_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
-        "batch_tile": dma_tiles["bfloat16"]}, {
+        "projection_ms": projection_ms, "at_rationale_batch": dma_half,
+        "scalar_batch_tile": dma_tiles}, {
         "name": "lstm_seq", "route": "cuda",
         "source": "vcr_tpu_torch/ops/csrc/lstm_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:320",

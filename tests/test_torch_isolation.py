@@ -100,10 +100,12 @@ def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
 @pytest.mark.parametrize("variant", ["bt", "dma"])
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
 def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
-    """B3 (batch-major) and B4 (bulk-copy pipeline) against their plain
-    versions; each launch moves its own counter and not B1's. B3 is B1's
-    body in the other layout, so it equals B1 bit for bit; B4 keeps the
-    scalar arithmetic, and only bf16 B3 runs the tensor-core body."""
+    """B3 (batch-major) and B4 (copy pipeline) against their plain versions;
+    each launch moves its own counter and not B1's. bf16 B3 runs B1's
+    tensor-core body (launches_tc moves) and bf16 B4 its own (launches_dma_tc
+    moves), and both equal B1 bit for bit there; B=2048 gives B4's warps
+    several chunks each, so its copy rings wrap within a step. float32 runs
+    the scalar bodies."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(0)
     wrapper, plain, counter = {
@@ -112,16 +114,17 @@ def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
         "dma": (cuda_gru.gru_recurrence_dma, cuda_gru.gru_recurrence_plain,
                 "launches_dma"),
     }[variant]
-    for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1, 17, 256))):
+    bf16 = dtype == torch.bfloat16
+    for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1, 17, 256, 2048))):
         for b in batches:
             args = _gru_case(g, cuda, t, b, hidden, dtype, batch_major=variant == "bt")
             before, b1_before = getattr(cuda_gru, counter), cuda_gru.launches
-            tc_before = cuda_gru.launches_tc
+            tc_before, dma_tc_before = cuda_gru.launches_tc, cuda_gru.launches_dma_tc
             got = wrapper(*args, dtype)
             assert getattr(cuda_gru, counter) == before + 1
             assert cuda_gru.launches == b1_before
-            assert cuda_gru.launches_tc == tc_before + int(
-                variant == "bt" and dtype == torch.bfloat16)
+            assert cuda_gru.launches_tc == tc_before + int(variant == "bt" and bf16)
+            assert cuda_gru.launches_dma_tc == dma_tc_before + int(variant == "dma" and bf16)
             want = plain(*args, dtype)
             torch.cuda.synchronize()
             assert got.shape == want.shape
@@ -130,6 +133,8 @@ def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
                 b1 = cuda_gru.gru_recurrence(args[0].transpose(0, 1).contiguous(),
                                              *args[1:], dtype)
                 assert torch.equal(got, b1.transpose(0, 1))
+            elif bf16:
+                assert torch.equal(got, cuda_gru.gru_recurrence(*args, dtype))
 
 
 @pytest.mark.cuda

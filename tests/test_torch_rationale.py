@@ -132,6 +132,46 @@ def test_bf16_forward_runs_on_the_cpu(models):
     assert torch.equal(probs.sum(-1), torch.ones(probs.shape[:-1]))
 
 
+# the bf16 tier against the JAX package's, as for S2VT in test_torch_s2vt.py
+BF16_DIMS = dict(vocab_size=300, embed_size=64, hidden=128, vid_feat=128, max_len=10,
+                 num_frames=8)
+BF16_B = 32
+BF16_LOGIT_TOL = 2e-3
+BF16_TOKEN_AGREEMENT = 0.98
+
+
+def test_bf16_rationale_matches_jax():
+    """bf16 products and f32 state on both sides (the JAX side through its
+    Pallas BiLSTM and GRU in interpret mode), from one JAX parameter tree and
+    one numpy Gumbel noise: equal frame selections, logits within
+    BF16_LOGIT_TOL, greedy tokens at least BF16_TOKEN_AGREEMENT equal."""
+    kw = dict(BF16_DIMS, arch="rationale", base_arch="s2vt", compute_dtype="bfloat16",
+              vocab_pad_to=8)
+    jspec, jparams = graft._make_spec_and_params(**kw, use_pallas=True)
+    tspec, _ = entry.make_spec_and_params(**kw, device="cpu")
+    tparams = bridge.from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
+                                     "cpu")
+    rng = np.random.default_rng(13)
+    feats = rng.standard_normal(
+        (BF16_B, BF16_DIMS["num_frames"], BF16_DIMS["vid_feat"])).astype(np.float32)
+    noise = rng.gumbel(size=(BF16_B, BF16_DIMS["num_frames"], 2)).astype(np.float32)
+    want_logits, want_probs = jrationale.apply(jparams, jspec, jnp.asarray(feats),
+                                               gumbel_noise=jnp.asarray(noise))
+    logits, probs = trationale.apply(tparams, tspec, torch.from_numpy(feats),
+                                     gumbel_noise=torch.from_numpy(noise))
+    np.testing.assert_array_equal(probs.numpy(), np.asarray(want_probs))
+    share = probs[..., 1].mean().item()
+    assert 0.0 < share < 1.0  # the check sees frames both kept and dropped
+    valid = slice(0, BF16_DIMS["vocab_size"])
+    want_logits = np.asarray(want_logits)[..., valid]
+    assert np.abs(logits.numpy()[..., valid] - want_logits).max() <= BF16_LOGIT_TOL
+    tokens, _ = trationale.apply(tparams, tspec, torch.from_numpy(feats), emit="tokens",
+                                 gumbel_noise=torch.from_numpy(noise))
+    # greedy decoding feeds back the argmax, so the JAX tokens are its
+    # logits' argmax
+    assert (tokens.numpy() == want_logits.argmax(-1)).mean() >= BF16_TOKEN_AGREEMENT
+
+
 def test_init_tree_matches_jax_structure(models):
     _, jparams, _, _, _, _ = models
     _, tparams = entry.make_spec_and_params(

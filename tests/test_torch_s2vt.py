@@ -80,6 +80,39 @@ def test_bf16_captioner_runs_and_stays_close(models):
     assert (bf16[..., valid] - f32[..., valid]).abs().max() < 0.1
 
 
+# the bf16 tier against the JAX package's, at a width where bf16 rounding
+# shows (at DIMS' H=32 the two differ by ~6e-8)
+BF16_DIMS = dict(vocab_size=300, embed_size=64, hidden=128, vid_feat=128, max_len=10,
+                 num_frames=8)
+BF16_B = 32
+BF16_LOGIT_TOL = 2e-3      # the same roundings, sums in other orders through the
+                           # encoder, the prime pass and 10 decode steps
+BF16_TOKEN_AGREEMENT = 0.98
+
+
+def test_bf16_s2vt_matches_jax():
+    """bf16 products and f32 state on both sides (the JAX side through its
+    Pallas GRU in interpret mode), from one JAX parameter tree: logits within
+    BF16_LOGIT_TOL, greedy tokens at least BF16_TOKEN_AGREEMENT equal."""
+    jspec, jparams = graft._make_spec_and_params(
+        **BF16_DIMS, compute_dtype="bfloat16", vocab_pad_to=8, use_pallas=True)
+    tspec, _ = entry.make_spec_and_params(
+        **BF16_DIMS, compute_dtype="bfloat16", vocab_pad_to=8, device="cpu")
+    tparams = bridge.from_jax_params(jax.tree_util.tree_map(np.asarray, jparams),
+                                     "cpu")
+    feats = np.random.default_rng(5).standard_normal(
+        (BF16_B, BF16_DIMS["num_frames"], BF16_DIMS["vid_feat"])).astype(np.float32)
+    want = np.asarray(js2vt.apply(jparams, jspec, jnp.asarray(feats), train=False))
+    got = ts2vt.apply(tparams, tspec, torch.from_numpy(feats)).numpy()
+    assert got.shape == want.shape == (BF16_B, BF16_DIMS["max_len"], 304)
+    valid = slice(0, BF16_DIMS["vocab_size"])
+    assert np.abs(got[..., valid] - want[..., valid]).max() <= BF16_LOGIT_TOL
+    want_tok = np.asarray(js2vt.apply(jparams, jspec, jnp.asarray(feats), train=False,
+                                      emit="tokens"))
+    got_tok = ts2vt.apply(tparams, tspec, torch.from_numpy(feats), emit="tokens").numpy()
+    assert (got_tok == want_tok).mean() >= BF16_TOKEN_AGREEMENT
+
+
 @pytest.mark.parametrize("kwargs, item", [
     ({"featurizer": "vgg16"}, "A17"),
     ({"beam_size": 3}, "A6"),

@@ -1,5 +1,5 @@
 // GRU recurrence with a hand-built copy pipeline (kernel B4), for Hopper
-// (sm_90a).
+// (sm_90a), in two bodies.
 //
 // Replaces: vcr_tpu/ops/pallas_gru.py::_gru_seq_dma_kernel, launched by
 // gru_sequence_pallas_dma. It computes kernel B1's function (gru_seq.cu):
@@ -14,9 +14,18 @@
 // What makes it B4 is how x_gates and out move. The TPU kernel runs one
 // program per batch tile over the whole time loop and copies by hand:
 // x_gates for step t+1 is fetched into slot (t+1)%2 while step t computes,
-// and each output goes out from a slot whose copy is awaited two steps
-// later, before the slot is written again. Here the same pipeline is built
-// from Hopper's bulk copies (TMA without a tensor map):
+// each output goes out from a slot whose copy is awaited two steps later,
+// before the slot is written again, and the float32 h stays on chip. Both
+// bodies keep that pipeline, built from Hopper's copy engine (TMA) on
+// mbarriers. The wrapper (ops/cuda_gru.py) picks the body by dtype and
+// shape alone:
+//
+// * Tensor-core body (gru_seq_dma_tc_forward): bf16 with H % 128 == 0
+//   where the shared-memory budget of its launch plan fits
+//   (cuda_gru.dma_tc_plan: H <= 512, up to ~3,900 rows at 7 clusters). Its
+//   design is described above gru_seq_dma_tc_kernel.
+// * Scalar body (gru_seq_dma_forward): float32, and every other bf16 shape.
+//   One block per tile of rows:
 //   - in: one thread arms slot s's mbarrier with the byte count
 //     (mbarrier.arrive.expect_tx) and issues cp.async.bulk global->shared;
 //     every thread waits on the slot's mbarrier before reading it, with the
@@ -30,26 +39,27 @@
 //     before the barrier that ends step t+1, which is the counterpart of the
 //     TPU kernel's out_dma(slot, t-2).wait(); a final wait_group 0 drains the
 //     last store.
-// A tile's rows of one step are one contiguous run of rows*3H (in) and
-// rows*H (out) elements in the time-major layout, so each copy is a single
-// 1-D bulk copy, the ragged last tile included. Bulk copies need 16-byte
-// addresses and sizes: H % 8 == 0.
-//
-// The recurrent product and gate math are those of B1's scalar body, in its
-// FMA order and on the same rounded h (float, double-buffered): B4 agrees
-// with B1 bit for bit in float32, where B1 runs that body. In bf16 B1 runs
-// its tensor-core body, which sums in another order, so there the two agree
-// only within the kernels' tolerance. B1's scalar body keeps a separate
-// float32 h; here the out slot of step t-1 holds exactly that h while step t
-// reads it (its store only reads it too), so the block needs no third copy,
-// and a 16-row tile fits in the 227 KB a block may have at H=512 in bf16:
-// 2 x_gates slots 96 KB, 2 out slots 64 KB, 2 rounded h 64 KB. The tile is
-// the largest of 16, 8, 4, 2, 1 rows that fits: 16 in bf16 and 8 in float32
-// at H=512. W_hh streams from L2 every step, as in B1's scalar body.
+//   A tile's rows of one step are one contiguous run of rows*3H (in) and
+//   rows*H (out) elements in the time-major layout, so each copy is a single
+//   1-D bulk copy, the ragged last tile included. Bulk copies need 16-byte
+//   addresses and sizes: H % 8 == 0.
+//   The recurrent product and gate math are those of B1's scalar body, in
+//   its FMA order and on the same rounded h (float, double-buffered): this
+//   body agrees with B1 bit for bit in float32, where B1 runs that body.
+//   B1's scalar body keeps a separate float32 h; here the out slot of step
+//   t-1 holds exactly that h while step t reads it (its store only reads it
+//   too), so the block needs no third copy, and a 16-row tile fits in the
+//   227 KB a block may have at H=512 in bf16: 2 x_gates slots 96 KB, 2 out
+//   slots 64 KB, 2 rounded h 64 KB. The tile is the largest of 16, 8, 4, 2,
+//   1 rows that fits: 16 in bf16 and 8 in float32 at H=512. W_hh streams
+//   from L2 every step, as in B1's scalar body.
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -272,6 +282,463 @@ cudaError_t launch(const void* xg, const void* whh, const void* bhh, const void*
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core body (bf16).
+//
+// The scalar body is bound by its product: 12.6 M FP32 FMAs per block and
+// step, with W_hh re-read from L2 by all 128 blocks every step. This body
+// takes B1's tensor-core design (gru_seq.cu, tc_common.cuh) and rebuilds
+// B4's copy pipeline around it:
+//
+// * W_hh and the product are B1's. A non-portable cluster of 16 CTAs splits
+//   W_hh by columns; CTA `rank` holds the r, z and n columns of its U = H/16
+//   units in mma.sync B-fragment order for the whole call (96 KB at H=512).
+//   A warp computes a chunk of 16 batch rows with mma.sync m16n8k16 bf16 ->
+//   f32, accumulators started at b_hh, n-tile 3g+q = gate q of unit group g,
+//   so the gate update stays in registers; the rounded h crosses CTAs
+//   through the L2 scratch `hs` in A-fragment order (store_h), behind one
+//   cluster barrier per step. The product loop, its order of k-steps and
+//   the gate expressions are B1's.
+// * One CTA per SM (launch bounds): the copy buffers need the room beside
+//   the W_hh slice, 232,448 - 98,304 = 134,144 bytes at H=512. B1's body
+//   took the same time at one CTA per SM as at two at B=2048 (PERF.md).
+// * The copy pipeline is per warp. A warp owns the chunks c = warp,
+//   warp + kWarps, ... and walks its items, one per (step, chunk), step by
+//   step.
+//   - In: a ring of kSlots x_gates slots (one chunk's 16 rows x 3 gates x U
+//     units, 3 KB at H=512), each on its own mbarrier. Before the warp
+//     computes item i, lane 0 arms the slot of item i + kSlots - 1
+//     (mbarrier.arrive.expect_tx) and issues its TMA load. That slot was
+//     last read by item i-1, whose reads into registers ended before a
+//     __syncwarp. So the next chunk's gates, or the first chunk's of step
+//     t+1, land while this chunk computes and while the cluster waits at its
+//     barrier. All lanes wait with the slot's use parity (i / kSlots) & 1.
+//     No copy is issued past the warp's last item (the TPU kernel's
+//     `t + 1 < t_steps`).
+//   - Out and the float32 state: each chunk has one float32 tile in shared
+//     memory holding the chunk's h of the last step (h0 before step 0, 0 in
+//     rows past the batch): the TPU kernel's h_scratch. A thread reads its
+//     h_prev from it and computes; then lane 0 waits until the warp's
+//     earlier stores have read their tiles (cp.async.bulk.wait_group.read 0,
+//     after the product, so that it costs nothing), the warp meets at a
+//     __syncwarp, the threads write h_new in place, fence it for the copy
+//     engine (fence.proxy.async.shared::cta) and meet again, and lane 0
+//     stores the tile to out[t] and commits it as a bulk group. A final
+//     wait_group 0 drains the stores.
+//   The TPU kernel double-buffers its out slot because one program computes
+//   step t+1 right after step t, while the DMA of step t may still read the
+//   slot. Here a chunk's tile is written again one step later, after the
+//   warp's other chunks and a cluster barrier, so its store has long
+//   finished, and the wait that proves it costs nothing: one tile per chunk
+//   is enough, and so is the h_scratch it doubles as.
+// * The copies use TMA tensor maps, built on the host with
+//   cuTensorMapEncodeTiled (reached through the runtime's driver entry
+//   point, so the library needs no -lcuda) and passed as __grid_constant__
+//   parameters. Their boxes split H into 8-unit groups, so that a tile lands
+//   in an order in which the threads' accesses are free of bank conflicts
+//   without a swizzle:
+//   - x_gates (T, B, 3H) as {8 units, 3 gates, B, H/8, T}, box
+//     {8, 3, 16, U/8, 1}: a slot is [group][row][gate][8 units] bf16, and a
+//     warp's 32-bit reads of one (group, gate) fall on words row*12 + tq:
+//     32 banks;
+//   - out (T, B, H) as {8 units, B, H/8, T}, box {8, 16, U/8, 1}: a tile is
+//     [group][row][8 units] float32, and a half-warp's 64-bit reads and
+//     writes of one group fall on words row*8 + 2*tq: 32 banks.
+//   The plain boxes ({U, 3, 16, 1} and {U, 16, 1}, rows of 192 and 128
+//   bytes) put the eight rows gq of a fragment on the same banks 4 ways; a
+//   128-byte swizzle brings the out tile only to 2 ways, since its XOR with
+//   the row moves whole 16-byte chunks and tq's pair lies inside one. Rows
+//   past the batch load as zeros and a store clips them, so the ragged last
+//   chunk never writes another step's rows. 1-D bulk copies per row segment
+//   (48 in, 16 out per chunk and step) would allow padded rows too, but
+//   cost 64 copy instructions where the maps need two.
+// * Shared memory per CTA at H=512, B=2048 (7 clusters of 304 rows, 19
+//   chunks a CTA): W_hh slice 98,304 + 19 tiles of 2,048 + 10 warps x 2
+//   slots of 3,072 + 20 mbarriers = 198,816 of 232,448 bytes. The wrapper's
+//   plan checks this budget and gives the scalar body the batches beyond it.
+// ---------------------------------------------------------------------------
+
+namespace dma_tc {
+
+using namespace tc;  // kCluster, kChunk and the helpers B1's body uses
+
+// Measured on an H100 (scripts/gru_dma_tc_probe.py, PERF.md): at B=2048 a
+// CTA has 19 chunks, so 10 warps carry at most two each (8 warps leave three
+// with three); ptxas budgets 10 warps' registers as 12 (168 a thread), where
+// A loaded 8 k-steps ahead spills and 4 does not (136). A third ring slot
+// gains nothing: one item of look-ahead already hides the copies.
+constexpr int kWarps = 10;     // warps per CTA, one CTA per SM
+constexpr int kSlots = 2;      // x_gates slots in each warp's ring
+constexpr int kThreads = kWarps * 32;
+constexpr int kAhead = 4;      // k-steps of A loaded ahead together
+constexpr int kMaxGroups = 4;  // H = 128 * groups; 640 and up never fit the budget
+
+// bytes of a CTA's W_hh slice, of one chunk's float32 tile, of one x_gates
+// slot, at `groups` 8-unit groups per CTA
+constexpr size_t w_bytes(int groups) { return (size_t)6144 * groups * groups; }
+constexpr size_t tile_bytes(int groups) { return (size_t)kChunk * 8 * groups * 4; }
+constexpr size_t slot_bytes(int groups) { return (size_t)kChunk * 3 * 8 * groups * 2; }
+
+size_t smem_bytes(int groups, int chunks) {
+  return w_bytes(groups) + chunks * tile_bytes(groups)
+         + kWarps * kSlots * (slot_bytes(groups) + sizeof(uint64_t));
+}
+
+// TMA: box `map` at coordinates {c0..c4} into shared memory, its bytes
+// counted against `bar`'s current phase
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3, int c4, uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];"
+               :: "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+                  "r"(c4), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// TMA: shared memory into box `map` at {c0..c3}, committed as a bulk group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+               " [%0, {%2, %3, %4, %5}], [%1];"
+               :: "l"(map), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+template <int kGroups>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_seq_dma_tc_kernel(const __grid_constant__ CUtensorMap xg_map,   // x_gates, see above
+                      const __grid_constant__ CUtensorMap out_map,  // out, see above
+                      const __nv_bfloat16* __restrict__ whh,        // (H, 3H)
+                      const float* __restrict__ bhh,                // (3H,)
+                      const float* __restrict__ h0,                 // (B, H)
+                      uint4* __restrict__ hs,                       // [2][chunks][H/16][32]
+                      int steps, int batch, int rows_per_cluster) {
+  constexpr int U = 8 * kGroups;       // hidden units of this CTA
+  constexpr int H = kCluster * U;
+  constexpr int KS = H / 16;           // k-steps of the product
+  constexpr int NT = 3 * kGroups;      // n-tiles: 3g+q = gate q of unit group g
+  constexpr int KB = KS / kAhead;
+  constexpr int kTile = kChunk * U;    // float32 values of a chunk's tile
+  constexpr int kSlot = kChunk * 3 * U;  // bf16 values of an x_gates slot
+  extern __shared__ __align__(128) uint2 w_s[];  // [KS][NT][32 lanes] B fragments
+
+  const int rank = blockIdx.x % kCluster;
+  const int cluster = blockIdx.x / kCluster;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // mma groupID, thread in group
+  const int g0 = rank * kGroups;            // first unit group (of 8) of this CTA
+  const int unit0 = rank * U + 2 * tq;      // this thread's first unit; group g adds 8g
+  const int chunks = rows_per_cluster / kChunk;
+  const size_t chunk0 = (size_t)cluster * chunks;
+  const size_t parity = (size_t)(gridDim.x / kCluster) * chunks * KS * 32;
+  const int row0 = cluster * rows_per_cluster;
+  const int row_base = row0 + gq;
+  // this warp's chunks and items (one per step and chunk)
+  const int mine = warp < chunks ? (chunks - 1 - warp) / kWarps + 1 : 0;
+  const int items = steps * mine;
+
+  float* tiles = reinterpret_cast<float*>(w_s + KS * NT * 32);  // [chunks][kGroups][16][8]
+  __nv_bfloat16* ring_all = reinterpret_cast<__nv_bfloat16*>(tiles + chunks * kTile);
+  __nv_bfloat16* ring = ring_all + warp * kSlots * kSlot;  // [kSlots][kGroups][16][3][8]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_all + kWarps * kSlots * kSlot)
+                   + warp * kSlots;
+
+  // the x_gates copy of item j into its slot
+  const CUtensorMap* xmap = &xg_map;
+  auto load_item = [&](int j) {
+    const int s = j % kSlots;
+    mbar_arrive_expect_tx(&bars[s], (uint32_t)(kSlot * sizeof(__nv_bfloat16)));
+    tma_load_5d(ring + s * kSlot, xmap, 0, 0, row0 + (warp + (j % mine) * kWarps) * kChunk,
+                g0, j / mine, &bars[s]);
+  };
+  if (lane == 0 && mine > 0) {
+    for (int s = 0; s < kSlots; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int j = 0; j < kSlots - 1 && j < items; ++j) load_item(j);
+  }
+
+  // W_hh columns of this CTA's units, in B-fragment order: element (k, n) of
+  // n-tile j goes to lane 4n + (k%8)/2 of fragment [k/16][j], register
+  // (k%16)/8, half k%2
+  for (int i = threadIdx.x; i < H * NT; i += kThreads) {
+    const int g = i % kGroups, q = (i / kGroups) % 3, k = i / NT, kk = k & 15;
+    const __nv_bfloat16* src = whh + (size_t)k * 3 * H + q * H + rank * U + 8 * g;
+    __nv_bfloat16* dst =
+        reinterpret_cast<__nv_bfloat16*>(w_s + ((k >> 4) * NT + 3 * g + q) * 32);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      dst[(4 * n + ((kk & 7) >> 1)) * 4 + (kk >> 3) * 2 + (kk & 1)] = src[n];
+  }
+  // h0 into the tiles, and rounded into step 0's buffer; rows past the batch
+  // hold 0. A thread writes the tile positions it reads later.
+  for (int c = warp; c < chunks; c += kWarps) {
+    float* tile = tiles + c * kTile;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      float v[2][2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row_base + c * kChunk + 8 * hh;
+        const float* p = h0 + (size_t)r * H + unit0 + 8 * g;
+        v[hh][0] = r < batch ? p[0] : 0.0f;
+        v[hh][1] = r < batch ? p[1] : 0.0f;
+        *reinterpret_cast<float2*>(tile + (g * kChunk + gq + 8 * hh) * 8 + 2 * tq) =
+            make_float2(v[hh][0], v[hh][1]);
+      }
+      store_h(hs, chunk0 + c, KS, g0 + g, lane, v[0], v[1]);
+    }
+  }
+  cluster_sync();  // also: w_s complete, the mbarriers initialised
+
+  int i = 0;  // this warp's item
+  for (int t = 0; t < steps; ++t) {
+    const uint4* h_cur = hs + (t & 1) * parity;
+    uint4* h_next = hs + ((t + 1) & 1) * parity;
+    for (int k = 0; k < mine; ++k, ++i) {
+      const int c = warp + k * kWarps;
+      const int s = i % kSlots;
+      // the slot of item i + kSlots - 1 was last read by item i - 1
+      if (lane == 0 && i + kSlots - 1 < items) load_item(i + kSlots - 1);
+      float* tile = tiles + c * kTile;
+      const __nv_bfloat16* xs = ring + s * kSlot;
+
+      // the gate update's operands first, so that their latency hides
+      // behind the product: the float32 h of step t-1 from the tile, then
+      // x_gates once its copy has landed
+      float hp[kGroups][2][2];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              tile + (g * kChunk + gq + 8 * hh) * 8 + 2 * tq);
+          hp[g][hh][0] = v.x;
+          hp[g][hh][1] = v.y;
+        }
+      }
+      // the (i / kSlots)-th use of slot s completes its phase of that parity
+      mbar_wait(&bars[s], (uint32_t)((i / kSlots) & 1));
+      uint32_t xw[kGroups][3][2];  // bf16 pairs of x_gates [group][gate][row]
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            xw[g][q][hh] = *reinterpret_cast<const uint32_t*>(
+                xs + ((g * kChunk + gq + 8 * hh) * 3 + q) * 8 + 2 * tq);
+        }
+      }
+
+      // hg = h @ W_hh + b_hh, f32 accumulation; A from L2, B from shared
+      float acc[NT][4];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float b0 = __ldg(bhh + q * H + unit0 + 8 * g);
+          const float b1 = __ldg(bhh + q * H + unit0 + 8 * g + 1);
+          acc[3 * g + q][0] = acc[3 * g + q][2] = b0;
+          acc[3 * g + q][1] = acc[3 * g + q][3] = b1;
+        }
+      }
+      const uint4* a_src = h_cur + (chunk0 + c) * KS * 32 + lane;
+      uint4 a[2][kAhead];
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) a[0][j] = __ldcg(a_src + j * 32);
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        if (kb + 1 < KB) {
+#pragma unroll
+          for (int j = 0; j < kAhead; ++j)
+            a[(kb + 1) & 1][j] = __ldcg(a_src + ((kb + 1) * kAhead + j) * 32);
+        }
+#pragma unroll
+        for (int j = 0; j < kAhead; ++j) {
+          const uint2* b = w_s + (kb * kAhead + j) * NT * 32 + lane;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_bf16(acc[n], a[kb & 1][j], b[n * 32]);
+        }
+      }
+
+      // r, z, n and the new h, in registers
+      float hn[kGroups][2][2];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = 2 * hh + e;
+            const float rg = sigmoid_tc(bf16_at(xw[g][0][hh], e) + acc[3 * g][n]);
+            const float zg = sigmoid_tc(bf16_at(xw[g][1][hh], e) + acc[3 * g + 1][n]);
+            const float ng = tanh_tc(bf16_at(xw[g][2][hh], e) + rg * acc[3 * g + 2][n]);
+            hn[g][hh][e] = (1.0f - zg) * ng + zg * hp[g][hh][e];
+          }
+        }
+        store_h(h_next, chunk0 + c, KS, g0 + g, lane, hn[g][0], hn[g][1]);
+      }
+
+      // the warp's earlier stores have read their tiles, this one's of step
+      // t-1 among them; then h_new goes into the tile and out to out[t]
+      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(tile + (g * kChunk + gq + 8 * hh) * 8 + 2 * tq) =
+              make_float2(hn[g][hh][0], hn[g][hh][1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) tma_store_4d(&out_map, tile, 0, row0 + c * kChunk, g0, t);
+    }
+    // step t's h is written everywhere before step t+1 reads it, and step
+    // t's reads of h_cur end before step t+1 overwrites it
+    if (t + 1 < steps) cluster_sync();
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver behind the runtime; null if the
+// driver does not have it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// x_gates (T, B, 3H) bf16 as {8, 3, B, H/8, T} with box {8, 3, 16, groups, 1},
+// and out (T, B, H) float32 as {8, B, H/8, T} with box {8, 16, groups, 1}
+cudaError_t make_maps(CUtensorMap* xg_map, CUtensorMap* out_map, const void* xg,
+                      void* out, int steps, int batch, int hidden, int groups) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t h = hidden, b = batch, t = steps;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t xg_dims[5] = {8, 3, b, h / 8, t};
+  const cuuint64_t xg_strides[4] = {h * 2, 3 * h * 2, 16, b * 3 * h * 2};
+  const cuuint32_t xg_box[5] = {8, 3, (cuuint32_t)kChunk, (cuuint32_t)groups, 1};
+  const cuuint64_t out_dims[4] = {8, b, h / 8, t};
+  const cuuint64_t out_strides[3] = {h * 4, 32, b * h * 4};
+  const cuuint32_t out_box[4] = {8, (cuuint32_t)kChunk, (cuuint32_t)groups, 1};
+  if (encode(xg_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(xg), xg_dims,
+             xg_strides, xg_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(out_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, out_dims, out_strides,
+             out_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+          != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// the shared memory a block may opt into on the current card; 0 if unknown
+int smem_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
+          != cudaSuccess)
+    return 0;
+  return limit;
+}
+
+// opt in to all of a block's shared memory (so the occupancy query and
+// every launch see one CTA per SM) and to 16-CTA clusters
+template <int kGroups>
+cudaError_t prepare(int limit) {
+  cudaError_t err = cudaFuncSetAttribute(gru_seq_dma_tc_kernel<kGroups>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(gru_seq_dma_tc_kernel<kGroups>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+template <int kGroups>
+cudaError_t max_clusters(int* n) {
+  const int limit = smem_limit();
+  if (limit == 0) return cudaErrorInvalidValue;
+  cudaError_t err = prepare<kGroups>(limit);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(1, kThreads, limit, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(n, gru_seq_dma_tc_kernel<kGroups>, &cfg);
+}
+
+template <int kGroups>
+cudaError_t launch(const void* xg, const void* whh, const void* bhh, const void* h0,
+                   void* out, void* hs, int steps, int batch, int clusters,
+                   int rows_per_cluster, cudaStream_t stream) {
+  const int limit = smem_limit();
+  const size_t smem = smem_bytes(kGroups, rows_per_cluster / kChunk);
+  if (smem > (size_t)limit) return cudaErrorInvalidValue;
+  cudaError_t err = prepare<kGroups>(limit);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xg_map, out_map;
+  err = make_maps(&xg_map, &out_map, xg, out, steps, batch, kCluster * 8 * kGroups, kGroups);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(clusters, kThreads, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gru_seq_dma_tc_kernel<kGroups>, xg_map, out_map,
+                           static_cast<const __nv_bfloat16*>(whh),
+                           static_cast<const float*>(bhh), static_cast<const float*>(h0),
+                           static_cast<uint4*>(hs), steps, batch, rows_per_cluster);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// unit groups per CTA at this hidden size, or 0 where the body does not apply
+int groups_for(int hidden) {
+  const int groups = hidden / (8 * kCluster);
+  return hidden % (8 * kCluster) == 0 && groups >= 1 && groups <= kMaxGroups ? groups : 0;
+}
+
+cudaError_t max_clusters_any(int hidden, int* n) {
+  switch (groups_for(hidden)) {
+    case 1: return max_clusters<1>(n);
+    case 2: return max_clusters<2>(n);
+    case 3: return max_clusters<3>(n);
+    case 4: return max_clusters<4>(n);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_any(const void* x, const void* w, const void* b, const void* h0,
+                       void* out, void* hs, int steps, int batch, int hidden, int clusters,
+                       int rows, cudaStream_t s) {
+  switch (groups_for(hidden)) {
+    case 1: return launch<1>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 2: return launch<2>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 3: return launch<3>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    case 4: return launch<4>(x, w, b, h0, out, hs, steps, batch, clusters, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace dma_tc
+
 }  // namespace
 
 extern "C" {
@@ -299,6 +766,39 @@ int gru_seq_dma_forward(const void* x_gates, const void* w_hh, const void* b_hh,
                    ? launch<__nv_bfloat16>(x_gates, w_hh, b_hh, h0, out, steps, batch,
                                            hidden, s)
                    : launch<float>(x_gates, w_hh, b_hh, h0, out, steps, batch, hidden, s));
+}
+
+// Clusters of kernel B4's tensor-core body that the current card holds at
+// once at this hidden size, one CTA per SM; 0 if none, a negated
+// cudaError_t if the query failed.
+int gru_seq_dma_tc_clusters(int hidden) {
+  int n = 0;
+  const cudaError_t err = dma_tc::max_clusters_any(hidden, &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Kernel B4 through the tensor-core body: the contract of
+// gru_seq_dma_forward in bf16, with H % 128 == 0, x_gates and out 16-byte
+// aligned. hs is a scratch of 2 * clusters * rows_per_cluster * H bf16
+// values; `clusters` clusters of 16 CTAs each own rows_per_cluster (a
+// multiple of 16) batch rows, clusters * rows_per_cluster >= batch, and
+// warps and slots (the plan's warps per CTA and x_gates slots per warp)
+// must be the body's own. Launches on `stream`, does not synchronise,
+// allocates nothing. Returns the cudaError_t of the launch (0 on success).
+int gru_seq_dma_tc_forward(const void* x_gates, const void* w_hh, const void* b_hh,
+                           const void* h0, void* out, void* hs, int steps, int batch,
+                           int hidden, int clusters, int rows_per_cluster, int warps,
+                           int slots, void* stream) {
+  if (steps < 1 || batch < 1 || clusters < 1 || rows_per_cluster < tc::kChunk ||
+      rows_per_cluster % tc::kChunk != 0 ||
+      (long long)clusters * rows_per_cluster < batch || dma_tc::groups_for(hidden) == 0 ||
+      warps != dma_tc::kWarps || slots != dma_tc::kSlots ||
+      reinterpret_cast<uintptr_t>(x_gates) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dma_tc::launch_any(x_gates, w_hh, b_hh, h0, out, hs, steps, batch, hidden,
+                                 clusters, rows_per_cluster,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 const char* gru_seq_dma_error_string(int err) {

@@ -10,7 +10,7 @@ computing one function:
   (B, T, H) out, with no transpose;
 * :func:`gru_sequence_fused_dma`, counterpart of ``gru_sequence_pallas_dma``
   (kernel B4, ``csrc/gru_seq_dma.cu``): B1's function, with ``x_gates``
-  copied ahead and outputs copied back by TMA bulk copies on ``mbarrier``s.
+  copied ahead and outputs copied back by TMA copies on ``mbarrier``s.
 
 Each does the input projection as one product outside the kernel and rounds
 its result ``x_gates`` to the compute dtype as the TPU path does; the kernel
@@ -20,7 +20,10 @@ B1 and B3 have two bodies in ``csrc/gru_seq.cu``, chosen by dtype and shape
 alone (:func:`tc_takes`): bf16 at H % 128 == 0 (up to H = 768) runs on the
 tensor-core body, which holds W_hh in the shared memory of a 16-CTA cluster,
 with the launch geometry of :func:`tc_plan`; float32 and other bf16 shapes
-run on the scalar body.
+run on the scalar body. B4 has two bodies in ``csrc/gru_seq_dma.cu``,
+chosen the same way (:func:`dma_tc_plan`): bf16 at H % 128 == 0 whose shared
+memory budget fits runs on a tensor-core body of the same cluster design,
+with a copy ring per warp; everything else on the scalar body.
 
 A CUDA tensor launches the kernel or raises; the plain versions serve CPU
 tensors only. Forward only: B1's backward comes with the training path
@@ -41,11 +44,13 @@ from vcr_tpu_torch.ops import _build
 
 # kernel launches made by gru_recurrence (B1), gru_recurrence_bt (B3) and
 # gru_recurrence_dma (B4), for showing that a run went through each kernel;
-# launches_tc counts the B1 and B3 launches that ran the tensor-core body
+# launches_tc counts the B1 and B3 launches that ran the tensor-core body,
+# launches_dma_tc the B4 launches that ran B4's
 launches = 0
 launches_bt = 0
 launches_dma = 0
 launches_tc = 0
+launches_dma_tc = 0
 
 # The tensor-core bodies of B1 and B3 (and of B2, ops/cuda_lstm.py):
 # clusters of TC_CLUSTER CTAs, each CTA holding the W_hh columns of
@@ -55,6 +60,10 @@ launches_tc = 0
 TC_CLUSTER = 16
 TC_CHUNK = 16
 TC_SMEM_LIMIT = 232448
+# B4's tensor-core body (csrc/gru_seq_dma.cu, dma_tc::kWarps and kSlots):
+# warps per CTA at one CTA per SM, and x_gates copy slots in each warp's ring
+DMA_TC_WARPS = 10
+DMA_TC_SLOTS = 2
 
 
 def gru_recurrence_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
@@ -99,6 +108,11 @@ def _dma_lib() -> ctypes.CDLL:
     lib.gru_seq_dma_forward.restype = ctypes.c_int
     lib.gru_seq_dma_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.gru_seq_dma_rows.restype = ctypes.c_int
+    lib.gru_seq_dma_tc_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                                           + [ctypes.c_void_p])
+    lib.gru_seq_dma_tc_forward.restype = ctypes.c_int
+    lib.gru_seq_dma_tc_clusters.argtypes = [ctypes.c_int]
+    lib.gru_seq_dma_tc_clusters.restype = ctypes.c_int
     lib.gru_seq_dma_error_string.argtypes = [ctypes.c_int]
     lib.gru_seq_dma_error_string.restype = ctypes.c_char_p
     return lib
@@ -163,15 +177,75 @@ def tc_max_clusters(hidden: int, time_major: bool = True,
                             hidden, time_major)
 
 
+def dma_tc_smem_bytes(hidden: int, chunks: int, warps: int = DMA_TC_WARPS,
+                      slots: int = DMA_TC_SLOTS) -> int:
+    """Shared memory of one CTA of B4's tensor-core body with ``chunks``
+    16-row chunks: its W_hh slice (:func:`tc_smem_bytes`), one float32 h/out
+    tile per chunk, and each warp's ring of ``slots`` x_gates slots (16 rows
+    x 3 gates x H/16 units, bf16) with an mbarrier each."""
+    units = hidden // TC_CLUSTER
+    return (tc_smem_bytes(hidden) + chunks * TC_CHUNK * units * 4
+            + warps * slots * (TC_CHUNK * 3 * units * 2 + 8))
+
+
+def dma_tc_takes(hidden: int, compute_dtype: torch.dtype, warps: int = DMA_TC_WARPS,
+                 slots: int = DMA_TC_SLOTS) -> bool:
+    """Whether B4's tensor-core body applies at this width at all: bf16, H %
+    128 == 0, and one chunk a CTA within the shared-memory budget (H <= 512
+    with 10 warps of 2 slots; the larger slices leave too little room)."""
+    return (compute_dtype == torch.bfloat16 and hidden >= 8 * TC_CLUSTER
+            and hidden % (8 * TC_CLUSTER) == 0
+            and dma_tc_smem_bytes(hidden, 1, warps, slots) <= TC_SMEM_LIMIT)
+
+
+def dma_tc_plan(batch: int, hidden: int, compute_dtype: torch.dtype, max_clusters: int,
+                warps: int = DMA_TC_WARPS, slots: int = DMA_TC_SLOTS,
+                ) -> Optional[Tuple[int, int, int, int, int, int]]:
+    """Launch geometry of B4's tensor-core body, or None where it does not
+    apply: not :func:`dma_tc_takes`, or a batch whose chunks per CTA do not
+    fit the shared-memory budget (beyond ~3,900 rows at 7 clusters, H=512).
+    Else (cluster, clusters, rows_per_cluster, chunk, warps, slots), the
+    rows from :func:`cluster_split`."""
+    if not dma_tc_takes(hidden, compute_dtype, warps, slots):
+        return None
+    clusters, rows = cluster_split(batch, max_clusters,
+                                   f"B4's tensor-core GRU body at H={hidden}")
+    if dma_tc_smem_bytes(hidden, rows // TC_CHUNK, warps, slots) > TC_SMEM_LIMIT:
+        return None
+    return TC_CLUSTER, clusters, rows, TC_CHUNK, warps, slots
+
+
+@functools.lru_cache(maxsize=None)
+def _dma_tc_max_clusters(device: int, hidden: int) -> int:
+    lib = _dma_lib()
+    with torch.cuda.device(device):
+        n = lib.gru_seq_dma_tc_clusters(hidden)
+    if n < 0:
+        raise RuntimeError("cluster occupancy query failed: "
+                           + lib.gru_seq_dma_error_string(-n).decode())
+    return n
+
+
+def dma_tc_max_clusters(hidden: int, device: Optional[torch.device] = None) -> int:
+    """Clusters of B4's tensor-core body that the card holds at once at this
+    hidden size, one CTA per SM (cudaOccupancyMaxActiveClusters), queried
+    once."""
+    index = torch.device(device if device is not None else "cuda").index
+    return _dma_tc_max_clusters(torch.cuda.current_device() if index is None else index,
+                                hidden)
+
+
 def dma_batch_tile(hidden: int, compute_dtype: torch.dtype) -> int:
-    """Batch rows per block that kernel B4 takes on the current card: the
+    """Batch rows per block of B4's scalar body on the current card: the
     largest of 16, 8, 4, 2, 1 whose buffers fit a block's shared memory."""
     return _dma_lib().gru_seq_dma_rows(hidden, int(compute_dtype == torch.bfloat16))
 
 
 def _check(kernel: str, x_gates, w_hh, b_hh, h0, compute_dtype, batch_major: bool,
-           hidden_multiple: int, no_grad_reason: str) -> Tuple[int, int, int]:
-    """Raise on what ``kernel`` cannot take; return (T, B, H)."""
+           hidden_multiple: int, no_grad_reason: str, align: int = 1,
+           ) -> Tuple[int, int, int]:
+    """Raise on what ``kernel`` cannot take, ``x_gates`` off an ``align``-byte
+    boundary included, before the device check; return (T, B, H)."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported compute dtype {compute_dtype}")
     layout = "(B, T, 3H)" if batch_major else "(T, B, 3H)"
@@ -201,6 +275,8 @@ def _check(kernel: str, x_gates, w_hh, b_hh, h0, compute_dtype, batch_major: boo
             x.requires_grad for x in (x_gates, w_hh, b_hh, h0)):
         raise NotImplementedError(f"the CUDA {kernel} kernel is forward only; "
                                   + no_grad_reason)
+    if x_gates.data_ptr() % align:
+        raise ValueError(f"the {kernel} kernel needs x_gates on a {align}-byte boundary")
     if not x_gates.is_cuda:
         raise ValueError(f"the {kernel} kernel takes CUDA tensors, got {x_gates.device}")
     return t, b, hidden
@@ -288,19 +364,38 @@ def gru_recurrence_bt_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
 def gru_recurrence_dma_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
                             b_hh: torch.Tensor, h0: torch.Tensor,
                             compute_dtype: torch.dtype) -> torch.Tensor:
-    """Launch kernel B4 on the current stream. Its plain version is
-    :func:`gru_recurrence_plain`: B4 computes B1's function. Bulk copies need
-    16-byte rows, so the hidden size must be a multiple of 8."""
-    global launches_dma
+    """Launch kernel B4 on the current stream, through the body that dtype
+    and shape pick (:func:`dma_tc_plan`). Its plain version is
+    :func:`gru_recurrence_plain`: B4 computes B1's function. Its copies need
+    16-byte rows, so the hidden size must be a multiple of 8 and x_gates on
+    a 16-byte boundary (``out`` is allocated here, on one)."""
+    global launches_dma, launches_dma_tc
     t, b, hidden = _check("gru_seq_dma", x_gates, w_hh, b_hh, h0, compute_dtype,
                           batch_major=False, hidden_multiple=8,
-                          no_grad_reason=_DROP_IN_NO_GRAD)
-    if x_gates.data_ptr() % 16:
-        raise ValueError("the gru_seq_dma kernel needs x_gates on a 16-byte boundary")
+                          no_grad_reason=_DROP_IN_NO_GRAD, align=16)
     lib = _dma_lib()
     out = torch.empty((t, b, hidden), dtype=torch.float32, device=x_gates.device)
-    _launch(lib.gru_seq_dma_forward, lib.gru_seq_dma_error_string, "gru_seq_dma",
-            x_gates, w_hh, b_hh, h0, out, t, b, hidden, compute_dtype)
+    # the card's cluster occupancy is asked only where the body may apply
+    plan = (dma_tc_plan(b, hidden, compute_dtype,
+                        dma_tc_max_clusters(hidden, x_gates.device))
+            if dma_tc_takes(hidden, compute_dtype) else None)
+    if plan is None:
+        _launch(lib.gru_seq_dma_forward, lib.gru_seq_dma_error_string, "gru_seq_dma",
+                x_gates, w_hh, b_hh, h0, out, t, b, hidden, compute_dtype)
+    else:
+        _, clusters, rows, _, warps, slots = plan
+        # h rounded to bf16, double-buffered by step parity, in the kernel's order
+        hs = torch.empty((2, clusters * rows, hidden), dtype=torch.bfloat16,
+                         device=x_gates.device)
+        with torch.cuda.device(x_gates.device):
+            err = lib.gru_seq_dma_tc_forward(
+                x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+                out.data_ptr(), hs.data_ptr(), t, b, hidden, clusters, rows, warps,
+                slots, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError("gru_seq_dma kernel launch failed: "
+                               + lib.gru_seq_dma_error_string(err).decode())
+        launches_dma_tc += 1
     launches_dma += 1
     return out
 

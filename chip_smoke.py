@@ -38,6 +38,21 @@ exit code and no result line:
    for B2), and the flagship encoder with and without its feature
    transpose (B1 against B3).
 
+6. train    -- the train step of each served captioner through
+   train.step.build_step_fns at full width (random weights from a seed),
+   Adam with the clip, static teacher forcing: the flagship S2VT at B=1024
+   (bf16, dropout 0.2) and RationaleNet at B=512 (bench_train.py:27-33).
+   Three steps each, with the counts set to 0 just before each step and read
+   just after (S2VT: B1 twice, on the tensor-core body; RationaleNet: B2 and
+   B1 twice each; B3 and B4 never), finite losses, parameters that moved;
+   one S2VT step with remat=True (B1 four times: its forward runs again in
+   the backward). Float32 at B=4, TF32 off: the loss and every gradient
+   leaf on the card against the CPU (RationaleNet under one injected Gumbel
+   noise), and the bf16 vdot's gradient on the card equal to the CPU's.
+   Then step times (CUDA events, best of 3 after warm-up), samples/s, peak
+   memory, the split into forward, backward and optimizer, and B1's and
+   B2's forward launches against their backward recompute.
+
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
 imports only the port.
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import subprocess
 import sys
 import time
@@ -73,6 +89,12 @@ LSTM_BF16_TOL = 1e-3   # B2 (outs and c_last), the same reason: twice the worst
 LSTM_F32_TOL = 1e-4    # readings <= 1.9e-6
 LOGIT_TOL = 1e-3       # float32 logits card vs CPU: dot orders through the
                        # recurrences and 20 decode steps; readings ~2.5e-7
+TRAIN_BATCH = 1024           # the S2VT train step's batch (bench_train.py:29)
+RATIONALE_TRAIN_BATCH = 512  # RationaleNet's (bench_train.py:32)
+TRAIN_SENT_LEN = 12          # every sentence's length (bench_train.py:84)
+TRAIN_LOSS_TOL = 1e-5        # float32 loss card vs CPU at B=4, TF32 off
+TRAIN_GRAD_TOL = 1e-4        # float32 gradient leaf card vs CPU, times
+                             # max(1, max|g|) of the leaf
 
 
 class SmokeFailure(RuntimeError):
@@ -179,6 +201,211 @@ def lstm_bound_ms(t, b, hidden, peaks):
     ops_s = 2 * t * b * hidden * 4 * hidden / bf16_rate + 23 * t * b * hidden / f32_rate
     bytes_s = nbytes / mem_rate
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
+
+
+def train_batch(gen, b, spec, feats_dtype):
+    """bench_train.py's batch, drawn on ``gen``'s device: normal features,
+    uniform tokens, every sentence 12 tokens long, every row valid."""
+    device = gen.device
+    return {"vid_feats": torch.randn((b, spec.num_frames, spec.vid_feat_size),
+                                     generator=gen, device=device).to(feats_dtype),
+            "sent": torch.randint(0, spec.vocab_size, (b, spec.max_len), generator=gen,
+                                  device=device, dtype=torch.int32),
+            "sent_len": torch.full((b,), TRAIN_SENT_LEN, dtype=torch.int32,
+                                   device=device),
+            "valid": torch.ones((b,), device=device)}
+
+
+def copy_params(params, device):
+    return {k: copy_params(v, device) if isinstance(v, dict)
+            else v.detach().to(device, copy=True) for k, v in params.items()}
+
+
+def f32_card_vs_cpu(loss_fn, params, batch, device):
+    """Float32 loss and gradients of ``loss_fn(params, batch) -> (loss, ...)``
+    on ``device`` and on the CPU, from one copy of the weights: (loss error,
+    worst gradient leaf error relative to max(1, max|g|), its path)."""
+    from vcr_tpu_torch.train import optim
+
+    out = []
+    for dev in (device, "cpu"):
+        p = copy_params(params, dev)
+        leaves = optim.trainable_leaves(p)[1]
+        for x in leaves:
+            x.requires_grad_(True)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.enable_grad():
+            loss = loss_fn(p, b)[0]
+            grads = torch.autograd.grad(loss, leaves)
+        out.append((loss.item(), [g.cpu() for g in grads]))
+    (loss_card, g_card), (loss_cpu, g_cpu) = out
+    paths = optim.trainable_leaves(params)[0]
+    errs = {"/".join(path): (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+            for path, x, y in zip(paths, g_card, g_cpu)}
+    worst = max(errs, key=errs.get)
+    return abs(loss_card - loss_cpu), errs[worst], worst
+
+
+def step_timing(train, params, state, batch, opt):
+    """One family's step: ms (best of 3 after warm-up, CUDA events) of the
+    whole step, of the forward alone (``StepFns.loss``), of the forward and
+    backward (``StepFns.grads``) and of the optimizer; peak memory of a step."""
+    fns = train.__self__
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train(params, state, batch, 10, 1.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = time_ms(lambda: train(params, state, batch, 11, 1.0))
+    forward_ms = time_ms(lambda: fns.loss(params, batch, 12, 1.0))
+    fwd_bwd_ms = time_ms(lambda: fns.grads(params, state.leaves, batch, 13, 1.0))
+    grads = fns.grads(params, state.leaves, batch, 14, 1.0)[0]
+    optimizer_ms = time_ms(lambda: opt.step(state, grads))
+    b = batch["vid_feats"].shape[0]
+    return {"batch": b, "step_ms": step_ms, "samples_per_s": b / (step_ms / 1e3),
+            "forward_ms": forward_ms, "backward_ms": fwd_bwd_ms - forward_ms,
+            "optimizer_ms": optimizer_ms, "peak_memory_bytes": peak}
+
+
+def sequence_fwd_bwd_ms(fused, kernel_args, kernel, leaves, cot):
+    """A differentiable sequence (``fused()`` -> outputs under autograd):
+    ms of the kernel launch alone, of the whole forward (projection,
+    rounding, launch) and of its backward, the plain recurrence recomputed
+    and differentiated (``autograd.grad`` with the graph kept)."""
+    with torch.enable_grad():
+        outs = fused()
+        return {"kernel_ms": time_ms(lambda: kernel(*kernel_args), iters=5),
+                "forward_ms": time_ms(fused),
+                "backward_ms": time_ms(lambda: torch.autograd.grad(
+                    outs, leaves, cot, retain_graph=True))}
+
+
+def train_phase(family, cuda_gru, cuda_lstm, smi, device="cuda"):
+    """Phase 6 for ``family`` ("s2vt" or "rationale") on ``device``; returns
+    what the kernels line reports of it."""
+    from vcr_tpu_torch import entry
+    from vcr_tpu_torch.models import rationale
+    from vcr_tpu_torch.nn.layers import vdot
+    from vcr_tpu_torch.train import losses, optim, step
+
+    s2vt_family = family == "s2vt"
+    spec, params = entry.make_spec_and_params(
+        **(entry.FLAGSHIP if s2vt_family else entry.RATIONALE), device=device)
+    b = TRAIN_BATCH if s2vt_family else RATIONALE_TRAIN_BATCH
+    cd, frames, hidden = spec.cdtype, spec.num_frames, spec.hidden_size
+    opt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns(family, spec, opt, static_tf=1.0, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = train_batch(gen, b, spec, cd)
+    expected = {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": 2,
+                "gru_seq_dma_tc": 0, "lstm_seq": 0 if s2vt_family else 2,
+                "lstm_seq_tc": 0 if s2vt_family else 2}
+    caption_net = params if s2vt_family else params["caption_net"]
+    before = caption_net["linear"]["w"].detach().clone()
+    step_losses, step_launches = [], []
+    for i in range(3):
+        reset_counts(cuda_gru, cuda_lstm)
+        _, _, metrics, pred = train(params, state, batch, i, 1.0)
+        torch.cuda.synchronize()
+        step_launches.append(launch_counts(cuda_gru, cuda_lstm))
+        step_losses.append(metrics["loss"].item())
+    check(all(c == expected for c in step_launches),
+          f"{family} train steps launched {step_launches}, not {expected}")
+    check(all(math.isfinite(x) for x in step_losses), f"{family} losses {step_losses}")
+    check(not torch.equal(before, caption_net["linear"]["w"]),
+          f"{family}: three steps left linear.w unchanged")
+    check(tuple(pred.shape) == (b, spec.max_len) and pred.dtype == torch.int32,
+          f"{family} pred {tuple(pred.shape)} {pred.dtype}")
+    result = {"batch": b, "losses": step_losses, "launches_per_step": step_launches[-1],
+              "metrics": {k: v.item() for k, v in metrics.items()}}
+    if s2vt_family:
+        # remat: the backward runs the forward again, B1 included
+        remat_train, _ = step.build_step_fns(family, spec, opt, static_tf=1.0, remat=True,
+                                             device=device)
+        reset_counts(cuda_gru, cuda_lstm)
+        remat_train(params, state, batch, 3, 1.0)
+        torch.cuda.synchronize()
+        remat_launches = launch_counts(cuda_gru, cuda_lstm)
+        want = dict(expected, gru_seq=4, gru_seq_tc=4)
+        check(remat_launches == want,
+              f"a remat=True step launched {remat_launches}, not {want}")
+        result["remat_launches_per_step"] = remat_launches
+
+    # float32 at B=4, full width, TF32 off: card against CPU
+    spec32 = spec.with_(compute_dtype="float32", dropout_p=0.0)
+    small = train_batch(gen, 4, spec32, torch.float32)
+    if s2vt_family:
+        fns32 = step.build_step_fns(family, spec32, opt, static_tf=1.0,
+                                    device=device)[0].__self__
+
+        def loss_fn(p, bt):
+            return fns32.loss(p, bt, 0, 1.0)
+    else:
+        noise = torch.from_numpy(np.random.default_rng(5).gumbel(
+            size=(4, frames, 2)).astype(np.float32))
+
+        def loss_fn(p, bt):
+            logits, probs = rationale.apply(p, spec32, bt["vid_feats"], bt["sent"],
+                                            train=True, gumbel_noise=noise.to(
+                                                bt["vid_feats"].device))
+            return (losses.masked_cross_entropy(logits, bt["sent"], bt["sent_len"],
+                                                bt["valid"])
+                    + losses.brevity_loss(probs, bt["valid"])
+                    + losses.continuity_loss(probs, bt["valid"]),)
+    loss_err, grad_err, grad_worst = f32_card_vs_cpu(loss_fn, params, small, device)
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+          f"{family} float32 card vs CPU: loss err {loss_err}, gradient err {grad_err} "
+          f"({grad_worst})")
+    result.update(f32_loss_err=loss_err, f32_loss_tolerance=TRAIN_LOSS_TOL,
+                  f32_grad_rel_err=grad_err, f32_grad_worst_leaf=grad_worst,
+                  f32_grad_tolerance=TRAIN_GRAD_TOL)
+    if s2vt_family:
+        # the bf16 product's gradient on the card (cuBLAS forward, its own
+        # backward) against the CPU branch's autograd, on values whose float32
+        # products and sums are exact, at the vocab projection's shape
+        g = torch.Generator().manual_seed(4)
+        x = torch.randint(-8, 9, (256, hidden), generator=g) / 4
+        w = torch.randint(-8, 9, (hidden, spec.padded_vocab_size), generator=g) / 4
+        cot = torch.randint(-16, 17, (256, spec.padded_vocab_size), generator=g) / 8
+        outs = []
+        for dev in (device, "cpu"):
+            xa, wa = x.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+            with torch.enable_grad():
+                y = vdot(xa, wa, torch.bfloat16)
+                outs.append([t.cpu() for t in (y,) + torch.autograd.grad(
+                    y, (xa, wa), cot.to(dev))])
+        check(all(torch.equal(a, c) for a, c in zip(*outs)),
+              "bf16 vdot or its gradient differs, card vs CPU")
+        result["bf16_vdot_grad_card_eq_cpu"] = True
+
+    # times: the whole step and its parts, then each kernel's forward against
+    # its backward recompute, at this family's batch
+    result["timing"] = step_timing(train, params, state, batch, opt)
+    xs = batch["vid_feats"].transpose(0, 1)
+    cots = torch.randn((frames, b, hidden), generator=gen, device=device)
+    zeros = torch.zeros((b, hidden), device=device)
+    if s2vt_family:
+        rnn = params["rnn1"]
+        x_gates = (vdot(xs.reshape(-1, xs.shape[-1]), rnn["w_ih"], cd)
+                   + rnn["b_ih"]).reshape(frames, b, 3 * hidden).to(cd).detach()
+        kernel_args = (x_gates, rnn["w_hh"].detach().to(cd), rnn["b_hh"].detach(), zeros, cd)
+        seq = sequence_fwd_bwd_ms(
+            lambda: cuda_gru.gru_sequence_fused(rnn, xs, compute_dtype=cd)[0],
+            kernel_args, cuda_gru.gru_recurrence_cuda, list(rnn.values()), cots)
+        result["gru_seq_encoder"] = seq
+    else:
+        rnn = params["gen"]["rnn"]["fwd"]
+        x_gates = (vdot(xs.reshape(-1, xs.shape[-1]), rnn["w_ih"], cd)
+                   + rnn["b_ih"]).reshape(frames, b, 4 * hidden).to(cd).detach()
+        kernel_args = (x_gates, rnn["w_hh"].detach().to(cd), rnn["b_hh"].detach(), zeros,
+                       zeros, cd, False)
+        seq = sequence_fwd_bwd_ms(
+            lambda: cuda_lstm.lstm_sequence_fused(rnn, xs, compute_dtype=cd)[0],
+            kernel_args, cuda_lstm.lstm_recurrence_cuda, list(rnn.values()), cots)
+        result["lstm_seq_forward_direction"] = seq
+    emit(f"train_{family}", **result, nvidia_smi=smi)
+    return result
 
 
 def main() -> int:
@@ -696,6 +923,12 @@ def main() -> int:
                    "bound_ms": lstm_bound, "bound_by": lstm_bound_by},
          nvidia_smi=smi)
 
+    # 6. training of both served captioners
+    train_s2vt = train_phase("s2vt", cuda_gru, cuda_lstm, smi)
+    train_rationale = train_phase("rationale", cuda_gru, cuda_lstm, smi)
+    backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
+                      "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
+
     def worst(rows, dtype, kernel=None):
         return max(c["max_abs_err"] for c in rows
                    if c["dtype"] == dtype and c.get("kernel") == kernel)
@@ -711,7 +944,13 @@ def main() -> int:
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
-        "projection_ms": projection_ms, "at_rationale_batch": b1_half}, {
+        "projection_ms": projection_ms, "at_rationale_batch": b1_half,
+        "train_launches_per_step": {
+            "s2vt": train_s2vt["launches_per_step"]["gru_seq"],
+            "s2vt_remat": train_s2vt["remat_launches_per_step"]["gru_seq"],
+            "rationale": train_rationale["launches_per_step"]["gru_seq"]},
+        "backward": {"route": backward_route.format("gru_sequence", "157-164"),
+                     "batch": TRAIN_BATCH, **train_s2vt["gru_seq_encoder"]}}, {
         "name": "gru_seq_bt", "route": "cuda",
         "source": "vcr_tpu_torch/ops/csrc/gru_seq.cu",
         "replaces": "vcr_tpu/ops/pallas_gru.py:24",
@@ -747,7 +986,12 @@ def main() -> int:
         "f32_tolerance": LSTM_F32_TOL,
         "ms": lstm_ms, "plain_ms": lstm_plain_ms, "bound_ms": lstm_bound,
         "bound_by": lstm_bound_by, "library_ms": lstm_library_ms,
-        "projection_ms": lstm_projection_ms}]}))
+        "projection_ms": lstm_projection_ms,
+        "train_launches_per_step": {
+            "rationale": train_rationale["launches_per_step"]["lstm_seq"]},
+        "backward": {"route": backward_route.format("lstm_sequence", "414-423"),
+                     "batch": RATIONALE_TRAIN_BATCH,
+                     **train_rationale["lstm_seq_forward_direction"]}}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

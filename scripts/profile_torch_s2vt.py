@@ -1,14 +1,18 @@
 """Where the time of the port's captioners goes, on one CUDA card.
 
-    python scripts/profile_torch_s2vt.py [--model s2vt|rationale] [--batch N] [--calls 3]
+    python scripts/profile_torch_s2vt.py [--model s2vt|rationale] [--train]
+                                         [--batch N] [--calls 3]
 
 Builds the flagship S2VT greedy captioner (vcr_tpu_torch.entry.FLAGSHIP), or
 RationaleNet over it (entry.RATIONALE), with random weights from a seed, at
 its serving batch (2048 and 1024) unless ``--batch`` says otherwise, warms it
-up, then runs ``--calls`` captioner calls under torch.profiler. Prints JSON
-lines: the wall time per call, the share of that time in which the card ran
-no kernel (the union of kernel intervals against the host clock), and the
-kernels by device time per call. Needs a card.
+up, then runs ``--calls`` captioner calls under torch.profiler. With
+``--train`` a call is one train step instead (train.step.build_step_fns,
+Adam with the clip, static tf=1.0, bench_train.py's batch of 1024 and 512
+drawn on the card). Prints JSON lines: the wall time per call, the share of
+that time in which the card ran no kernel (the union of kernel intervals
+against the host clock), and the kernels by device time per call. Needs a
+card.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ def busy_us(intervals) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("s2vt", "rationale"), default="s2vt")
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
@@ -57,21 +62,42 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    config, serving_batch = {"s2vt": (entry.FLAGSHIP, 2048),
-                             "rationale": (entry.RATIONALE, 1024)}[args.model]
-    batch = args.batch or serving_batch
+    config, default_batch = {"s2vt": (entry.FLAGSHIP, 1024 if args.train else 2048),
+                             "rationale": (entry.RATIONALE, 512 if args.train else 1024)
+                             }[args.model]
+    batch = args.batch or default_batch
     spec, params = entry.make_spec_and_params(**config, device="cuda")
-    feats = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (batch, spec.num_frames, spec.vid_feat_size)).astype(np.float32)).cuda()
-    caption = serving.build_captioner(params, spec)
+    if args.train:
+        from vcr_tpu_torch.train import optim, step
+
+        opt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+        state = opt.init(params)
+        train, _ = step.build_step_fns(args.model, spec, opt, static_tf=1.0)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        data = {"vid_feats": torch.randn((batch, spec.num_frames, spec.vid_feat_size),
+                                         generator=g, device="cuda").to(spec.cdtype),
+                "sent": torch.randint(0, spec.vocab_size, (batch, spec.max_len),
+                                      generator=g, device="cuda", dtype=torch.int32),
+                "sent_len": torch.full((batch,), 12, dtype=torch.int32, device="cuda"),
+                "valid": torch.ones((batch,), device="cuda")}
+
+        def run():
+            train(params, state, data, 0, 1.0)
+    else:
+        feats = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (batch, spec.num_frames, spec.vid_feat_size)).astype(np.float32)).cuda()
+        caption = serving.build_captioner(params, spec)
+
+        def run():
+            caption(feats)
     for _ in range(2):
-        caption(feats)
+        run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.calls):
-            caption(feats)
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -82,7 +108,8 @@ def main() -> int:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
-    print(json.dumps({"model": args.model, "batch": batch, "calls": args.calls,
+    print(json.dumps({"model": args.model, "train": args.train, "batch": batch,
+                      "calls": args.calls,
                       "wall_ms_per_call": wall_us / 1e3 / args.calls,
                       "kernel_busy_ms_per_call": busy / 1e3 / args.calls,
                       "device_idle_share": 1.0 - busy / wall_us,

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from vcr_tpu_torch import entry, serving
+from vcr_tpu_torch.nn import layers, rnn
 from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+from vcr_tpu_torch.train import optim, step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,7 +34,8 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
     mods = json.loads(out.strip().splitlines()[-1])
-    for name in ("serving", "ops.cuda_gru", "ops.cuda_lstm", "models.rationale"):
+    for name in ("serving", "ops.cuda_gru", "ops.cuda_lstm", "models.rationale",
+                 "train", "train.losses", "train.optim", "train.schedule", "train.step"):
         assert f"vcr_tpu_torch.{name}" in mods
     bad = [m for m in mods
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -58,6 +61,21 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
     tokens = serving.build_captioner(params, spec, device="cpu")(
         torch.randn((2, 2, 6)))
     assert tokens.shape == (2, 3) and tokens.device.type == "cpu"
+    opt = optim.build_optimizer("adam", 1e-3, 0.0, 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        step.build_step_fns("rationale", spec, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        step.device_batch({"vid_feats": torch.zeros((2, 2, 6)),
+                           "sent": torch.zeros((2, 3), dtype=torch.int32),
+                           "sent_len": torch.ones((2,), dtype=torch.int32),
+                           "valid": torch.ones((2,))})
+    train, _ = step.build_step_fns("rationale", spec, opt, device="cpu")
+    batch = step.device_batch({"vid_feats": torch.randn((2, 2, 6)),
+                               "sent": torch.zeros((2, 3), dtype=torch.int32),
+                               "sent_len": torch.ones((2,), dtype=torch.int32),
+                               "valid": torch.ones((2,))}, "cpu")
+    _, _, metrics, pred = train(params, opt.init(params), batch, 0, 1.0)
+    assert metrics["loss"].device.type == "cpu" and pred.shape == (2, 3)
 
 
 @pytest.fixture
@@ -164,3 +182,90 @@ def test_lstm_kernel_matches_plain_on_the_card(cuda, dtype, tol, reverse):
             torch.cuda.synchronize()
             for x, y in zip(got, want):  # outs, c_last
                 assert (x - y).abs().max().item() <= tol
+
+
+def _grads_both(cuda, fn, params, args, cot, dtype):
+    """Gradients of sum(fn(...)[0] * cot) for every leaf of ``params`` and
+    every tensor of ``args``, on the CPU and on the card."""
+    out = []
+    for device in ("cpu", cuda):
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        a = [x.to(device).requires_grad_(True) for x in args]
+        y = fn(p, *a, compute_dtype=dtype)[0]
+        leaves = list(p.values()) + a
+        out.append([g.cpu() for g in torch.autograd.grad((y * cot.to(device)).sum(),
+                                                         leaves)])
+    return out
+
+
+# gradient leaves card vs CPU, relative to max(1, max|g|): float32 sums in
+# other orders (TF32 off); in bf16 a sum that lands across a rounding step
+# moves a product input by 2^-8, so one such step at the largest gradient
+GRAD_TOLS = [(torch.bfloat16, 4e-3), (torch.float32, 1e-4)]
+
+
+def _assert_grads_close(got, want, tol):
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", GRAD_TOLS)
+def test_gru_sequence_gradient_on_the_card_matches_cpu(cuda, dtype, tol):
+    """B1's Function: one B1 launch in the forward, none in the backward
+    (the plain recompute), and the CPU's gradients for w_ih, b_ih, w_hh,
+    b_hh, xs and h0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    t, b, i, hidden = 7, 17, 64, 128
+    params = rnn.gru_init(g, i, hidden)
+    xs, h0 = torch.randn((t, b, i), generator=g), torch.randn((b, hidden), generator=g)
+    cot = torch.randn((t, b, hidden), generator=g)
+    before = cuda_gru.launches
+    want, got = _grads_both(cuda, cuda_gru.gru_sequence_fused, params, [xs, h0], cot,
+                            dtype)
+    torch.cuda.synchronize()
+    assert cuda_gru.launches == before + 1
+    _assert_grads_close(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype, tol", GRAD_TOLS)
+def test_lstm_sequence_gradient_on_the_card_matches_cpu(cuda, dtype, tol, reverse):
+    """B2's Function in either direction: one B2 launch, and the CPU's
+    gradients for every input."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    t, b, i, hidden = 7, 17, 64, 128
+    params = rnn.lstm_init(g, i, hidden)
+    xs = torch.randn((t, b, i), generator=g)
+    h0, c0 = torch.randn((b, hidden), generator=g), torch.randn((b, hidden), generator=g)
+    cot = torch.randn((t, b, hidden), generator=g)
+
+    def fn(p, x, h, c, compute_dtype):
+        return cuda_lstm.lstm_sequence_fused(p, x, (h, c), reverse, compute_dtype)
+
+    before = cuda_lstm.launches
+    want, got = _grads_both(cuda, fn, params, [xs, h0, c0], cot, dtype)
+    torch.cuda.synchronize()
+    assert cuda_lstm.launches == before + 1
+    _assert_grads_close(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_bf16_vdot_gradient_on_the_card_equals_cpu(cuda):
+    """The card's product (``_MatmulF32``) against the CPU branch, on values
+    whose float32 products and sums are exact: equal bit for bit."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(-8, 9, (64, 96), generator=g) / 4
+    w = torch.randint(-8, 9, (96, 40), generator=g) / 4
+    cot = torch.randint(-16, 17, (64, 40), generator=g) / 8
+    out = []
+    for device in ("cpu", cuda):
+        a, b = x.to(device).requires_grad_(True), w.to(device).requires_grad_(True)
+        y = layers.vdot(a, b, torch.bfloat16)
+        out.append([y.cpu()] + [t.cpu() for t in torch.autograd.grad(
+            y, (a, b), cot.to(device))])
+    for want, got in zip(*out):
+        assert torch.equal(got, want)

@@ -183,9 +183,11 @@ def test_init_tree_matches_jax_structure(models):
 
 def test_unported_rationale_options_raise(models):
     _, _, tspec, tparams, feats, _ = models
-    with pytest.raises(NotImplementedError, match="A5/A10"):
-        trationale.apply(tparams, tspec, torch.from_numpy(feats), train=True)
     att = tspec.with_(base_arch="s2vt-att")
+    # training is ported over an S2VT base; over S2VT-att it raises (A9)
+    with pytest.raises(NotImplementedError, match="A9"):
+        trationale.apply(tparams, att, torch.from_numpy(feats),
+                         torch.zeros((B, DIMS["max_len"]), dtype=torch.int32), train=True)
     with pytest.raises(NotImplementedError, match="A9"):
         trationale.apply(tparams, att, torch.from_numpy(feats))
     with pytest.raises(NotImplementedError, match="A9"):

@@ -6,9 +6,13 @@ reference. Parameters keep that package's ``(in, out)`` layout and key names,
 so one set of weights drives both (``vcr_tpu_torch.bridge``). This package
 imports torch and numpy only.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. A
-CUDA tensor goes through the hand-written kernel; the plain PyTorch version
-of each kernel serves CPU tensors only.
+It serves and trains the flagship S2VT and RationaleNet over it
+(``serving``, ``train.step``). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``. A CUDA tensor goes through the hand-written
+kernel; the plain PyTorch version of each kernel serves CPU tensors only.
+The kernels on the training path (B1, B2) take their gradients through
+``torch.autograd.Function``s whose backward recomputes the plain recurrence,
+as the JAX package's ``custom_vjp`` does.
 """
 
 __version__ = "0.1.0"

@@ -53,6 +53,7 @@ class ModelSpec:
         return dataclasses.replace(self, **kw)
 
 
+# the ported families, registered by their modules: name -> (init, apply)
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
 
 # Families of the JAX package not ported yet, with their ROADMAP items.
@@ -68,7 +69,10 @@ def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:
 
 
 def build_model(name: str) -> Tuple[Callable, Callable]:
-    """-> (init_params, apply). Ported so far: ``s2vt`` and ``rationale``."""
+    """-> (init_params, apply). Ported so far: ``s2vt`` and ``rationale``
+    over S2VT, each with its eval and train branches (``apply(...,
+    train=True)``, driven by ``train.step``); the others raise naming their
+    ROADMAP item."""
     import vcr_tpu_torch.models.rationale  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt  # noqa: F401  (registers itself)
 

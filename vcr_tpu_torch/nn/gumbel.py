@@ -13,6 +13,14 @@ from typing import Optional
 import torch
 
 
+def sample_gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Gumbel(0, 1) noise of ``shape`` in float32, -log(-log(u) + 1e-20) with u
+    uniform in [1e-20, 1) from ``generator``, which lives on ``device``."""
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(1e-20, 1.0, generator=generator)
+    return -torch.log(-torch.log(u) + 1e-20)
+
+
 def gumbel_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
                    noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -28,9 +36,7 @@ def gumbel_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
     if noise is None:
         if generator is None:
             raise ValueError("gumbel_softmax needs injected noise or a generator")
-        u = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
-        u.uniform_(1e-20, 1.0, generator=generator)
-        noise = -torch.log(-torch.log(u) + 1e-20)
+        noise = sample_gumbel(logits.shape, generator, logits.device)
     y_soft = torch.softmax((logits + noise) / tau, dim=-1)
     if not hard:
         return y_soft

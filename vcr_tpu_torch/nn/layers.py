@@ -15,21 +15,47 @@ import torch
 from vcr_tpu_torch.nn import init as vinit
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x (M, K) @ w (K, N) on the card, both operands in the compute dtype,
+    with a float32 result from cuBLAS.
+
+    ``torch.mm(..., out_dtype=)`` has no derivative of its own. The backward
+    is the CPU branch's autograd, which is also what JAX gives for
+    ``vcr_tpu.nn.layers.vdot``: dX = g @ w^T and dW = x^T @ g as float32
+    products of the float32 gradient and the rounded operands, each rounded
+    to its operand's dtype. These float32 products follow torch's matmul
+    precision: full float32 unless the caller turns TF32 on.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gx = (g @ w.float().t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        gw = (x.float().t() @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def vdot(x: torch.Tensor, w: torch.Tensor,
          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (..., K) @ w (K, N) with operands cast to ``compute_dtype``, float32
-    accumulation and a float32 result.
+    accumulation and a float32 result. Differentiable on both devices.
 
     A plain bf16 ``matmul`` would round its result to bf16 a second time. On
-    the card the product asks cuBLAS for a float32 output; on the CPU, which
-    has no such kernel, the bf16-rounded operands are up-cast to float32,
-    which gives the same exact products.
+    the card the product asks cuBLAS for a float32 output
+    (:class:`_MatmulF32`); on the CPU, which has no such kernel, the
+    bf16-rounded operands are up-cast to float32, which gives the same exact
+    products.
     """
     xc, wc = x.to(compute_dtype), w.to(compute_dtype)
     if compute_dtype == torch.float32:
         return xc @ wc
     if xc.is_cuda:
-        y = torch.mm(xc.reshape(-1, xc.shape[-1]), wc, out_dtype=torch.float32)
+        y = _MatmulF32.apply(xc.reshape(-1, xc.shape[-1]), wc)
         return y.reshape(*xc.shape[:-1], wc.shape[-1])
     return xc.float() @ wc.float()
 
@@ -76,6 +102,20 @@ def mask_vocab_pad(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 # ---------------- dropout ----------------
 
+def keep_mask(shape, rate: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """A bool dropout mask of ``shape``: True keeps, with probability
+    1 - ``rate``, drawn from ``generator``, which lives on ``device``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_keep_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout through a drawn mask: kept values scaled by
+    1/(1-p), the rest zero."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-p) at train time). The mask is drawn
@@ -84,7 +124,4 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         return x
     if generator is None:
         raise ValueError("dropout at train time needs an explicit generator")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    return apply_keep_mask(x, keep_mask(x.shape, rate, generator, x.device), rate)

@@ -6,16 +6,28 @@ product outside the recurrence; each step then does the (B, H) @ (H, kH)
 recurrent product and the gate math. Gate order is r, z, n (GRU) and
 i, f, g, o (LSTM) as in torch, and the state is carried in float32.
 
-These are the plain recurrences. The serving path's recurrences go through
-``vcr_tpu_torch.ops.cuda_gru`` and ``ops.cuda_lstm``, whose plain versions are
-:func:`gru_scan` and :func:`lstm_scan`.
+These are the plain recurrences. The models' sequence recurrences go
+through ``vcr_tpu_torch.ops.cuda_gru`` and ``ops.cuda_lstm``, whose plain
+versions are :func:`gru_scan` and :func:`lstm_scan`, and whose gradients
+rerun :func:`gru_sequence` and :func:`lstm_sequence`.
+
+Gate remat: inside a :func:`gate_remat_default` scope that is on,
+:func:`gru_gates` runs its recurrent product and gate math under
+``torch.utils.checkpoint``, so the backward recomputes them from ``x_gates``
+and ``h`` instead of keeping the gate intermediates. The recompute is the same
+float32 sequence of operations, so a train step is bitwise the same with the
+scope on or off. The JAX package's ``VCR_GRU_GATES_REMAT`` environment
+override is not ported: the scope is the only switch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from vcr_tpu_torch.nn import init as vinit
 from vcr_tpu_torch.nn.layers import vdot
@@ -32,19 +44,49 @@ def gru_init(gen: torch.Generator, input_size: int, hidden_size: int) -> dict:
     }
 
 
-def gru_gates(x_gates: torch.Tensor, h: torch.Tensor, params,
-              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """One GRU step given precomputed input gates x_gates = x @ w_ih + b_ih.
+# Whether gru_gates checkpoints its step, for the code that runs inside a
+# gate_remat_default scope; a context variable, so that each thread and task
+# sees its own scope.
+_GATE_REMAT: contextvars.ContextVar[bool] = contextvars.ContextVar("gate_remat",
+                                                                   default=False)
 
-    r = σ(xr + hr); z = σ(xz + hz); n = tanh(xn + r∘hn); h' = (1-z)∘n + z∘h.
-    """
-    h_gates = vdot(h, params["w_hh"], compute_dtype) + params["b_hh"]
+
+@contextlib.contextmanager
+def gate_remat_default(enabled: bool) -> Iterator[None]:
+    """Scope gate remat (:func:`gru_gates`) on or off for the code run
+    inside, restoring the outer setting on exit. The S2VT train step runs its
+    forward inside ``gate_remat_default(True)`` (``train/step.py``)."""
+    token = _GATE_REMAT.set(enabled)
+    try:
+        yield
+    finally:
+        _GATE_REMAT.reset(token)
+
+
+def _gru_gates(x_gates: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor,
+               b_hh: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    h_gates = vdot(h, w_hh, compute_dtype) + b_hh
     xr, xz, xn = x_gates.chunk(3, dim=-1)
     hr, hz, hn = h_gates.chunk(3, dim=-1)
     r = torch.sigmoid(xr + hr)
     z = torch.sigmoid(xz + hz)
     n = torch.tanh(xn + r * hn)
     return (1.0 - z) * n + z * h
+
+
+def gru_gates(x_gates: torch.Tensor, h: torch.Tensor, params,
+              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """One GRU step given precomputed input gates x_gates = x @ w_ih + b_ih.
+
+    r = σ(xr + hr); z = σ(xz + hz); n = tanh(xn + r∘hn); h' = (1-z)∘n + z∘h.
+    Checkpointed inside a :func:`gate_remat_default` scope that is on; the
+    step draws no random numbers, so the RNG state is not stashed.
+    """
+    if _GATE_REMAT.get():
+        return torch.utils.checkpoint.checkpoint(
+            _gru_gates, x_gates, h, params["w_hh"], params["b_hh"], compute_dtype,
+            use_reentrant=False, preserve_rng_state=False)
+    return _gru_gates(x_gates, h, params["w_hh"], params["b_hh"], compute_dtype)
 
 
 def gru_step(params, x: torch.Tensor, h: torch.Tensor,

@@ -26,8 +26,12 @@ memory budget fits runs on a tensor-core body of the same cluster design,
 with a copy ring per warp; everything else on the scalar body.
 
 A CUDA tensor launches the kernel or raises; the plain versions serve CPU
-tensors only. Forward only: B1's backward comes with the training path
-(ROADMAP A5); B3 and B4 have none in the JAX package either.
+tensors only. :func:`gru_sequence_fused` is differentiable on both devices,
+through :class:`GruSequence`, the counterpart of ``_gru_pallas_ad``: its
+backward is not a kernel but the JAX package's, the gradient of the plain
+recurrence recomputed from the saved inputs. The raw launchers and the B3
+and B4 drop-ins are forward only, as ``gru_sequence_pallas_bt`` and
+``gru_sequence_pallas_dma`` are.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from vcr_tpu_torch.nn.layers import vdot
-from vcr_tpu_torch.nn.rnn import gru_scan
+from vcr_tpu_torch.nn.rnn import gru_scan, gru_sequence
 from vcr_tpu_torch.ops import _build
 
 # kernel launches made by gru_recurrence (B1), gru_recurrence_bt (B3) and
@@ -324,7 +328,8 @@ def _launch_b1_b3(kernel: str, x_gates, w_hh, b_hh, h0, out, t, b, hidden,
     launches_tc += 1
 
 
-_B1_NO_GRAD = "its backward comes with the training path (ROADMAP A5)"
+_B1_NO_GRAD = ("gru_sequence_fused is the differentiable entry: its backward "
+               "recomputes the plain recurrence")
 _DROP_IN_NO_GRAD = ("the JAX package's gru_sequence_pallas_bt and "
                     "gru_sequence_pallas_dma have no gradient either")
 
@@ -440,12 +445,51 @@ def _run(recurrence, params, xs, h0, batch, compute_dtype):
                       compute_dtype)
 
 
+class GruSequence(torch.autograd.Function):
+    """B1's sequence with a gradient, the counterpart of ``_gru_pallas_ad``
+    (``vcr_tpu/ops/pallas_gru.py:132-167``).
+
+    Forward: the input projection, the rounding of ``x_gates`` to the compute
+    dtype and the recurrence (B1 on CUDA tensors, its plain version on CPU
+    tensors), with ``(w_ih, b_ih, w_hh, b_hh, xs, h0)`` saved. Backward:
+    :func:`vcr_tpu_torch.nn.rnn.gru_sequence` rerun on the saved inputs under
+    autograd, as ``_gru_pallas_bwd`` takes the vjp of ``gru_sequence``: that
+    recurrence keeps ``x_gates`` in float32, so the gradient is that of the
+    unrounded function. Saved views (the prime's ``w_ih[:H]``, a transposed
+    ``xs``) pass their gradients on to their bases through autograd.
+    """
+
+    @staticmethod
+    def forward(ctx, w_ih, b_ih, w_hh, b_hh, xs, h0, compute_dtype):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(w_ih, b_ih, w_hh, b_hh, xs, h0)
+        params = {"w_ih": w_ih, "b_ih": b_ih, "w_hh": w_hh, "b_hh": b_hh}
+        return _run(gru_recurrence, params, xs, h0, xs.shape[1], compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g_outs):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            w_ih, b_ih, w_hh, b_hh, xs, h0 = inputs = [
+                x.detach().requires_grad_(need)
+                for x, need in zip(ctx.saved_tensors, needs)]
+            outs, _ = gru_sequence({"w_ih": w_ih, "b_ih": b_ih, "w_hh": w_hh,
+                                    "b_hh": b_hh}, xs, h0, ctx.compute_dtype)
+            grads = iter(torch.autograd.grad(
+                outs, [x for x, need in zip(inputs, needs) if need], g_outs))
+        return tuple(next(grads) if need else None for need in needs) + (None,)
+
+
 def gru_sequence_fused(params, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
                        compute_dtype: torch.dtype = torch.bfloat16,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xs (T, B, I) -> (outputs (T, B, H) float32, h_last (B, H) float32),
-    through kernel B1."""
-    outs = _run(gru_recurrence, params, xs, h0, xs.shape[1], compute_dtype)
+    through kernel B1; differentiable (:class:`GruSequence`)."""
+    if h0 is None:
+        h0 = torch.zeros((xs.shape[1], params["w_hh"].shape[0]), dtype=torch.float32,
+                         device=xs.device)
+    outs = GruSequence.apply(params["w_ih"], params["b_ih"], params["w_hh"],
+                             params["b_hh"], xs, h0, compute_dtype)
     return outs, outs[-1]
 
 

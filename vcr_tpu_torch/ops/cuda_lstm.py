@@ -13,8 +13,11 @@ tensor-core body, which holds W_hh in the shared memory of a 16-CTA cluster
 :func:`tc_plan`; float32 and other bf16 shapes run on the scalar body.
 
 A CUDA tensor launches the kernel or raises; the plain version
-:func:`lstm_recurrence_plain` serves CPU tensors only. Forward only: the
-backward comes with the training path (ROADMAP A5).
+:func:`lstm_recurrence_plain` serves CPU tensors only. The raw launcher is
+forward only; :func:`lstm_sequence_fused` (and so
+:func:`bilstm_sequence_fused`) is differentiable on both devices through
+:class:`LstmSequence`, the counterpart of ``_lstm_pallas_ad``, whose backward
+recomputes the plain recurrence.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from vcr_tpu_torch.nn.layers import vdot
-from vcr_tpu_torch.nn.rnn import lstm_scan
+from vcr_tpu_torch.nn.rnn import lstm_scan, lstm_sequence
 from vcr_tpu_torch.ops import _build
 from vcr_tpu_torch.ops.cuda_gru import (TC_CHUNK, TC_CLUSTER, TC_SMEM_LIMIT,
                                         cluster_split)
@@ -139,8 +142,8 @@ def _check(x_gates, w_hh, b_hh, h0, c0, compute_dtype) -> Tuple[int, int, int]:
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (x_gates, w_hh, b_hh, h0, c0)):
         raise NotImplementedError(
-            "the CUDA LSTM kernel is forward only; its backward comes with the "
-            "training path (ROADMAP A5)")
+            "the CUDA LSTM kernel is forward only; lstm_sequence_fused is the "
+            "differentiable entry: its backward recomputes the plain recurrence")
     if tc_takes(hidden, compute_dtype) and x_gates.data_ptr() % 4:
         raise ValueError("the lstm_seq kernel reads bf16 x_gates in pairs: it needs "
                          "x_gates on a 4-byte boundary")
@@ -199,24 +202,65 @@ def lstm_recurrence(x_gates, w_hh, b_hh, h0, c0, compute_dtype,
     raise ValueError(f"no LSTM recurrence for device {x_gates.device}")
 
 
+class LstmSequence(torch.autograd.Function):
+    """B2's sequence in one direction, with a gradient: the counterpart of
+    ``_lstm_pallas_ad`` (``vcr_tpu/ops/pallas_gru.py:359-425``).
+
+    Forward: the input projection, the rounding of ``x_gates`` to the compute
+    dtype and the recurrence (B2 on CUDA tensors, its plain version on CPU
+    tensors) -> (outs, c_last), with ``(w_ih, b_ih, w_hh, b_hh, xs, h0, c0)``
+    saved. Backward: :func:`vcr_tpu_torch.nn.rnn.lstm_sequence` rerun on the
+    saved inputs under autograd, on float32 ``x_gates``, as
+    ``_lstm_pallas_bwd`` does. An output that nothing used (often
+    ``c_last``) brings no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, w_ih, b_ih, w_hh, b_hh, xs, h0, c0, reverse, compute_dtype):
+        ctx.set_materialize_grads(False)
+        ctx.reverse, ctx.compute_dtype = reverse, compute_dtype
+        ctx.save_for_backward(w_ih, b_ih, w_hh, b_hh, xs, h0, c0)
+        t, b, i = xs.shape
+        hidden = w_hh.shape[0]
+        x_gates = (vdot(xs.reshape(t * b, i), w_ih, compute_dtype)
+                   + b_ih).reshape(t, b, 4 * hidden).to(compute_dtype)
+        return lstm_recurrence(x_gates, w_hh.to(compute_dtype).contiguous(),
+                               b_hh.float().contiguous(), h0.float().contiguous(),
+                               c0.float().contiguous(), compute_dtype, reverse)
+
+    @staticmethod
+    def backward(ctx, g_outs, g_c_last):
+        needs = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            w_ih, b_ih, w_hh, b_hh, xs, h0, c0 = inputs = [
+                x.detach().requires_grad_(need)
+                for x, need in zip(ctx.saved_tensors, needs)]
+            outs, (_, c_last) = lstm_sequence(
+                {"w_ih": w_ih, "b_ih": b_ih, "w_hh": w_hh, "b_hh": b_hh}, xs, (h0, c0),
+                ctx.reverse, ctx.compute_dtype)
+            used = [(y, g) for y, g in ((outs, g_outs), (c_last, g_c_last))
+                    if g is not None]
+            grads = iter(torch.autograd.grad(
+                [y for y, _ in used], [x for x, need in zip(inputs, needs) if need],
+                [g for _, g in used]))
+        return tuple(next(grads) if need else None for need in needs) + (None, None)
+
+
 def lstm_sequence_fused(params, xs: torch.Tensor,
                         hc0: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                         reverse: bool = False,
                         compute_dtype: torch.dtype = torch.bfloat16,
                         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """xs (T, B, I) -> (outputs (T, B, H), (h_last, c_last)), all float32.
-    Reversed, the last state is that of t=0, so h_last is outputs[0]."""
-    t, b, i = xs.shape
-    hidden = params["w_hh"].shape[0]
-    x_gates = (vdot(xs.reshape(t * b, i), params["w_ih"], compute_dtype)
-               + params["b_ih"]).reshape(t, b, 4 * hidden).to(compute_dtype)
+    """xs (T, B, I) -> (outputs (T, B, H), (h_last, c_last)), all float32,
+    through kernel B2; differentiable (:class:`LstmSequence`). Reversed, the
+    last state is that of t=0, so h_last is outputs[0]."""
     if hc0 is None:
-        zeros = torch.zeros((b, hidden), dtype=torch.float32, device=xs.device)
+        zeros = torch.zeros((xs.shape[1], params["w_hh"].shape[0]), dtype=torch.float32,
+                            device=xs.device)
         hc0 = (zeros, zeros)
-    outs, c_last = lstm_recurrence(
-        x_gates, params["w_hh"].to(compute_dtype).contiguous(),
-        params["b_hh"].float().contiguous(), hc0[0].float().contiguous(),
-        hc0[1].float().contiguous(), compute_dtype, reverse)
+    outs, c_last = LstmSequence.apply(params["w_ih"], params["b_ih"], params["w_hh"],
+                                      params["b_hh"], xs, hc0[0], hc0[1], reverse,
+                                      compute_dtype)
     return outs, (outs[0] if reverse else outs[-1], c_last)
 
 

@@ -1,0 +1,209 @@
+"""Train and eval steps of the captioners: the counterpart of
+``vcr_tpu/train/step.py``.
+
+A step is a function of its inputs: params, optimizer state, a batch, a seed
+and the teacher-forcing probability in; params, optimizer state, metrics and
+greedy predictions out. PyTorch runs it eagerly: the optimizer updates the
+parameter tensors in place and the step returns them. Metrics stay on the
+device as 0-d tensors until the caller reads them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import torch
+import torch.utils.checkpoint
+
+from vcr_tpu_torch.device import resolve_device
+from vcr_tpu_torch.models import base
+from vcr_tpu_torch.nn.rnn import gate_remat_default
+from vcr_tpu_torch.train import losses
+from vcr_tpu_torch.train.optim import OptState, Optimizer, trainable_leaves
+
+BATCH_KEYS = ("vid_feats", "sent", "sent_len", "valid")
+
+
+def _forward(model_name: str, fwd: Callable, params, batch, rng, tf_prob,
+             lambda_brev: float, lambda_cont: float):
+    """Run a bound forward ``fwd(params, vid_feats, sent, sent_len, rng,
+    tf_prob)`` and compute (loss, metrics, pred) for the family."""
+    valid = batch["valid"]
+    out = fwd(params, batch["vid_feats"], batch["sent"], batch["sent_len"], rng, tf_prob)
+    if model_name == "rationale":
+        logits, probs = out
+        ce = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid)
+        brev = losses.brevity_loss(probs, valid) * lambda_brev
+        cont = losses.continuity_loss(probs, valid) * lambda_cont
+        loss = ce + brev + cont
+        metrics = {"loss": loss, "loss_ce": ce, "loss_brev": brev, "loss_cont": cont,
+                   "len": losses.rationale_length(probs, valid)}
+    else:
+        logits = out
+        loss = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid)
+        metrics = {"loss": loss}
+    metrics["acc"] = losses.masked_accuracy(logits, batch["sent"], batch["sent_len"], valid)
+    return loss, metrics, logits.argmax(dim=-1).to(torch.int32)
+
+
+def microbatch_seed(rng: int, i: int, grad_accum: int) -> int:
+    """The seed of microbatch ``i`` of a step seeded with ``rng``: rng *
+    grad_accum + i, so no two microbatches of successive seeds share one,
+    and grad_accum=1 keeps ``rng``."""
+    return rng * grad_accum + i
+
+
+def _same_device(t: torch.Tensor, device: torch.device) -> bool:
+    return t.device.type == device.type and device.index in (None, t.device.index)
+
+
+class StepFns:
+    """The steps of one model family, spec and optimizer
+    (:func:`build_step_fns`); :meth:`loss` and :meth:`grads` are the
+    forward alone and the forward with its backward."""
+
+    def __init__(self, model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
+                 lambda_brev: float, lambda_cont: float, remat: bool, grad_accum: int,
+                 static_tf, device: torch.device):
+        _, self._apply = base.build_model(model_name)
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.model_name, self.spec, self.optimizer = model_name, spec, optimizer
+        self.lambdas = (lambda_brev, lambda_cont)
+        self.remat, self.grad_accum, self.static_tf = remat, grad_accum, static_tf
+        self.device = device
+
+    def _fwd(self, train: bool) -> Callable:
+        def fn(params, vid_feats, sent, sent_len, rng, tf_prob):
+            if train and self.static_tf is not None:
+                tf_prob = self.static_tf
+            # S2VT trains with gate remat by default, as in the JAX package;
+            # RationaleNet keeps it off. The scope is entered here, inside
+            # what remat=True checkpoints, so that its replay sees it too.
+            with gate_remat_default(train and self.model_name == "s2vt"):
+                return self._apply(params, self.spec, vid_feats, sent, sent_len, rng=rng,
+                                   train=train, teacher_force_prob=tf_prob)
+
+        if train and self.remat:
+            return lambda *args: torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False)
+        return fn
+
+    def _check(self, params, batch) -> None:
+        """Raise unless every parameter and batch tensor is on the step's
+        device: nothing is moved."""
+        _, leaves = trainable_leaves(params)
+        for name in BATCH_KEYS:
+            x = batch[name]
+            if not isinstance(x, torch.Tensor) or not _same_device(x, self.device):
+                raise ValueError(f"batch[{name!r}] must be a tensor on {self.device} "
+                                 "(device_batch moves a batch there)")
+        if not all(_same_device(x, self.device) for x in leaves):
+            raise ValueError(f"the parameters must be on {self.device}")
+
+    def loss(self, params, batch, rng: int, tf_prob):
+        """The train forward under autograd: (loss, metrics, pred)."""
+        with torch.enable_grad():
+            return _forward(self.model_name, self._fwd(True), params, batch, rng, tf_prob,
+                            *self.lambdas)
+
+    def grads(self, params, leaves: List[torch.Tensor], batch, rng: int, tf_prob):
+        """(gradients of the loss for ``leaves``, detached metrics, pred)."""
+        loss, metrics, pred = self.loss(params, batch, rng, tf_prob)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return list(grads), {k: v.detach() for k, v in metrics.items()}, pred
+
+    def _accum_grads(self, params, leaves, batch, rng: int, tf_prob):
+        """The full-batch gradient from ``grad_accum`` microbatches: each
+        microbatch's gradient weighted by its count of valid rows, the sum
+        divided by the batch's. Metrics take the same weights."""
+        b, k = batch["vid_feats"].shape[0], self.grad_accum
+        if b % k:
+            raise ValueError(f"batch size {b} not divisible by grad_accum={k}")
+        m = b // k
+        g_sum, ms, preds, ns = None, [], [], []
+        for i in range(k):
+            micro = {name: x[i * m:(i + 1) * m] for name, x in batch.items()}
+            grads, metrics, pred = self.grads(params, leaves, micro,
+                                              microbatch_seed(rng, i, k), tf_prob)
+            n = micro["valid"].float().sum()
+            g_sum = ([g * n for g in grads] if g_sum is None
+                     else [a + g * n for a, g in zip(g_sum, grads)])
+            ms.append(metrics)
+            preds.append(pred)
+            ns.append(n)
+        w_sum = torch.stack(ns).sum().clamp(min=1.0)
+        metrics = {name: sum(mi[name] * (n / w_sum) for mi, n in zip(ms, ns))
+                   for name in ms[0]}
+        return [g / w_sum for g in g_sum], metrics, torch.cat(preds)
+
+    def train_step(self, params, opt_state: OptState, batch: Dict[str, torch.Tensor],
+                   rng: int, tf_prob):
+        """-> (params, opt_state, metrics, pred): one optimizer update of
+        ``params``' trainable leaves, in place."""
+        self._check(params, batch)
+        _, leaves = trainable_leaves(params)
+        if len(leaves) != len(opt_state.leaves) or any(
+                x is not y for x, y in zip(leaves, opt_state.leaves)):
+            raise ValueError("opt_state was built for other parameter tensors: "
+                             "call optimizer.init(params)")
+        if self.grad_accum > 1:
+            grads, metrics, pred = self._accum_grads(params, leaves, batch, rng, tf_prob)
+        else:
+            grads, metrics, pred = self.grads(params, leaves, batch, rng, tf_prob)
+        self.optimizer.step(opt_state, grads)
+        return params, opt_state, metrics, pred
+
+    def eval_step(self, params, batch: Dict[str, torch.Tensor], rng=None):
+        """-> (metrics, pred): the greedy eval forward. ``rng`` seeds
+        RationaleNet's Gumbel noise (None: 0); S2VT ignores it."""
+        self._check(params, batch)
+        with torch.no_grad():
+            _, metrics, pred = _forward(self.model_name, self._fwd(False), params, batch,
+                                        rng, 0.0, *self.lambdas)
+        return metrics, pred
+
+
+def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
+                   lambda_brev: float = 1.0, lambda_cont: float = 1.0,
+                   remat: bool = False, grad_accum: int = 1, static_tf=None,
+                   device=None) -> Tuple[Callable, Callable]:
+    """-> (train_step, eval_step) for "s2vt" or "rationale" on ``device``
+    (None: the card; raises without one).
+
+    train_step(params, opt_state, batch, rng, tf_prob)
+        -> (params, opt_state, metrics, pred)
+    eval_step(params, batch, rng=None) -> (metrics, pred)
+
+    ``opt_state`` is ``optimizer.init(params)``: a torch optimizer bound to
+    ``params``' trainable tensors, which train_step updates in place and
+    returns. ``batch`` holds the tensors of :data:`BATCH_KEYS` on ``device``
+    (:func:`device_batch`); ``rng`` is an int seed of the step's dropout,
+    teacher-forcing coins and Gumbel noise. metrics: ``loss`` and ``acc``,
+    for RationaleNet also ``loss_ce``, ``loss_brev``, ``loss_cont`` and
+    ``len``; pred: the greedy tokens (B, L) int32 of the step's logits.
+
+    remat: run the train forward under ``torch.utils.checkpoint``, so the
+    backward recomputes it (B1, and B2, launched again) instead of keeping
+    its activations.
+
+    grad_accum: split the batch into that many microbatches, in order, and
+    make one update from their gradients weighted by valid rows: the
+    full-batch gradient. Microbatch i is seeded with
+    :func:`microbatch_seed`. A batch the count does not divide raises.
+
+    static_tf: a Python number that replaces ``tf_prob`` at train; at 1.0
+    the decoders take their hoisted form (one vocab product after the loop).
+
+    Both steps are bound methods of one :class:`StepFns`."""
+    fns = StepFns(model_name, spec, optimizer, lambda_brev, lambda_cont, remat,
+                  grad_accum, static_tf, resolve_device(device))
+    return fns.train_step, fns.eval_step
+
+
+def device_batch(batch: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """The array fields of a pipeline batch (:data:`BATCH_KEYS`) as tensors
+    on ``device`` (None: the card); the other fields stay on the host."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}

@@ -52,6 +52,25 @@ exit code and no result line:
    Then step times (CUDA events, best of 3 after warm-up), samples/s, peak
    memory, the split into forward, backward and optimizer, and B1's and
    B2's forward launches against their backward recompute.
+7. cli_path -- the command line, vcr_tpu_torch.cli.main in this process, on
+   a corpus written to a temporary directory: a GloVe file of 8,996 random
+   300-d words (a vocab of 9,000, padded to 9,088), two captions of 5-19 of
+   those words per video, (30, 4096) float32 features for 512 train and 256
+   val videos. S2VT at full width (H=512, bf16, --bsize 256) trains 2
+   epochs with beam-5 validation, then --mode eval (beam 5), --mode decode
+   with beam 5 and greedy, then RationaleNet trains 1 epoch (--bsize 128)
+   from S2VT's model_best; then --resume true, and the resumed Adam state
+   read back onto the card. The counts are set to 0 just before each mode
+   and read just after: B1 twice per train step, per greedy eval step and
+   per beam or greedy decode call, B2 twice per RationaleNet step and eval
+   step, B3 and B4 never. Finite losses, both checkpoints, one caption per
+   val video. Then the train step's ms (the loop's StepTimer: one interval
+   at this shape), the eval pass's seconds split into device decode and
+   host metrics, and decode_corpus's captions/s at beam 1 and beam 5.
+   Last, float32 on the card against the CPU on a tiny corpus (6 train and
+   3 val videos, H=16, dropout 0, 2 epochs, beam 3, TF32 off): the same
+   validation METEOR, BLEU-4 and CIDEr each epoch, the same captions, and
+   parameters within 1e-4 * max(1, max|p|).
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -61,10 +80,14 @@ imports only the port.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +118,14 @@ TRAIN_SENT_LEN = 12          # every sentence's length (bench_train.py:84)
 TRAIN_LOSS_TOL = 1e-5        # float32 loss card vs CPU at B=4, TF32 off
 TRAIN_GRAD_TOL = 1e-4        # float32 gradient leaf card vs CPU, times
                              # max(1, max|g|) of the leaf
+CLI_WORDS = 8996             # GloVe words: with 4 special tokens a vocab of 9,000
+CLI_TRAIN_VIDEOS = 512
+CLI_VAL_VIDEOS = 256
+CLI_BATCH = 256              # S2VT's --bsize in phase 7
+CLI_RATIONALE_BATCH = 128    # RationaleNet's
+CLI_BEAM = 5
+CLI_PARAM_TOL = 1e-4         # float32 parameters after 2 epochs card vs CPU,
+                             # times max(1, max|p|) of the leaf, TF32 off
 
 
 class SmokeFailure(RuntimeError):
@@ -406,6 +437,272 @@ def train_phase(family, cuda_gru, cuda_lstm, smi, device="cuda"):
         result["lstm_seq_forward_direction"] = seq
     emit(f"train_{family}", **result, nvidia_smi=smi)
     return result
+
+
+def write_corpus(root, n_words, glove_dim, n_train, n_val, frames, feat_dim, seed):
+    """A corpus in the layout the pipeline reads (msvd_vgg under ``root``):
+    a GloVe file (glove.txt) of ``n_words`` random words, two captions of
+    5-19 of those words per video, and (frames, feat_dim) float32 features
+    per video, all drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    cdir = os.path.join(root, "msvd_vgg")
+    os.makedirs(os.path.join(cdir, "glove"))
+    os.makedirs(os.path.join(cdir, "feats"))
+    words = [f"w{i}" for i in range(n_words)]
+    vecs = rng.standard_normal((n_words, glove_dim)).astype(np.float32)
+    with open(os.path.join(cdir, "glove", "glove.txt"), "w") as f:
+        f.writelines(w + " " + " ".join(f"{x:.5f}" for x in v) + "\n"
+                     for w, v in zip(words, vecs))
+    for split, n in (("train", n_train), ("val", n_val)):
+        samples = []
+        for i in range(n):
+            key = f"{split}{i}"
+            caps = [{"desc": " ".join(rng.choice(words, size=rng.integers(5, 20)))}
+                    for _ in range(2)]
+            samples.append({"video_key": key, "captions": caps})
+            np.save(os.path.join(cdir, "feats", key + ".npy"),
+                    rng.standard_normal((frames, feat_dim), dtype=np.float32))
+        with open(os.path.join(cdir, f"{split}_captions.json"), "w") as f:
+            json.dump(samples, f)
+    return ["--data_dir", root, "--corpus", "msvd_vgg", "--glove_emb_file", "glove.txt"]
+
+
+def cli_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 7: the command line at full width, resume, its times, and
+    float32 card against CPU on a tiny corpus."""
+    from vcr_tpu_torch import cli, tools
+    from vcr_tpu_torch.config import Config
+    from vcr_tpu_torch.train import checkpoint, loop, optim
+
+    def run(argv):
+        """cli.main(argv), the counts set to 0 just before and read just
+        after -> (result, counts, its standard output)."""
+        out = io.StringIO()
+        reset_counts(cuda_gru, cuda_lstm)
+        try:
+            with contextlib.redirect_stdout(out):
+                result = cli.main(argv)
+        except BaseException:
+            print(out.getvalue()[-4000:], file=sys.stderr)
+            raise
+        torch.cuda.synchronize()
+        return result, launch_counts(cuda_gru, cuda_lstm), out.getvalue()
+
+    def expect(b1, b2=0):
+        return {"gru_seq": b1, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": b1,
+                "gru_seq_dma_tc": 0, "lstm_seq": b2, "lstm_seq_tc": b2}
+
+    def batches(n, b):
+        return -(-n // b)
+
+    def check_captions(path, n):
+        with open(os.path.join(path, "captions.json")) as f:
+            caps = json.load(f)
+        check(len(caps) == n and {c["vid_key"] for c in caps} == {f"val{i}" for i in
+                                                                  range(n)}
+              and all(len(c["tokens"]) == 20 for c in caps),
+              f"{path}/captions.json: {len(caps)} captions for {n} val videos")
+        return caps
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_corpus(os.path.join(tmp, "full"), CLI_WORDS, 300, CLI_TRAIN_VIDEOS,
+                            CLI_VAL_VIDEOS, 30, 4096, seed=7)
+        corpus_s = time.perf_counter() - t0
+        model = ["--num_frames", "30", "--vid_feat_size", "4096", "--max_len", "20",
+                 "--hidden_size", "512", "--compute_dtype", "bfloat16",
+                 "--vocab_pad_to", "128", "--log_dir", ""]
+        s2vt_dir, rat_dir = os.path.join(tmp, "s2vt"), os.path.join(tmp, "rationale")
+        steps, val_batches = (batches(CLI_TRAIN_VIDEOS, CLI_BATCH),
+                              batches(CLI_VAL_VIDEOS, CLI_BATCH))
+        bsize = ["--bsize", str(CLI_BATCH)]
+
+        t0 = time.perf_counter()
+        train, launches["train"], _ = run(
+            data + model + bsize + ["--mode", "train", "--save_path", s2vt_dir,
+                                    "--epochs", "2", "--beam_size", str(CLI_BEAM)])
+        train_s = time.perf_counter() - t0
+        # per epoch: each step, then each val batch's greedy eval step and beam
+        want = expect(2 * (2 * steps + (2 + 2) * val_batches))
+        check(launches["train"] == want,
+              f"--mode train launched {launches['train']}, not {want}")
+        check(math.isfinite(train["loss"]) and all(
+            checkpoint.checkpoint_exists(os.path.join(s2vt_dir, name))
+            for name in ("model_latest", "model_best")),
+              f"--mode train: loss {train['loss']}, or a checkpoint missing")
+
+        evaluation, launches["eval"], _ = run(
+            data + bsize + ["--mode", "eval", "--save_path", s2vt_dir,
+                            "--beam_size", str(CLI_BEAM)])
+        want = expect((2 + 2) * val_batches)
+        check(launches["eval"] == want, f"--mode eval launched {launches['eval']}, "
+                                        f"not {want}")
+        check(math.isfinite(evaluation["loss"]), f"eval loss {evaluation['loss']}")
+        for beam in (CLI_BEAM, 1):
+            _, launches[f"decode_beam{beam}"], _ = run(
+                data + bsize + ["--mode", "decode", "--save_path", s2vt_dir,
+                                "--beam_size", str(beam)])
+            want = expect(2 * val_batches)
+            check(launches[f"decode_beam{beam}"] == want,
+                  f"--mode decode --beam_size {beam} launched "
+                  f"{launches[f'decode_beam{beam}']}, not {want}")
+            check_captions(s2vt_dir, CLI_VAL_VIDEOS)
+
+        rsteps, rval = (batches(CLI_TRAIN_VIDEOS, CLI_RATIONALE_BATCH),
+                        batches(CLI_VAL_VIDEOS, CLI_RATIONALE_BATCH))
+        # the warm start: restore_into recurses through the module's name, so
+        # its outermost call, the caption net's, is recorded last
+        restore, restored = checkpoint.restore_into, []
+
+        def recording(params, saved):
+            restore(params, saved)
+            if isinstance(params, dict):
+                restored.append(copy_params(params, "cpu"))
+
+        checkpoint.restore_into = recording
+        try:
+            rationale_train, launches["train_rationale"], out = run(
+                data + model + ["--mode", "train_rationale", "--save_path", rat_dir,
+                                "--bsize", str(CLI_RATIONALE_BATCH), "--epochs", "1",
+                                "--pretrained_base", os.path.join(s2vt_dir, "model_best")])
+        finally:
+            checkpoint.restore_into = restore
+        want = expect(2 * (rsteps + rval), 2 * (rsteps + rval))
+        check(launches["train_rationale"] == want,
+              f"--mode train_rationale launched {launches['train_rationale']}, not {want}")
+        base = checkpoint.load_checkpoint(checkpoint.best_path(s2vt_dir), "cpu")[0]
+        check(bool(restored) and optim.trainable_leaves(restored[-1])[0]
+              == optim.trainable_leaves(base)[0]
+              and all(torch.equal(x, y) for x, y in zip(
+                  optim.trainable_leaves(restored[-1])[1], optim.trainable_leaves(base)[1])),
+              "train_rationale: the caption net did not start as S2VT's model_best")
+        check("Loaded pretrained base" in out and math.isfinite(rationale_train["loss"])
+              and checkpoint.checkpoint_exists(os.path.join(rat_dir, "model_latest")),
+              "train_rationale: no warm start, a non-finite loss or no checkpoint")
+
+        # resume adopts the saved config (epochs 2, both done): it loads and
+        # trains nothing more
+        resumed, launches["resume"], out = run(
+            data + ["--mode", "train", "--save_path", s2vt_dir, "--resume", "true"])
+        check("Resuming training from previous checkpoint" in out and resumed == {}
+              and launches["resume"] == expect(0),
+              f"--resume true: {launches['resume']}, result {resumed}")
+        saved, saved_opt, _ = checkpoint.load_checkpoint(
+            checkpoint.latest_path(s2vt_dir), "cpu")
+        params = copy_params(saved, "cuda")
+        for leaf in optim.trainable_leaves(params)[1]:
+            leaf.detach().zero_()
+        opt_state = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0).init(params)
+        checkpoint.CheckpointManager(s2vt_dir).try_resume(params, opt_state)
+        moments = [v for st in opt_state.optimizer.state_dict()["state"].values()
+                   for k, v in st.items() if k != "step"]
+        want_moments = [v for st in saved_opt["state"].values()
+                        for k, v in st.items() if k != "step"]
+        check(len(moments) == len(want_moments) > 0
+              and all(m.is_cuda and torch.equal(m.cpu(), w)
+                      for m, w in zip(moments, want_moments))
+              and all(torch.equal(x.cpu(), y) for x, y in zip(
+                  optim.trainable_leaves(params)[1], optim.trainable_leaves(saved)[1])),
+              "resume: the Adam state or the parameters did not come back onto the card")
+
+        # what the loop's step interval holds at this shape: the input
+        # pipeline alone (one epoch of the train split on the host, the page
+        # cache warm), one batch's copy to the card, and the train step
+        # alone on that batch (CUDA events), with the flagship's random weights
+        from vcr_tpu_torch import entry
+        from vcr_tpu_torch.train import step as train_step_mod
+
+        pipe_cfg = Config(data_dir=data[1], glove_emb_file="glove.txt", bsize=CLI_BATCH)
+        train_it, _ = loop.make_datasets(pipe_cfg, loop.load_vocab(pipe_cfg))
+        t0 = time.perf_counter()
+        host_batches = list(train_it)
+        pipeline_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+        copy_ms = time_ms(lambda: train_step_mod.device_batch(host_batches[0], "cuda"))
+        fspec, fparams = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
+        fopt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+        fstate = fopt.init(fparams)
+        ftrain, _ = train_step_mod.build_step_fns("s2vt", fspec, fopt, static_tf=1.0,
+                                                   device="cuda")
+        staged = train_step_mod.device_batch(host_batches[0], "cuda")
+        step_ms = time_ms(lambda: ftrain(fparams, fstate, staged, 0, 1.0))
+
+        # times: decode_corpus's decode at beam 1 and beam 5, best of 3
+        cfg, params, spec, vocab = tools.load_inference_state(
+            Config(data_dir=data[1], glove_emb_file="glove.txt", save_path=s2vt_dir),
+            "", "cuda")
+        feats, _ = tools.load_split_features(cfg, vocab)
+        decode_rate = {}
+        for beam in (1, CLI_BEAM):
+            tools.decode_features(params, spec, vocab.eos_id, feats, CLI_BATCH, beam,
+                                  device="cuda")
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tools.decode_features(params, spec, vocab.eos_id, feats, CLI_BATCH, beam,
+                                      device="cuda")
+                best = min(best, time.perf_counter() - t0)
+            decode_rate[beam] = len(feats) / best
+
+        # float32 on the card against the CPU, on a tiny corpus
+        tiny = write_corpus(os.path.join(tmp, "tiny"), 20, 16, 6, 3, 4, 12, seed=3)
+        per_device, record = {}, []
+        evaluate = loop.evaluate
+
+        def recording(*args, **kw):
+            result = evaluate(*args, **kw)
+            record.append(result[0])
+            return result
+
+        loop.evaluate = recording
+        try:
+            for device in ("cuda", "cpu"):
+                record.clear()
+                save = os.path.join(tmp, f"tiny_{device}")
+                run(tiny + ["--mode", "train", "--save_path", save, "--num_frames", "4",
+                            "--vid_feat_size", "12", "--max_len", "6", "--hidden_size",
+                            "16", "--bsize", "4", "--epochs", "2", "--beam_size", "3",
+                            "--compute_dtype", "float32", "--dropout_p", "0",
+                            "--log_dir", "", "--lr", "1e-2", "--device", device])
+                epochs = [{k: m[k] for k in ("METEOR", "BLEU4", "CIDEr")} for m in record]
+                caps, _, _ = run(tiny + ["--mode", "decode", "--save_path", save,
+                                         "--beam_size", "3", "--device", device])
+                tree = checkpoint.load_checkpoint(checkpoint.latest_path(save), "cpu")[0]
+                per_device[device] = (epochs, caps, tree)
+        finally:
+            loop.evaluate = evaluate
+        (card_epochs, card_caps, card_tree), (cpu_epochs, cpu_caps, cpu_tree) = (
+            per_device["cuda"], per_device["cpu"])
+        paths, card_leaves = optim.trainable_leaves(card_tree)
+        param_err = max((x - y).abs().max().item() / max(1.0, y.abs().max().item())
+                        for x, y in zip(card_leaves, optim.trainable_leaves(cpu_tree)[1]))
+        check(len(card_epochs) == 2 and card_epochs == cpu_epochs,
+              f"float32 validation metrics card {card_epochs} vs CPU {cpu_epochs}")
+        check([c["tokens"] for c in card_caps] == [c["tokens"] for c in cpu_caps],
+              "float32 captions differ, card vs CPU")
+        check(param_err <= CLI_PARAM_TOL,
+              f"float32 parameters card vs CPU: relative err {param_err}")
+
+    emit("cli_path", corpus_seconds=corpus_s, train_seconds=train_s,
+         videos={"train": CLI_TRAIN_VIDEOS, "val": CLI_VAL_VIDEOS},
+         vocab=spec.vocab_size, padded_vocab=spec.padded_vocab_size,
+         launches=launches, train_loss=train["loss"], eval_metrics={
+             k: evaluation[k] for k in ("loss", "acc", "METEOR", "BLEU4", "CIDEr")},
+         rationale_loss=rationale_train["loss"], resume_adam_on_card=True,
+         f32_val_metrics_card_eq_cpu=card_epochs, f32_captions_card_eq_cpu=True,
+         f32_param_rel_err=param_err, f32_param_tolerance=CLI_PARAM_TOL)
+    # 2 batches an epoch and the timer reset each epoch: the loop's StepTimer
+    # holds one interval, so this is one reading, not a median
+    emit("cli_train_step", batch=CLI_BATCH, step_ms_one_interval=train["perf/step_ms_p50"],
+         steps_timed=train["perf/steps"], input_pipeline_ms_per_batch=pipeline_ms,
+         copy_to_card_ms=copy_ms, train_step_alone_ms=step_ms,
+         nworkers=pipe_cfg.nworkers, nvidia_smi=smi)
+    emit("cli_eval", batch=CLI_BATCH, beam=CLI_BEAM, videos=CLI_VAL_VIDEOS,
+         decode_seconds=evaluation["eval_decode_s"],
+         host_metrics_seconds=evaluation["eval_host_metrics_s"], nvidia_smi=smi)
+    for beam, rate in decode_rate.items():
+        emit("cli_decode", beam=beam, batch=CLI_BATCH, videos=len(feats),
+             captions_per_s=rate, nvidia_smi=smi)
 
 
 def main() -> int:
@@ -926,6 +1223,9 @@ def main() -> int:
     # 6. training of both served captioners
     train_s2vt = train_phase("s2vt", cuda_gru, cuda_lstm, smi)
     train_rationale = train_phase("rationale", cuda_gru, cuda_lstm, smi)
+
+    # 7. the command line
+    cli_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 

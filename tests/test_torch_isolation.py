@@ -14,12 +14,14 @@ import sys
 import pytest
 import torch
 
-from vcr_tpu_torch import entry, serving
+from vcr_tpu_torch import cli, entry, serving
 from vcr_tpu_torch.nn import layers, rnn
 from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
 from vcr_tpu_torch.train import optim, step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from util_corpus import build_corpus  # noqa: E402
 
 _IMPORT_ALL = """
 import json, pkgutil, sys
@@ -35,11 +37,16 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                          capture_output=True, text=True).stdout
     mods = json.loads(out.strip().splitlines()[-1])
     for name in ("serving", "ops.cuda_gru", "ops.cuda_lstm", "models.rationale",
-                 "train", "train.losses", "train.optim", "train.schedule", "train.step"):
+                 "train", "train.losses", "train.optim", "train.schedule", "train.step",
+                 "cli", "config", "decode", "tools", "vocab", "train.loop",
+                 "train.checkpoint", "evals.metrics", "evals.porter", "data.captions",
+                 "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler"):
         assert f"vcr_tpu_torch.{name}" in mods
+    # nor what the JAX package's counterparts of the command line need:
+    # nltk (tokenizer, stemmer), orbax (checkpoints), optax and flax
     bad = [m for m in mods
-           if m == "jax" or m.startswith(("jax.", "jaxlib"))
-           or m == "vcr_tpu" or m.startswith("vcr_tpu.")]
+           if m.split(".")[0] in ("jax", "jaxlib", "vcr_tpu", "nltk", "orbax", "optax",
+                                  "flax")]
     assert bad == []
 
 
@@ -269,3 +276,32 @@ def test_bf16_vdot_gradient_on_the_card_equals_cpu(cuda):
             y, (a, b), cot.to(device))])
     for want, got in zip(*out):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_command_line_on_the_card(cuda, tmp_path):
+    """train -> eval -> decode (beam and greedy) through cli.main on the card,
+    on the tiny corpus: B1 twice per train step, per greedy eval step and per
+    beam or greedy decode call; B2, B3 and B4 never."""
+    build_corpus(str(tmp_path / "data"))
+    io = ["--data_dir", str(tmp_path / "data"), "--corpus", "msvd_vgg",
+          "--glove_emb_file", "glove_tiny.txt", "--save_path", str(tmp_path / "models")]
+    train = io + ["--mode", "train", "--num_frames", "4", "--vid_feat_size", "12",
+                  "--max_len", "6", "--hidden_size", "16", "--bsize", "4", "--epochs", "2",
+                  "--log_dir", "", "--beam_size", "3"]
+    # 6 train videos in batches of 4: 2 steps an epoch; 3 val videos: 1 batch,
+    # its greedy eval step and its beam search
+    runs = [(train, 2 * (2 * 2 + 2 + 2)), (io + ["--mode", "eval", "--beam_size", "3"],
+                                          2 + 2),
+            (io + ["--mode", "decode", "--beam_size", "3"], 2),
+            (io + ["--mode", "decode"], 2)]
+    for argv, b1 in runs:
+        cuda_gru.launches = cuda_gru.launches_bt = cuda_gru.launches_dma = 0
+        cuda_lstm.launches = 0
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        assert (cuda_gru.launches, cuda_gru.launches_bt, cuda_gru.launches_dma,
+                cuda_lstm.launches) == (b1, 0, 0, 0), argv
+    assert len(out) == 3 and all(len(r["tokens"]) == 6 for r in out)
+    with open(tmp_path / "models" / "captions.json") as f:
+        assert json.load(f) == out

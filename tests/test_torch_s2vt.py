@@ -113,12 +113,15 @@ def test_bf16_s2vt_matches_jax():
     assert (got_tok == want_tok).mean() >= BF16_TOKEN_AGREEMENT
 
 
+# Beam search and sampling (A6) are ported; the cases that named A6 now hold
+# the options still not ported (the quantized modes, A13) and keep their ids.
 @pytest.mark.parametrize("kwargs, item", [
     ({"featurizer": "vgg16"}, "A17"),
-    ({"beam_size": 3}, "A6"),
-    ({"sample_temperature": 0.7}, "A6"),
-    ({"sample_top_k": 5}, "A6"),
-    ({"sample_top_p": 0.9}, "A6"),
+    pytest.param({"decode_weights": "int8"}, "A13", id="kwargs1-A6"),
+    pytest.param({"kv_cache": "int8"}, "A13", id="kwargs2-A6"),
+    pytest.param({"beam_size": 3, "decode_weights": "int8"}, "A13", id="kwargs3-A6"),
+    pytest.param({"sample_temperature": 0.7, "kv_cache": "int4"}, "A13",
+                 id="kwargs4-A6"),
     ({"featurizer": "resnet"}, "A17"),
 ])
 def test_unported_serving_options_raise(models, kwargs, item):

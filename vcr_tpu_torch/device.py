@@ -6,15 +6,15 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card: raise when there is none, never fall back to
-    the CPU. Pass ``device="cpu"`` to run the plain versions on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the card. A card asked for where there is none raises,
+    never falls back to the CPU. Pass ``device="cpu"`` to run the plain
+    versions on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return device
 
 
 def params_to(params, device):

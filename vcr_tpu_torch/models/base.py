@@ -53,6 +53,28 @@ class ModelSpec:
         return dataclasses.replace(self, **kw)
 
 
+def spec_from_config(cfg, vocab) -> ModelSpec:
+    """A ModelSpec from a Config and a Vocab. RationaleNet and SpatialNet
+    wrap ``cfg.arch``, their base captioner."""
+    return ModelSpec(
+        arch=cfg.arch,
+        vocab_size=vocab.vocab_size,
+        embed_size=vocab.embed_size,
+        hidden_size=cfg.hidden_size,
+        vid_feat_size=cfg.vid_feat_size,
+        max_len=cfg.max_len,
+        num_frames=cfg.num_frames,
+        dropout_p=cfg.dropout_p,
+        sos_id=vocab.sos_id,
+        compute_dtype=cfg.compute_dtype,
+        tau=cfg.tau,
+        base_arch=cfg.arch if cfg.arch in ("s2vt", "s2vt-att") else "s2vt",
+        tf_layers=cfg.tf_layers,
+        tf_heads=cfg.tf_heads,
+        vocab_pad_to=cfg.vocab_pad_to,
+    )
+
+
 # the ported families, registered by their modules: name -> (init, apply)
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
 

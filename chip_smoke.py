@@ -71,6 +71,25 @@ exit code and no result line:
    3 val videos, H=16, dropout 0, 2 epochs, beam 3, TF32 off): the same
    validation METEOR, BLEU-4 and CIDEr each epoch, the same captions, and
    parameters within 1e-4 * max(1, max|p|).
+8. s2vt_att_path -- S2VT with Bahdanau attention at full width (MSVD ResNet
+   512-d features, H=512, N=30, L=20, vocab 9,000 padded to 9,088, bf16;
+   bench_all.py:151-152, bench_train.py:30), the counts set to 0 just
+   before each call and read just after. Serving at B=1024 through
+   serving.build_captioner: B1 once per call on the tensor-core body and
+   nothing else, float32 tokens on the card equal to the CPU's at B=4 with
+   logits within 1e-3, captions/s greedy (best and median of 3, CUDA
+   events) and at beam 5, the stage split and one decode step's attention.
+   RationaleNet over S2VT-att at B=256: B2 twice and B1 once per call;
+   under one shared Gumbel noise, float32 selections and tokens on the card
+   equal to the CPU's. The train step at B=1024 (Adam with the clip, static
+   teacher forcing, dropout 0.2): B1 once per step, twice with remat=True;
+   float32 loss and every gradient leaf on the card against the CPU at B=4;
+   ms per step split into forward, backward and optimizer, peak memory, and
+   AttentionScan's forward against its hand-scheduled backward. Then the
+   command line on a synthetic 512-d corpus: --arch s2vt-att trains 1
+   epoch, then --mode eval, --mode export_reference of its model_best, and
+   --mode verify_parity of that .net on the card, whose captions equal
+   --mode decode's greedy captions of the same checkpoint.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -126,6 +145,12 @@ CLI_RATIONALE_BATCH = 128    # RationaleNet's
 CLI_BEAM = 5
 CLI_PARAM_TOL = 1e-4         # float32 parameters after 2 epochs card vs CPU,
                              # times max(1, max|p|) of the leaf, TF32 off
+ATT_BATCH = 1024             # S2VT-att's serving and train batch (bench_all.py:151-152,
+                             # bench_train.py:30)
+ATT_RATIONALE_BATCH = 256    # RationaleNet over S2VT-att, main-path batch
+ATT_BEAM = 5
+ATT_CLI_TRAIN_VIDEOS = 512
+ATT_CLI_VAL_VIDEOS = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -439,6 +464,22 @@ def train_phase(family, cuda_gru, cuda_lstm, smi, device="cuda"):
     return result
 
 
+def expected_counts(b1=0, b2=0) -> dict:
+    """Launch counts of a call that ran B1 ``b1`` times and B2 ``b2`` times,
+    all on their tensor-core bodies, and B3 and B4 never."""
+    return {"gru_seq": b1, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": b1,
+            "gru_seq_dma_tc": 0, "lstm_seq": b2, "lstm_seq_tc": b2}
+
+
+def counted(cuda_gru, cuda_lstm, fn):
+    """fn() with the counts set to 0 just before and read just after ->
+    (result, counts)."""
+    reset_counts(cuda_gru, cuda_lstm)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(cuda_gru, cuda_lstm)
+
+
 def write_corpus(root, n_words, glove_dim, n_train, n_val, frames, feat_dim, seed):
     """A corpus in the layout the pipeline reads (msvd_vgg under ``root``):
     a GloVe file (glove.txt) of ``n_words`` random words, two captions of
@@ -488,10 +529,6 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         torch.cuda.synchronize()
         return result, launch_counts(cuda_gru, cuda_lstm), out.getvalue()
 
-    def expect(b1, b2=0):
-        return {"gru_seq": b1, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": b1,
-                "gru_seq_dma_tc": 0, "lstm_seq": b2, "lstm_seq_tc": b2}
-
     def batches(n, b):
         return -(-n // b)
 
@@ -524,7 +561,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
                                     "--epochs", "2", "--beam_size", str(CLI_BEAM)])
         train_s = time.perf_counter() - t0
         # per epoch: each step, then each val batch's greedy eval step and beam
-        want = expect(2 * (2 * steps + (2 + 2) * val_batches))
+        want = expected_counts(2 * (2 * steps + (2 + 2) * val_batches))
         check(launches["train"] == want,
               f"--mode train launched {launches['train']}, not {want}")
         check(math.isfinite(train["loss"]) and all(
@@ -535,7 +572,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         evaluation, launches["eval"], _ = run(
             data + bsize + ["--mode", "eval", "--save_path", s2vt_dir,
                             "--beam_size", str(CLI_BEAM)])
-        want = expect((2 + 2) * val_batches)
+        want = expected_counts((2 + 2) * val_batches)
         check(launches["eval"] == want, f"--mode eval launched {launches['eval']}, "
                                         f"not {want}")
         check(math.isfinite(evaluation["loss"]), f"eval loss {evaluation['loss']}")
@@ -543,7 +580,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
             _, launches[f"decode_beam{beam}"], _ = run(
                 data + bsize + ["--mode", "decode", "--save_path", s2vt_dir,
                                 "--beam_size", str(beam)])
-            want = expect(2 * val_batches)
+            want = expected_counts(2 * val_batches)
             check(launches[f"decode_beam{beam}"] == want,
                   f"--mode decode --beam_size {beam} launched "
                   f"{launches[f'decode_beam{beam}']}, not {want}")
@@ -568,7 +605,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
                                 "--pretrained_base", os.path.join(s2vt_dir, "model_best")])
         finally:
             checkpoint.restore_into = restore
-        want = expect(2 * (rsteps + rval), 2 * (rsteps + rval))
+        want = expected_counts(2 * (rsteps + rval), 2 * (rsteps + rval))
         check(launches["train_rationale"] == want,
               f"--mode train_rationale launched {launches['train_rationale']}, not {want}")
         base = checkpoint.load_checkpoint(checkpoint.best_path(s2vt_dir), "cpu")[0]
@@ -586,7 +623,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         resumed, launches["resume"], out = run(
             data + ["--mode", "train", "--save_path", s2vt_dir, "--resume", "true"])
         check("Resuming training from previous checkpoint" in out and resumed == {}
-              and launches["resume"] == expect(0),
+              and launches["resume"] == expected_counts(0),
               f"--resume true: {launches['resume']}, result {resumed}")
         saved, saved_opt, _ = checkpoint.load_checkpoint(
             checkpoint.latest_path(s2vt_dir), "cpu")
@@ -703,6 +740,215 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
     for beam, rate in decode_rate.items():
         emit("cli_decode", beam=beam, batch=CLI_BATCH, videos=len(feats),
              captions_per_s=rate, nvidia_smi=smi)
+
+
+def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 8: S2VT-att served, RationaleNet over it, its train step and
+    its command line, at full width; returns what the kernels line reports
+    of it."""
+    from vcr_tpu_torch import cli, entry, serving
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.models import rationale, s2vt_att
+    from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_project_keys
+    from vcr_tpu_torch.train import optim, step
+
+    t_phase = time.perf_counter()
+    spec, params = entry.make_spec_and_params(**entry.S2VT_ATT, device="cuda")
+    cd, frames, b = spec.cdtype, spec.num_frames, ATT_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    feats = torch.randn((b, frames, spec.vid_feat_size), generator=gen, device="cuda")
+
+    # serving: one B1 launch per call, greedy and beam
+    caption = serving.build_captioner(params, spec)
+    tokens, serve_launches = counted(cuda_gru, cuda_lstm, lambda: caption(feats))
+    check(serve_launches == expected_counts(1),
+          f"the S2VT-att captioner launched {serve_launches}, not B1 once on the "
+          "tensor-core body and nothing else")
+    check(tuple(tokens.shape) == (b, spec.max_len) and tokens.dtype == torch.int32
+          and 0 <= int(tokens.min()) and int(tokens.max()) < spec.vocab_size,
+          f"S2VT-att tokens {tuple(tokens.shape)} {tokens.dtype}")
+    beam_caption = serving.build_captioner(params, spec, beam_size=ATT_BEAM)
+    beam_tokens, beam_launches = counted(cuda_gru, cuda_lstm, lambda: beam_caption(feats))
+    check(beam_launches == expected_counts(1) and tuple(beam_tokens.shape) == (
+        b, spec.max_len), f"the S2VT-att beam-{ATT_BEAM} captioner launched {beam_launches}")
+
+    spec32 = spec.with_(compute_dtype="float32")
+    few = feats[:4]
+    on_card = serving.build_captioner(params, spec32)(few).cpu()
+    on_cpu = serving.build_captioner(params, spec32, device="cpu")(few.cpu())
+    with torch.inference_mode():
+        logits_card = s2vt_att.apply(params, spec32, few).cpu()
+        logits_cpu = s2vt_att.apply(params_to(params, "cpu"), spec32, few.cpu())
+    logit_err = (logits_card - logits_cpu).abs().max().item()
+    check(torch.equal(on_card, on_cpu), "S2VT-att float32 tokens differ, card vs CPU")
+    check(bool(torch.isfinite(logits_card).all()) and logit_err <= LOGIT_TOL,
+          f"S2VT-att float32 logits card vs CPU: err {logit_err}")
+
+    # times: the call (best and median of 3), beam 5, and the stages
+    runs = []
+    caption(feats)
+    for _ in range(3):
+        runs.append(time_ms(lambda: caption(feats), reps=1))
+    caption_ms, caption_median_ms = min(runs), sorted(runs)[1]
+    beam_ms = time_ms(lambda: beam_caption(feats))
+    with torch.inference_mode():
+        vf = feats.to(cd)
+        eo, ef = s2vt_att.encode(params, spec, vf)
+        att = params["decoder"]["attention"]
+        pk = bahdanau_project_keys(att, eo, cd)
+        values = eo.to(cd)
+        stages = {
+            "encode_ms": time_ms(lambda: s2vt_att.encode(params, spec, vf)),
+            "decode_ms": time_ms(lambda: s2vt_att.decode(params, spec, eo, ef,
+                                                         emit="tokens")),
+            "attend_one_step_ms": time_ms(lambda: bahdanau_attend(att, ef, pk, values, cd),
+                                          iters=5),
+        }
+    emit("s2vt_att_serving", batch=b, launches=serve_launches,
+         beam_launches=beam_launches, f32_tokens_card_eq_cpu=True,
+         f32_logits_max_abs_err=logit_err, caption_ms=caption_ms,
+         caption_ms_median=caption_median_ms, caption_ms_runs=runs,
+         captions_per_s=b / (caption_ms / 1e3),
+         captions_per_s_median=b / (caption_median_ms / 1e3),
+         beam=ATT_BEAM, beam_caption_ms=beam_ms,
+         beam_captions_per_s=b / (beam_ms / 1e3), stages=stages, nvidia_smi=smi)
+
+    # RationaleNet over S2VT-att: B2 once per direction, then B1 once
+    rspec, rparams = entry.make_spec_and_params(
+        **dict(entry.S2VT_ATT, arch="rationale", base_arch="s2vt-att", tau=1.0),
+        device="cuda")
+    rcaption = serving.build_captioner(rparams, rspec)
+    rfeats = feats[:ATT_RATIONALE_BATCH]
+    rtokens, rat_launches = counted(cuda_gru, cuda_lstm, lambda: rcaption(rfeats))
+    check(rat_launches == expected_counts(1, 2),
+          f"RationaleNet over S2VT-att launched {rat_launches}, not B2 twice and B1 "
+          "once (tensor-core bodies) and nothing else")
+    check(tuple(rtokens.shape) == (ATT_RATIONALE_BATCH, rspec.max_len),
+          f"RationaleNet over S2VT-att tokens {tuple(rtokens.shape)}")
+    rspec32 = rspec.with_(compute_dtype="float32")
+    noise = torch.from_numpy(np.random.default_rng(6).gumbel(
+        size=(4, frames, 2)).astype(np.float32))
+    rparams_cpu = params_to(rparams, "cpu")
+    with torch.inference_mode():
+        rtok_card, rprobs_card = rationale.apply(rparams, rspec32, few, emit="tokens",
+                                                 gumbel_noise=noise.cuda())
+        rtok_cpu, rprobs_cpu = rationale.apply(rparams_cpu, rspec32, few.cpu(),
+                                               emit="tokens", gumbel_noise=noise)
+    check(torch.equal(rprobs_card.cpu(), rprobs_cpu),
+          "RationaleNet over S2VT-att: float32 selections differ, card vs CPU")
+    check(torch.equal(rtok_card.cpu(), rtok_cpu),
+          "RationaleNet over S2VT-att: float32 tokens differ, card vs CPU")
+    rationale_ms = time_ms(lambda: rcaption(rfeats))
+    emit("s2vt_att_rationale", batch=ATT_RATIONALE_BATCH, launches=rat_launches,
+         f32_probs_card_eq_cpu=True, f32_tokens_card_eq_cpu=True,
+         f32_frames_selected_share=rprobs_cpu[..., 1].mean().item(),
+         caption_ms=rationale_ms,
+         captions_per_s=ATT_RATIONALE_BATCH / (rationale_ms / 1e3), nvidia_smi=smi)
+
+    # the train step: B1 once per step (twice with remat), card vs CPU, times
+    opt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns("s2vt-att", spec, opt, static_tf=1.0, device="cuda")
+    batch = train_batch(gen, b, spec, cd)
+    query_w = params["decoder"]["attention"]["query_layer"]["w"]
+    before = query_w.detach().clone()
+    step_launches, step_losses = [], []
+    for i in range(3):
+        (_, _, metrics, _), counts = counted(
+            cuda_gru, cuda_lstm, lambda: train(params, state, batch, i, 1.0))
+        step_launches.append(counts)
+        step_losses.append(metrics["loss"].item())
+    check(all(c == expected_counts(1) for c in step_launches),
+          f"S2VT-att train steps launched {step_launches}, not B1 once each")
+    check(all(math.isfinite(x) for x in step_losses) and not torch.equal(before, query_w),
+          f"S2VT-att losses {step_losses}, or the query layer did not move")
+    remat_train, _ = step.build_step_fns("s2vt-att", spec, opt, static_tf=1.0, remat=True,
+                                         device="cuda")
+    _, remat_launches = counted(cuda_gru, cuda_lstm,
+                                lambda: remat_train(params, state, batch, 3, 1.0))
+    check(remat_launches == expected_counts(2),
+          f"a remat=True S2VT-att step launched {remat_launches}, not B1 twice")
+    fns32 = step.build_step_fns("s2vt-att", spec32.with_(dropout_p=0.0), opt,
+                                static_tf=1.0, device="cuda")[0].__self__
+    loss_err, grad_err, grad_worst = f32_card_vs_cpu(
+        lambda p, bt: fns32.loss(p, bt, 0, 1.0), params,
+        train_batch(gen, 4, spec32, torch.float32), "cuda")
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+          f"S2VT-att float32 card vs CPU: loss err {loss_err}, gradient err {grad_err} "
+          f"({grad_worst})")
+    timing = step_timing(train, params, state, batch, opt)
+    # AttentionScan alone at this batch: its forward (the plain loop, no
+    # tape) against its backward (the reverse loop and the two rebuilt
+    # (B, N, H) gradients)
+    dec = params["decoder"]
+    with torch.enable_grad():
+        eo, ef = s2vt_att.encode(params, spec, batch["vid_feats"])
+        pk = bahdanau_project_keys(dec["attention"], eo, cd)
+        s_in = torch.cat([torch.full((b, 1), spec.sos_id, device="cuda",
+                                     dtype=torch.int32), batch["sent"]], dim=1)
+        embs = dec["embedding"]["table"][s_in[:, :spec.max_len]].transpose(0, 1)
+        args = (dec["attention"], dec["rnn"], pk, eo, ef, embs, cd)
+        states = s2vt_att.attention_scan(*args)
+        leaves = [dec["attention"]["query_layer"]["w"], pk, eo]
+        cot = torch.randn(states.shape, generator=gen, device="cuda")
+        scan = {"forward_ms": time_ms(lambda: s2vt_att.attention_scan(*args)),
+                "backward_ms": time_ms(lambda: torch.autograd.grad(
+                    states, leaves, cot, retain_graph=True))}
+    emit("s2vt_att_train", batch=b, losses=step_losses, launches_per_step=step_launches[-1],
+         remat_launches_per_step=remat_launches, f32_loss_err=loss_err,
+         f32_grad_rel_err=grad_err, f32_grad_worst_leaf=grad_worst,
+         f32_loss_tolerance=TRAIN_LOSS_TOL, f32_grad_tolerance=TRAIN_GRAD_TOL,
+         timing=timing, attention_scan=scan, nvidia_smi=smi)
+
+    # the command line on a synthetic 512-d corpus
+    def run(argv):
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                return counted(cuda_gru, cuda_lstm, lambda: cli.main(argv))
+        except BaseException:
+            print(out.getvalue()[-4000:], file=sys.stderr)
+            raise
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_corpus(os.path.join(tmp, "data"), CLI_WORDS, 300, ATT_CLI_TRAIN_VIDEOS,
+                            ATT_CLI_VAL_VIDEOS, frames, spec.vid_feat_size, seed=9)
+        model = ["--arch", "s2vt-att", "--num_frames", str(frames), "--vid_feat_size",
+                 str(spec.vid_feat_size), "--max_len", str(spec.max_len), "--hidden_size",
+                 str(spec.hidden_size), "--compute_dtype", "bfloat16", "--vocab_pad_to",
+                 "128", "--log_dir", ""]
+        save = os.path.join(tmp, "s2vt_att")
+        io_flags = data + ["--bsize", str(CLI_BATCH), "--save_path", save]
+        steps = -(-ATT_CLI_TRAIN_VIDEOS // CLI_BATCH)
+        val_batches = -(-ATT_CLI_VAL_VIDEOS // CLI_BATCH)
+        cli_launches = {}
+        trained, cli_launches["train"] = run(io_flags + model + ["--mode", "train",
+                                                                 "--epochs", "1"])
+        # each step, then each val batch's greedy eval step
+        check(cli_launches["train"] == expected_counts(steps + val_batches)
+              and math.isfinite(trained["loss"]),
+              f"--arch s2vt-att --mode train launched {cli_launches['train']}, loss "
+              f"{trained['loss']}")
+        evaluation, cli_launches["eval"] = run(io_flags + ["--mode", "eval"])
+        check(cli_launches["eval"] == expected_counts(val_batches)
+              and math.isfinite(evaluation["loss"]),
+              f"--mode eval launched {cli_launches['eval']}")
+        decoded, cli_launches["decode"] = run(io_flags + ["--mode", "decode"])
+        net, _ = run(io_flags + ["--mode", "export_reference"])
+        parity, cli_launches["verify_parity"] = run(
+            io_flags + model + ["--mode", "verify_parity", "--pretrained_base", net,
+                                "--save_path", os.path.join(tmp, "parity")])
+        for mode in ("decode", "verify_parity"):
+            check(cli_launches[mode] == expected_counts(val_batches),
+                  f"--mode {mode} launched {cli_launches[mode]}")
+        check(len(parity) == ATT_CLI_VAL_VIDEOS and parity == decoded,
+              "verify_parity of the exported .net differs from decode of its checkpoint")
+    emit("s2vt_att_cli", videos={"train": ATT_CLI_TRAIN_VIDEOS, "val": ATT_CLI_VAL_VIDEOS},
+         batch=CLI_BATCH, launches=cli_launches, train_loss=trained["loss"],
+         eval_metrics={k: evaluation[k] for k in ("loss", "acc", "METEOR", "BLEU4")},
+         verify_parity_eq_decode=True, phase_seconds=time.perf_counter() - t_phase)
+    return {"serve": serve_launches, "rationale": rat_launches,
+            "train": step_launches[-1], "train_remat": remat_launches}
 
 
 def main() -> int:
@@ -1226,6 +1472,9 @@ def main() -> int:
 
     # 7. the command line
     cli_phase(cuda_gru, cuda_lstm, smi)
+
+    # 8. S2VT-att: serving, RationaleNet over it, training, the command line
+    att = s2vt_att_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -1240,6 +1489,8 @@ def main() -> int:
         "launches": main_launches["gru_seq"],
         "launches_tc": main_launches["gru_seq_tc"],
         "launches_rationale": rationale_launches["gru_seq"],
+        "launches_s2vt_att": att["serve"]["gru_seq"],
+        "launches_rationale_s2vt_att": att["rationale"]["gru_seq"],
         "max_abs_err": worst(cases, "bfloat16"), "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1248,7 +1499,9 @@ def main() -> int:
         "train_launches_per_step": {
             "s2vt": train_s2vt["launches_per_step"]["gru_seq"],
             "s2vt_remat": train_s2vt["remat_launches_per_step"]["gru_seq"],
-            "rationale": train_rationale["launches_per_step"]["gru_seq"]},
+            "rationale": train_rationale["launches_per_step"]["gru_seq"],
+            "s2vt_att": att["train"]["gru_seq"],
+            "s2vt_att_remat": att["train_remat"]["gru_seq"]},
         "backward": {"route": backward_route.format("gru_sequence", "157-164"),
                      "batch": TRAIN_BATCH, **train_s2vt["gru_seq_encoder"]}}, {
         "name": "gru_seq_bt", "route": "cuda",
@@ -1281,6 +1534,7 @@ def main() -> int:
         "replaces": "vcr_tpu/ops/pallas_gru.py:320",
         "launches": rationale_launches["lstm_seq"],
         "launches_tc": rationale_launches["lstm_seq_tc"],
+        "launches_rationale_s2vt_att": att["rationale"]["lstm_seq"],
         "max_abs_err": worst(lstm_cases, "bfloat16"), "tolerance": LSTM_BF16_TOL,
         "f32_max_abs_err": worst(lstm_cases, "float32"),
         "f32_tolerance": LSTM_F32_TOL,

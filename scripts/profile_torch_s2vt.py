@@ -1,18 +1,18 @@
 """Where the time of the port's captioners goes, on one CUDA card.
 
-    python scripts/profile_torch_s2vt.py [--model s2vt|rationale] [--train]
+    python scripts/profile_torch_s2vt.py [--model s2vt|rationale|s2vt-att] [--train]
                                          [--batch N] [--calls 3]
 
-Builds the flagship S2VT greedy captioner (vcr_tpu_torch.entry.FLAGSHIP), or
-RationaleNet over it (entry.RATIONALE), with random weights from a seed, at
-its serving batch (2048 and 1024) unless ``--batch`` says otherwise, warms it
-up, then runs ``--calls`` captioner calls under torch.profiler. With
-``--train`` a call is one train step instead (train.step.build_step_fns,
-Adam with the clip, static tf=1.0, bench_train.py's batch of 1024 and 512
-drawn on the card). Prints JSON lines: the wall time per call, the share of
-that time in which the card ran no kernel (the union of kernel intervals
-against the host clock), and the kernels by device time per call. Needs a
-card.
+Builds the flagship S2VT greedy captioner (vcr_tpu_torch.entry.FLAGSHIP),
+RationaleNet over it (entry.RATIONALE), or S2VT-att (entry.S2VT_ATT), with
+random weights from a seed, at its serving batch (2048, 1024 and 1024)
+unless ``--batch`` says otherwise, warms it up, then runs ``--calls``
+captioner calls under torch.profiler. With ``--train`` a call is one train
+step instead (train.step.build_step_fns, Adam with the clip, static tf=1.0,
+bench_train.py's batch of 1024, 512 and 1024 drawn on the card). Prints
+JSON lines: the wall time per call, the share of that time in which the
+card ran no kernel (the union of kernel intervals against the host clock),
+and the kernels by device time per call. Needs a card.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("s2vt", "rationale"), default="s2vt")
+    ap.add_argument("--model", choices=("s2vt", "rationale", "s2vt-att"), default="s2vt")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--calls", type=int, default=3)
@@ -63,8 +63,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     config, default_batch = {"s2vt": (entry.FLAGSHIP, 1024 if args.train else 2048),
-                             "rationale": (entry.RATIONALE, 512 if args.train else 1024)
-                             }[args.model]
+                             "rationale": (entry.RATIONALE, 512 if args.train else 1024),
+                             "s2vt-att": (entry.S2VT_ATT, 1024)}[args.model]
     batch = args.batch or default_batch
     spec, params = entry.make_spec_and_params(**config, device="cuda")
     if args.train:

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from vcr_tpu_torch import cli, entry, serving
-from vcr_tpu_torch.nn import layers, rnn
+from vcr_tpu_torch.device import params_to
+from vcr_tpu_torch.models import s2vt_att
+from vcr_tpu_torch.nn import attention, layers, rnn
 from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
 from vcr_tpu_torch.train import optim, step
 
@@ -40,7 +42,8 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "train", "train.losses", "train.optim", "train.schedule", "train.step",
                  "cli", "config", "decode", "tools", "vocab", "train.loop",
                  "train.checkpoint", "evals.metrics", "evals.porter", "data.captions",
-                 "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler"):
+                 "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler",
+                 "nn.attention", "models.s2vt_att", "convert"):
         assert f"vcr_tpu_torch.{name}" in mods
     # nor what the JAX package's counterparts of the command line need:
     # nltk (tokenizer, stemmer), orbax (checkpoints), optax and flax
@@ -305,3 +308,43 @@ def test_command_line_on_the_card(cuda, tmp_path):
     assert len(out) == 3 and all(len(r["tokens"]) == 6 for r in out)
     with open(tmp_path / "models" / "captions.json") as f:
         assert json.load(f) == out
+
+
+@pytest.mark.cuda
+def test_s2vt_att_on_the_card_equals_cpu(cuda):
+    """S2VT-att in float32 (TF32 off): greedy tokens on the card equal the
+    CPU's and logits agree, with one B1 launch per call; AttentionScan's
+    gradient for every input on the card equals the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = dict(vocab_size=40, embed_size=16, hidden=128, vid_feat=64, max_len=7,
+                num_frames=6)
+    spec, params = entry.make_spec_and_params(**dims, arch="s2vt-att",
+                                              compute_dtype="float32", device="cpu")
+    feats = torch.randn((5, 6, 64), generator=torch.Generator().manual_seed(3))
+    want = serving.build_captioner(params, spec, device="cpu")(feats)
+    before = cuda_gru.launches
+    got = serving.build_captioner(params, spec)(feats)
+    torch.cuda.synchronize()
+    assert cuda_gru.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    with torch.no_grad():
+        logits = [s2vt_att.apply(params_to(params, d), spec, feats.to(d)).cpu()
+                  for d in ("cpu", cuda)]
+    assert (logits[0] - logits[1]).abs().max().item() <= 1e-4
+    g = torch.Generator().manual_seed(4)
+    hidden, emb = 128, 16
+    qv = attention.bahdanau_init(g, hidden)
+    gru = rnn.gru_init(g, hidden + emb, hidden)
+    args = [torch.randn(s, generator=g) for s in ((5, 6, hidden), (5, 6, hidden),
+                                                 (5, hidden), (7, 5, emb))]
+    cot = torch.randn((7, 5, hidden), generator=g)
+    out = []
+    for device in ("cpu", cuda):
+        leaves = ([x.to(device).requires_grad_(True) for x in
+                   (qv["query_layer"]["w"], qv["energy_layer"]["w"])]
+                  + [gru[k].to(device).requires_grad_(True)
+                     for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+                  + [a.to(device).requires_grad_(True) for a in args])
+        states = s2vt_att.AttentionScan.apply(torch.float32, *leaves)
+        out.append([x.cpu() for x in torch.autograd.grad(states, leaves, cot.to(device))])
+    _assert_grads_close(out[1], out[0], 1e-4)

@@ -183,15 +183,17 @@ def test_init_tree_matches_jax_structure(models):
 
 def test_unported_rationale_options_raise(models):
     _, _, tspec, tparams, feats, _ = models
-    att = tspec.with_(base_arch="s2vt-att")
-    # training is ported over an S2VT base; over S2VT-att it raises (A9)
-    with pytest.raises(NotImplementedError, match="A9"):
-        trationale.apply(tparams, att, torch.from_numpy(feats),
+    # both bases serve and train (S2VT-att since A9); a base that is no video
+    # captioner raises, at train, at eval and in the captioner
+    other = tspec.with_(base_arch="transformer")
+    unknown = "unknown video captioning arch"
+    with pytest.raises(NotImplementedError, match=unknown):
+        trationale.apply(tparams, other, torch.from_numpy(feats),
                          torch.zeros((B, DIMS["max_len"]), dtype=torch.int32), train=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        trationale.apply(tparams, att, torch.from_numpy(feats))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tserving.build_captioner(tparams, att, device="cpu")
+    with pytest.raises(NotImplementedError, match=unknown):
+        trationale.apply(tparams, other, torch.from_numpy(feats))
+    with pytest.raises(NotImplementedError, match=unknown):
+        tserving.build_captioner(tparams, other, device="cpu")
     # beam search is ported (A6); its quantized decode weights are not (A13)
     with pytest.raises(NotImplementedError, match="A13"):
         tserving.build_captioner(tparams, tspec, beam_size=3, decode_weights="int8",

@@ -1,5 +1,6 @@
 """Command line: ``python -m vcr_tpu_torch.cli --mode train | train_rationale
-| eval | decode [--flags]``, the counterpart of ``vcr_tpu/cli.py``.
+| eval | decode | verify_parity | export_reference [--flags]``, the
+counterpart of ``vcr_tpu/cli.py``.
 
 Every flag of the JAX package's command line parses to the same Config;
 ``--device cuda`` (the default, which raises without a card) or ``--device
@@ -28,8 +29,6 @@ NOT_PORTED_MODES = {
     "serve": "ROADMAP A14 (continuous batching and the HTTP stack)",
     "export_serving": "ROADMAP A16 (deployable artifacts)",
     "export_continuous": "ROADMAP A16 (deployable artifacts)",
-    "verify_parity": "ROADMAP A8 (convert.py)",
-    "export_reference": "ROADMAP A8 (convert.py)",
     "bench": "ROADMAP A4 (the port's benchmark)",
 }
 
@@ -74,6 +73,23 @@ def dispatch(cfg: Config, device=None):
         results = decode_corpus(cfg, cfg.pretrained_base or "", out,
                                 beam_size=cfg.beam_size, device=device)
         print(f"captions written to {out}")
+        return results
+    if cfg.mode == "export_reference":
+        from vcr_tpu_torch.tools import export_reference_checkpoint
+
+        out = export_reference_checkpoint(cfg, cfg.pretrained_base or "")
+        print(f"reference-format checkpoint written to {out}")
+        return out
+    if cfg.mode == "verify_parity":
+        from vcr_tpu_torch.tools import verify_parity
+
+        # pretrained_base carries the reference .net path for this mode
+        if not cfg.pretrained_base:
+            raise SystemExit("--mode verify_parity needs --pretrained_base "
+                             "<reference model_*.net> (the checkpoint to convert)")
+        out = os.path.join(cfg.save_path, "parity.json")
+        results = verify_parity(cfg, cfg.pretrained_base, out, device=device)
+        print(f"parity decode written to {out}")
         return results
     raise NotImplementedError("unrecognized mode")
 

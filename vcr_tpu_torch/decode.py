@@ -1,11 +1,13 @@
-"""Decoding beyond greedy: beam search and sampling, for S2VT and for
-RationaleNet over S2VT. The counterpart of the S2VT and RationaleNet parts
-of ``vcr_tpu/decode.py``.
+"""Decoding beyond greedy: beam search and sampling, for S2VT, S2VT-att and
+RationaleNet over either. The counterpart of those parts of
+``vcr_tpu/decode.py``.
 
 The beam folds into the batch axis: B*K rows go through the same cell as the
-greedy decode (``_s2vt_stepper``, plain PyTorch as in the JAX package), and
-reordering the beams gathers the rows of the state. Encode and prime run once
-at B rows through kernel B1. Beam width 1 gives the greedy tokens up to and
+greedy decode (``_s2vt_stepper``, ``_s2vt_att_stepper``, plain PyTorch as in
+the JAX package), and reordering the beams gathers the rows of the state.
+Encode (and S2VT's prime) run once at B rows through kernel B1; S2VT-att's
+projected keys and encoder outputs are tiled to B*K rows once, the outputs
+at the compute dtype. Beam width 1 gives the greedy tokens up to and
 including the first eos; after it the search holds finished rows at eos.
 
 Ties break as in the JAX package, whose ``lax.top_k`` is index-stable: among
@@ -30,7 +32,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vcr_tpu_torch.models import base as model_base
-from vcr_tpu_torch.models import rationale, s2vt
+from vcr_tpu_torch.models import rationale, s2vt, s2vt_att
+from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_project_keys
 from vcr_tpu_torch.nn.gumbel import sample_gumbel
 from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, vdot
 from vcr_tpu_torch.nn.rnn import gru_gates
@@ -246,6 +249,70 @@ def s2vt_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor
                                  decode_weights=decode_weights)
 
 
+# ------------------------------------------------------------ S2VT-att
+
+def _s2vt_att_stepper(params, spec: model_base.ModelSpec, pk: torch.Tensor,
+                      eo: torch.Tensor, decode_weights: Optional[str] = None) -> Callable:
+    """The S2VT-att decode cell of the greedy decode (``s2vt_att.decode``)
+    as a (state, words, i) step, closed over the (possibly beam-tiled)
+    projected keys ``pk`` and encoder outputs ``eo``. bf16 decode weights
+    only."""
+    check_decode_weights(decode_weights)
+    dec, cd = params["decoder"], spec.cdtype
+
+    def step_fn(state, words, i):
+        context, _ = bahdanau_attend(dec["attention"], state["h"], pk, eo, cd)
+        h = s2vt_att._gru_in(dec["rnn"], context, embed(dec["embedding"], words),
+                             state["h"], cd)
+        logits = mask_vocab_pad(dense(dec["pred_linear"], h, cd), spec.vocab_size)
+        return {"h": h}, logits
+
+    return step_fn
+
+
+def s2vt_att_beam_from_states(params, spec: model_base.ModelSpec,
+                              encoder_outs: torch.Tensor, encoder_final: torch.Tensor,
+                              beam_size: int, eos_id: int,
+                              decode_weights: Optional[str] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam decode from S2VT-att's encoder states: the keys projected at B
+    rows, then the stepper at B*K rows. The outputs are read only through
+    the context product's rounding, so they are tiled at the compute dtype:
+    the same bits."""
+    check_decode_weights(decode_weights)
+    proj_key = bahdanau_project_keys(params["decoder"]["attention"], encoder_outs,
+                                     spec.cdtype)
+    tiled = _tile_beam({"h": encoder_final, "pk": proj_key,
+                        "eo": encoder_outs.to(spec.cdtype)}, beam_size)
+    step_fn = _s2vt_att_stepper(params, spec, tiled["pk"], tiled["eo"])
+    return beam_search(step_fn, {"h": tiled["h"]}, encoder_outs.shape[0], beam_size,
+                       spec.max_len, spec.sos_id, eos_id)
+
+
+def s2vt_att_sample_from_states(params, spec: model_base.ModelSpec,
+                                encoder_outs: torch.Tensor, encoder_final: torch.Tensor,
+                                rng, eos_id: int, temperature: float = 1.0,
+                                top_k: int = 0, top_p: float = 0.0,
+                                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sampling decode from S2VT-att's encoder states."""
+    proj_key = bahdanau_project_keys(params["decoder"]["attention"], encoder_outs,
+                                     spec.cdtype)
+    step_fn = _s2vt_att_stepper(params, spec, proj_key, encoder_outs.to(spec.cdtype))
+    return sample_search(step_fn, {"h": encoder_final}, encoder_outs.shape[0],
+                         spec.max_len, spec.sos_id, eos_id, rng, temperature, top_k,
+                         top_p, gumbel=gumbel)
+
+
+def s2vt_att_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
+                         beam_size: int, eos_id: int,
+                         decode_weights: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam decode for S2VT-att: the greedy decode's cell, B*K rows."""
+    encoder_outs, encoder_final = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
+    return s2vt_att_beam_from_states(params, spec, encoder_outs, encoder_final, beam_size,
+                                     eos_id, decode_weights=decode_weights)
+
+
 # ------------------------------------------------------------ RationaleNet
 
 def _rationale_select(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
@@ -268,21 +335,22 @@ def rationale_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.T
                           decode_weights: Optional[str] = None,
                           gumbel_noise: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Hard Gumbel frame selection, then beam search on the wrapped S2VT over
-    the selected features. The selection's noise is drawn from a generator
+    """Hard Gumbel frame selection, then beam search on the wrapped captioner
+    over the selected features. The selection's noise is drawn from a generator
     seeded with ``rng`` (None: 0), as the greedy ``rationale.apply`` draws it
     for that seed, or is ``gumbel_noise``."""
     check_decode_weights(decode_weights)
     gen = s2vt.generator_for(rng, vid_feats.device)
     sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
-    return s2vt_beam_decode(params["caption_net"], spec, sel, beam_size, eos_id)
+    return decode_tokens(params["caption_net"], spec.with_(arch=spec.base_arch), sel,
+                         eos_id, beam_size)
 
 
 def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, rng=0, temperature: float = 1.0, top_k: int = 0,
                   top_p: float = 0.0, gumbel: Optional[torch.Tensor] = None,
                   gumbel_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stochastic decoding for S2VT and RationaleNet -> tokens (B, L).
+    """Stochastic decoding for S2VT, S2VT-att and RationaleNet -> tokens (B, L).
     ``top_k=1`` is argmax: the greedy decode up to the first eos.
 
     One generator seeded with ``rng`` draws everything, in order:
@@ -291,6 +359,10 @@ def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
     if spec.arch == "s2vt":
         return s2vt_sample_decode(params, spec, vid_feats, rng, eos_id, temperature,
                                   top_k, top_p, gumbel=gumbel)
+    if spec.arch == "s2vt-att":
+        eo, ef = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
+        return s2vt_att_sample_from_states(params, spec, eo, ef, rng, eos_id, temperature,
+                                           top_k, top_p, gumbel=gumbel)
     if spec.arch == "rationale":
         gen = s2vt.generator_for(rng, vid_feats.device)
         sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
@@ -303,12 +375,15 @@ def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, beam_size: int = 1, rng=None,
                   decode_weights: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Beam decode for S2VT and RationaleNet -> (tokens (B, K, L), scores
-    (B, K)). Beam width 1's best row equals the greedy rollout up to the
-    first eos. ``rng`` seeds RationaleNet's frame selection."""
+    """Beam decode for S2VT, S2VT-att and RationaleNet -> (tokens (B, K, L),
+    scores (B, K)). Beam width 1's best row equals the greedy rollout up to
+    the first eos. ``rng`` seeds RationaleNet's frame selection."""
     if spec.arch == "s2vt":
         return s2vt_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                 decode_weights=decode_weights)
+    if spec.arch == "s2vt-att":
+        return s2vt_att_beam_decode(params, spec, vid_feats, beam_size, eos_id,
+                                    decode_weights=decode_weights)
     if spec.arch == "rationale":
         return rationale_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                      rng=rng, decode_weights=decode_weights)

@@ -16,6 +16,10 @@ FLAGSHIP = dict(vocab_size=9000, embed_size=300, hidden=512, vid_feat=4096,
 # RationaleNet over that S2VT at the same widths (bench_all.py's rationale
 # row): a BiLSTM generator with H=512 picks frames by hard Gumbel-Softmax.
 RATIONALE = dict(FLAGSHIP, arch="rationale", base_arch="s2vt", tau=1.0)
+# S2VT with Bahdanau attention on MSVD ResNet 512-d features, the JAX
+# package's bench row (bench_all.py:151-152, bench_train.py:30): H=512,
+# N=30, L=20, vocab 9000 padded to 128, bf16 products.
+S2VT_ATT = dict(FLAGSHIP, arch="s2vt-att", vid_feat=512)
 
 
 def make_spec_and_params(vocab_size: int, embed_size: int, hidden: int,

@@ -80,7 +80,6 @@ _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
 
 # Families of the JAX package not ported yet, with their ROADMAP items.
 _NOT_PORTED = {
-    "s2vt-att": "ROADMAP A9 (S2VT-att)",
     "spatial": "ROADMAP A11 (SpatialNet)",
     "transformer": "ROADMAP A12 (Transformer)",
 }
@@ -91,12 +90,13 @@ def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:
 
 
 def build_model(name: str) -> Tuple[Callable, Callable]:
-    """-> (init_params, apply). Ported so far: ``s2vt`` and ``rationale``
-    over S2VT, each with its eval and train branches (``apply(...,
-    train=True)``, driven by ``train.step``); the others raise naming their
-    ROADMAP item."""
+    """-> (init_params, apply). Ported so far: ``s2vt``, ``s2vt-att`` and
+    ``rationale`` over either, each with its eval and train branches
+    (``apply(..., train=True)``, driven by ``train.step``); the others raise
+    naming their ROADMAP item."""
     import vcr_tpu_torch.models.rationale  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt  # noqa: F401  (registers itself)
+    import vcr_tpu_torch.models.s2vt_att  # noqa: F401  (registers itself)
 
     if name in _REGISTRY:
         return _REGISTRY[name]

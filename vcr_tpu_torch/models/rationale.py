@@ -6,15 +6,15 @@ PyTorch counterpart of ``vcr_tpu/models/rationale.py``:
   per direction, differentiable through ``cuda_lstm.LstmSequence``) ->
   dropout -> linear -> 2 logits per frame -> Gumbel-Softmax, soft at train
   and hard (straight-through) at eval; channel 1 scales the frame features.
-* the selected features feed the wrapped S2VT captioner, with its own train
-  branch at train.
+* the selected features feed the wrapped captioner (S2VT or S2VT-att), with
+  its own train branch at train.
 
 Randomness: one generator on the features' device, seeded with ``rng``,
 draws the generator's dropout mask (N, B, 2H) (at train, where
 ``dropout_p`` > 0), then the Gumbel noise (B, N, 2) (unless
 ``gumbel_noise`` is injected), both before the BiLSTM, then the caption
-net's draws (``s2vt.draw_train_noise``, before its own recurrences). None is
-drawn inside a checkpointed region. An S2VT-att base comes with ROADMAP A9.
+net's draws (its ``draw_train_noise``, before its own recurrences). None is
+drawn inside a checkpointed region.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from vcr_tpu_torch.models import base, s2vt
+from vcr_tpu_torch.models import base, s2vt, s2vt_att
 from vcr_tpu_torch.nn.gumbel import gumbel_softmax, sample_gumbel
 from vcr_tpu_torch.nn.layers import apply_keep_mask, dense, dense_init, keep_mask
 from vcr_tpu_torch.nn.rnn import bilstm_init
@@ -31,12 +31,11 @@ from vcr_tpu_torch.ops.cuda_lstm import bilstm_sequence_fused
 
 
 def base_module(spec: base.ModelSpec):
-    """The wrapped captioner's module; raises for one not ported."""
+    """The wrapped captioner's module; raises for an unknown one."""
     if spec.base_arch == "s2vt":
         return s2vt
     if spec.base_arch == "s2vt-att":
-        raise NotImplementedError(
-            "RationaleNet over s2vt-att is not ported yet: ROADMAP A9 (S2VT-att)")
+        return s2vt_att
     raise NotImplementedError(f"unknown video captioning arch {spec.base_arch!r}")
 
 

@@ -1,11 +1,11 @@
 """Serving: features -> caption tokens, as one callable.
 
 PyTorch counterpart of ``vcr_tpu/serving.py``. Ported so far: captioning on
-precomputed features (``featurizer="none"``) by S2VT, and by RationaleNet
-over S2VT (hard-Gumbel frame selection, then its S2VT), greedy, by beam
-search or by sampling (``decode``). Every other featurizer, family and
-decode-weight mode raises ``NotImplementedError`` naming its ROADMAP item,
-so no option is ever silently ignored.
+precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, and by
+RationaleNet over either (hard-Gumbel frame selection, then its captioner),
+greedy, by beam search or by sampling (``decode``). Every other featurizer,
+family and decode-weight mode raises ``NotImplementedError`` naming its
+ROADMAP item, so no option is ever silently ignored.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from vcr_tpu_torch import decode
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
-from vcr_tpu_torch.models import rationale, s2vt
+from vcr_tpu_torch.models import rationale
 
 
 def resolve_eos_id(spec: model_base.ModelSpec, eos_id: int | None = None,
@@ -108,10 +108,9 @@ def make_caption_fn(spec: model_base.ModelSpec,
     decode.check_decode_mode(beam_size, sample_temperature, sample_top_k, sample_top_p)
     if eos_id is None:
         eos_id = spec.sos_id + 1
+    _, apply_fn = model_base.build_model(spec.arch)  # raises, naming the ROADMAP item
     if spec.arch == "rationale":
-        rationale.base_module(spec)  # raises for a base not ported
-    elif spec.arch != "s2vt":
-        model_base.build_model(spec.arch)  # raises, naming the ROADMAP item
+        rationale.base_module(spec)  # raises for an unknown base
 
     if sample_temperature > 0:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
@@ -127,6 +126,6 @@ def make_caption_fn(spec: model_base.ModelSpec,
             return rationale.apply(params, spec, feats, emit="tokens", rng=rng)[0]
     else:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
-            return s2vt.apply(params, spec, feats, train=False, emit="tokens")
+            return apply_fn(params, spec, feats, train=False, emit="tokens")
 
     return caption

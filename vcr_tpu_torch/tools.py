@@ -1,14 +1,16 @@
-"""Inference over a corpus split: the counterpart of ``load_inference_state``,
-``decode_corpus`` and ``greedy_captions`` in ``vcr_tpu/tools.py``.
+"""Inference over a corpus split and the reference's checkpoint format: the
+counterpart of ``load_inference_state``, ``decode_corpus``,
+``greedy_captions``, ``verify_parity`` and ``export_reference_checkpoint`` in
+``vcr_tpu/tools.py``.
 
-The JAX package's other tools are not ported yet: ``verify_parity`` and
-``export_reference`` need the reference-checkpoint converter (ROADMAP A8),
-``serve`` the continuous-batching daemon (A14), and the two ``export_*``
-artifacts A16; their modes raise in :mod:`vcr_tpu_torch.cli`.
+The JAX package's other tools are not ported yet: ``serve`` needs the
+continuous-batching daemon (ROADMAP A14), and the two ``export_*`` artifacts
+A16; their modes raise in :mod:`vcr_tpu_torch.cli`.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 from typing import Dict, List, Optional
@@ -18,8 +20,9 @@ import torch
 
 from vcr_tpu_torch import decode, serving
 from vcr_tpu_torch.config import Config, adopt_checkpoint_config
+from vcr_tpu_torch.convert import export_state_dict, load_reference_checkpoint
 from vcr_tpu_torch.data.pipeline import CaptionDataset
-from vcr_tpu_torch.device import resolve_device
+from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
 from vcr_tpu_torch.train import checkpoint as ckpt
 from vcr_tpu_torch.train.loop import fold_seed, load_vocab
@@ -108,8 +111,62 @@ def decode_corpus(cfg: Config, checkpoint_path: str = "",
     results = [{"vid_key": k, "tokens": t.tolist(),
                 "caption": vocab.get_sent_from_index(t)}
                for k, t in zip(keys, tokens)]
+    _write_json(results, out_file)
+    return results
+
+
+def _write_json(results, out_file: Optional[str]) -> None:
     if out_file:
         os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
         with open(out_file, "w") as f:
             json.dump(results, f, indent=2)
+
+
+def verify_parity(cfg: Config, checkpoint_path: str, out_file: Optional[str] = None,
+                  device=None) -> List[Dict]:
+    """Caption every video of the val split greedily with a converted
+    reference checkpoint (a ``.net`` file, :func:`convert.load_reference_checkpoint`)
+    and write ``[{vid_key, tokens, caption}]`` to ``out_file`` when given.
+    A wrapped family and its captioner are taken from the state_dict's keys;
+    ``cfg.arch`` names the base captioner, as the reference's ``--arch``."""
+    device = resolve_device(device)
+    vocab = load_vocab(cfg)
+    spec = model_base.spec_from_config(cfg, vocab)
+    params, meta = load_reference_checkpoint(checkpoint_path, spec, cfg.arch)
+    if meta["detected_arch"] == "rationale":
+        spec = spec.with_(arch="rationale")
+    if meta["detected_base_arch"] is not None:
+        spec = spec.with_(base_arch=meta["detected_base_arch"])
+    feats, keys = load_split_features(cfg, vocab)
+    captions = greedy_captions(params_to(params, device), spec, vocab, feats, cfg.bsize,
+                               device)
+    results = [{"vid_key": k, **c} for k, c in zip(keys, captions)]
+    _write_json(results, out_file)
     return results
+
+
+def export_reference_checkpoint(cfg: Config, checkpoint_path: str = "",
+                                out_file: Optional[str] = None) -> str:
+    """Write a checkpoint of this package as a reference ``.net`` file
+    (``torch.save`` of {'state_dict', 'opts', 'epoch', 'n_iter',
+    'val_meteor_score', 'best_val_meteor_score'}), which the PyTorch
+    reference and :func:`verify_parity` load. The optimizer state is left
+    out, as the reference never restores it. A conversion on the host: no
+    device is used. -> the file's path (default ``save_path/model_export.net``)."""
+    path = checkpoint_path or ckpt.best_path(cfg.save_path)
+    params, _, meta = ckpt.load_checkpoint(path, "cpu")
+    cfg = adopt_checkpoint_config(cfg, meta)
+    spec = model_base.spec_from_config(cfg, load_vocab(cfg))
+    arch = "rationale" if cfg.mode == "train_rationale" else cfg.arch
+    out = out_file or os.path.join(cfg.save_path, "model_export.net")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    torch.save({
+        "epoch": meta.get("epoch", 0),
+        "state_dict": export_state_dict(params, spec, arch),
+        "n_iter": meta.get("n_iter", 0),
+        # the reference reads checkpoint['opts'] as an argparse.Namespace
+        "opts": argparse.Namespace(**meta.get("config", {})),
+        "val_meteor_score": meta.get("val_meteor_score", 0.0),
+        "best_val_meteor_score": meta.get("best_val_meteor_score", 0.0),
+    }, out)
+    return out

@@ -15,8 +15,10 @@ directory, the old one is renamed to ``.old``, the new one into place, and
 incomplete (a kill between the two renames).
 
 Loading uses ``torch.load(weights_only=True)`` onto the caller's device.
-These are this package's checkpoints: reading the JAX package's (Orbax)
-checkpoints is ROADMAP A8's converter.
+These are this package's checkpoints. The JAX package's (Orbax)
+checkpoints are not read here: its ``--mode export_reference`` writes one as
+a reference ``.net`` file, which ``convert.load_reference_checkpoint`` and
+``--mode verify_parity`` read.
 """
 
 from __future__ import annotations
@@ -84,8 +86,11 @@ def load_checkpoint(path: str, device="cpu") -> Tuple[Any, Any, Dict[str, Any]]:
     path = _resolve(path)
     if not _complete(path) and os.path.isdir(os.path.join(path, "tree")):
         raise NotImplementedError(
-            f"{path} is a JAX package (Orbax) checkpoint; reading one is not "
-            "ported yet: ROADMAP A8 (convert.py)")
+            f"{path} is a JAX package (Orbax) checkpoint, which this package does "
+            "not read: export it with `python -m vcr_tpu.cli --mode "
+            "export_reference`, then read the .net file with "
+            "vcr_tpu_torch.convert.load_reference_checkpoint or `--mode "
+            "verify_parity`")
     tree = torch.load(_tree_path(path), map_location=torch.device(device),
                       weights_only=True)
     with open(_meta_path(path)) as f:

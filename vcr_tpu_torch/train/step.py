@@ -77,10 +77,11 @@ class StepFns:
         def fn(params, vid_feats, sent, sent_len, rng, tf_prob):
             if train and self.static_tf is not None:
                 tf_prob = self.static_tf
-            # S2VT trains with gate remat by default, as in the JAX package;
-            # RationaleNet keeps it off. The scope is entered here, inside
-            # what remat=True checkpoints, so that its replay sees it too.
-            with gate_remat_default(train and self.model_name == "s2vt"):
+            # S2VT and S2VT-att train with gate remat by default, as in the
+            # JAX package; RationaleNet keeps it off. The scope is entered
+            # here, inside what remat=True checkpoints, so that its replay
+            # sees it too.
+            with gate_remat_default(train and self.model_name in ("s2vt", "s2vt-att")):
                 return self._apply(params, self.spec, vid_feats, sent, sent_len, rng=rng,
                                    train=train, teacher_force_prob=tf_prob)
 
@@ -169,7 +170,7 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
                    lambda_brev: float = 1.0, lambda_cont: float = 1.0,
                    remat: bool = False, grad_accum: int = 1, static_tf=None,
                    device=None) -> Tuple[Callable, Callable]:
-    """-> (train_step, eval_step) for "s2vt" or "rationale" on ``device``
+    """-> (train_step, eval_step) for "s2vt", "s2vt-att" or "rationale" on ``device``
     (None: the card; raises without one).
 
     train_step(params, opt_state, batch, rng, tf_prob)

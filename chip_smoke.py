@@ -90,6 +90,28 @@ exit code and no result line:
    epoch, then --mode eval, --mode export_reference of its model_best, and
    --mode verify_parity of that .net on the card, whose captions equal
    --mode decode's greedy captions of the same checkpoint.
+9. spatial_path -- SpatialNet over S2VT at full width (YOLOv3 grid features
+   (30, 1024, 13, 13), H=512, L=20, vocab 9,000 padded to 9,088, bf16;
+   bench_all.py:514-517, bench_train.py:33), the counts set to 0 just
+   before each call and read just after. Serving at B=64 through
+   serving.build_captioner: B1 once per call (S2VT's prime pass) on the
+   tensor-core body and nothing else, greedy and at beam 5; SpatialNet
+   over S2VT-att launches nothing. Float32 at B=2 (TF32 off for cuBLAS and
+   cuDNN): tokens on the card equal the CPU's, logits within 1e-3, attention
+   maps within 1e-4. Captions/s (best and median of 3, CUDA events), beam
+   5 and over S2VT-att, peak memory, the stage split (conv trunk beside its
+   bound, key projection, encoder, prime, decode). The train step at B=16
+   (Adam with the clip, static teacher forcing, dropout 0.2): B1 once per
+   step, twice with remat=True; the convs and BatchNorm's running stats
+   move; float32 loss, every gradient leaf and the new running stats on
+   the card against the CPU at B=2; ms per step split into forward,
+   backward and optimizer, peak memory. Then the command line on a corpus
+   of 64 train and 32 val videos of grid features (~2 GB; a quarter of it
+   where the disk is short): --mode train_spatial 1 epoch at --bsize 16
+   with beam-5 validation, --mode eval, --mode decode, --mode
+   export_reference and --mode verify_parity of that .net, whose captions
+   equal --mode decode's. Phase 3 holds B1 at this slice's shapes (T=30,
+   B=16 and B=64) too.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -104,6 +126,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -151,6 +174,13 @@ ATT_RATIONALE_BATCH = 256    # RationaleNet over S2VT-att, main-path batch
 ATT_BEAM = 5
 ATT_CLI_TRAIN_VIDEOS = 512
 ATT_CLI_VAL_VIDEOS = 256
+SPATIAL_BATCH = 64           # SpatialNet's serving batch (bench_all.py:514-517)
+SPATIAL_TRAIN_BATCH = 16     # its train batch (bench_train.py:33)
+SPATIAL_BEAM = 5
+SPATIAL_ALPHA_TOL = 1e-4     # float32 attention maps card vs CPU, TF32 off
+SPATIAL_BN_TOL = 1e-5        # float32 BatchNorm running stats card vs CPU
+SPATIAL_CLI_TRAIN_VIDEOS = 64  # (30, 1024, 13, 13) float32 features: 20.8 MB a
+SPATIAL_CLI_VAL_VIDEOS = 32    # video, ~2 GB in all
 
 
 class SmokeFailure(RuntimeError):
@@ -259,11 +289,12 @@ def lstm_bound_ms(t, b, hidden, peaks):
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
 
 
-def train_batch(gen, b, spec, feats_dtype):
-    """bench_train.py's batch, drawn on ``gen``'s device: normal features,
-    uniform tokens, every sentence 12 tokens long, every row valid."""
+def train_batch(gen, b, spec, feats_dtype, grid=()):
+    """bench_train.py's batch, drawn on ``gen``'s device: normal features
+    (SpatialNet's with ``grid`` (K, K)), uniform tokens, every sentence 12
+    tokens long, every row valid."""
     device = gen.device
-    return {"vid_feats": torch.randn((b, spec.num_frames, spec.vid_feat_size),
+    return {"vid_feats": torch.randn((b, spec.num_frames, spec.vid_feat_size, *grid),
                                      generator=gen, device=device).to(feats_dtype),
             "sent": torch.randint(0, spec.vocab_size, (b, spec.max_len), generator=gen,
                                   device=device, dtype=torch.int32),
@@ -280,7 +311,9 @@ def copy_params(params, device):
 def f32_card_vs_cpu(loss_fn, params, batch, device):
     """Float32 loss and gradients of ``loss_fn(params, batch) -> (loss, ...)``
     on ``device`` and on the CPU, from one copy of the weights: (loss error,
-    worst gradient leaf error relative to max(1, max|g|), its path)."""
+    worst gradient leaf error relative to max(1, max|g|), its path, the
+    largest error of the new BatchNorm stats where ``loss_fn`` is a step's
+    ``loss`` that returns them, else None)."""
     from vcr_tpu_torch.train import optim
 
     out = []
@@ -291,27 +324,41 @@ def f32_card_vs_cpu(loss_fn, params, batch, device):
             x.requires_grad_(True)
         b = {k: v.to(dev) for k, v in batch.items()}
         with torch.enable_grad():
-            loss = loss_fn(p, b)[0]
-            grads = torch.autograd.grad(loss, leaves)
-        out.append((loss.item(), [g.cpu() for g in grads]))
-    (loss_card, g_card), (loss_cpu, g_cpu) = out
+            result = loss_fn(p, b)
+            grads = torch.autograd.grad(result[0], leaves)
+        bn = result[3].get("bn_state", {}) if len(result) > 3 else {}
+        out.append((result[0].item(), [g.cpu() for g in grads],
+                    [st[k].detach().cpu() for st in bn.values() for k in ("mean", "var")]))
+    (loss_card, g_card, bn_card), (loss_cpu, g_cpu, bn_cpu) = out
     paths = optim.trainable_leaves(params)[0]
     errs = {"/".join(path): (x - y).abs().max().item() / max(1.0, y.abs().max().item())
             for path, x, y in zip(paths, g_card, g_cpu)}
     worst = max(errs, key=errs.get)
-    return abs(loss_card - loss_cpu), errs[worst], worst
+    bn_err = max((max_err(x, y) for x, y in zip(bn_card, bn_cpu)), default=None)
+    return abs(loss_card - loss_cpu), errs[worst], worst, bn_err
+
+
+def peak_memory(fn) -> dict:
+    """fn() -> the device memory held when it starts (every tensor the script
+    still holds, earlier phases' included), the peak while it runs, and
+    the peak above the start: what the call itself needs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_memory_bytes": peak, "allocated_at_start_bytes": start,
+            "peak_above_start_bytes": peak - start}
 
 
 def step_timing(train, params, state, batch, opt):
     """One family's step: ms (best of 3 after warm-up, CUDA events) of the
     whole step, of the forward alone (``StepFns.loss``), of the forward and
-    backward (``StepFns.grads``) and of the optimizer; peak memory of a step."""
+    backward (``StepFns.grads``) and of the optimizer; peak memory of a
+    step (:func:`peak_memory`)."""
     fns = train.__self__
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    train(params, state, batch, 10, 1.0)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    memory = peak_memory(lambda: train(params, state, batch, 10, 1.0))
     step_ms = time_ms(lambda: train(params, state, batch, 11, 1.0))
     forward_ms = time_ms(lambda: fns.loss(params, batch, 12, 1.0))
     fwd_bwd_ms = time_ms(lambda: fns.grads(params, state.leaves, batch, 13, 1.0))
@@ -320,7 +367,7 @@ def step_timing(train, params, state, batch, opt):
     b = batch["vid_feats"].shape[0]
     return {"batch": b, "step_ms": step_ms, "samples_per_s": b / (step_ms / 1e3),
             "forward_ms": forward_ms, "backward_ms": fwd_bwd_ms - forward_ms,
-            "optimizer_ms": optimizer_ms, "peak_memory_bytes": peak}
+            "optimizer_ms": optimizer_ms, **memory}
 
 
 def sequence_fwd_bwd_ms(fused, kernel_args, kernel, leaves, cot):
@@ -409,7 +456,7 @@ def train_phase(family, cuda_gru, cuda_lstm, smi, device="cuda"):
                                                 bt["valid"])
                     + losses.brevity_loss(probs, bt["valid"])
                     + losses.continuity_loss(probs, bt["valid"]),)
-    loss_err, grad_err, grad_worst = f32_card_vs_cpu(loss_fn, params, small, device)
+    loss_err, grad_err, grad_worst, _ = f32_card_vs_cpu(loss_fn, params, small, device)
     check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
           f"{family} float32 card vs CPU: loss err {loss_err}, gradient err {grad_err} "
           f"({grad_worst})")
@@ -480,15 +527,33 @@ def counted(cuda_gru, cuda_lstm, fn):
     return out, launch_counts(cuda_gru, cuda_lstm)
 
 
+def run_cli(cuda_gru, cuda_lstm, argv):
+    """cli.main(argv) with its output held back, the counts set to 0 just
+    before and read just after -> (result, counts); on a failure the end of
+    its output goes to standard error."""
+    from vcr_tpu_torch import cli
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            return counted(cuda_gru, cuda_lstm, lambda: cli.main(argv))
+    except BaseException:
+        print(out.getvalue()[-4000:], file=sys.stderr)
+        raise
+
+
 def write_corpus(root, n_words, glove_dim, n_train, n_val, frames, feat_dim, seed):
     """A corpus in the layout the pipeline reads (msvd_vgg under ``root``):
     a GloVe file (glove.txt) of ``n_words`` random words, two captions of
     5-19 of those words per video, and (frames, feat_dim) float32 features
-    per video, all drawn from ``seed``."""
+    per video under feats/, or with a tuple ``feat_dim`` (F, K, K) YOLO grid
+    features under bbox_feats/, all drawn from ``seed``."""
     rng = np.random.default_rng(seed)
     cdir = os.path.join(root, "msvd_vgg")
+    feat_shape = (feat_dim,) if isinstance(feat_dim, int) else tuple(feat_dim)
+    feat_dir = "feats" if len(feat_shape) == 1 else "bbox_feats"
     os.makedirs(os.path.join(cdir, "glove"))
-    os.makedirs(os.path.join(cdir, "feats"))
+    os.makedirs(os.path.join(cdir, feat_dir))
     words = [f"w{i}" for i in range(n_words)]
     vecs = rng.standard_normal((n_words, glove_dim)).astype(np.float32)
     with open(os.path.join(cdir, "glove", "glove.txt"), "w") as f:
@@ -501,8 +566,8 @@ def write_corpus(root, n_words, glove_dim, n_train, n_val, frames, feat_dim, see
             caps = [{"desc": " ".join(rng.choice(words, size=rng.integers(5, 20)))}
                     for _ in range(2)]
             samples.append({"video_key": key, "captions": caps})
-            np.save(os.path.join(cdir, "feats", key + ".npy"),
-                    rng.standard_normal((frames, feat_dim), dtype=np.float32))
+            np.save(os.path.join(cdir, feat_dir, key + ".npy"),
+                    rng.standard_normal((frames, *feat_shape), dtype=np.float32))
         with open(os.path.join(cdir, f"{split}_captions.json"), "w") as f:
             json.dump(samples, f)
     return ["--data_dir", root, "--corpus", "msvd_vgg", "--glove_emb_file", "glove.txt"]
@@ -746,7 +811,7 @@ def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
     """Phase 8: S2VT-att served, RationaleNet over it, its train step and
     its command line, at full width; returns what the kernels line reports
     of it."""
-    from vcr_tpu_torch import cli, entry, serving
+    from vcr_tpu_torch import entry, serving
     from vcr_tpu_torch.device import params_to
     from vcr_tpu_torch.models import rationale, s2vt_att
     from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_project_keys
@@ -870,7 +935,7 @@ def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
           f"a remat=True S2VT-att step launched {remat_launches}, not B1 twice")
     fns32 = step.build_step_fns("s2vt-att", spec32.with_(dropout_p=0.0), opt,
                                 static_tf=1.0, device="cuda")[0].__self__
-    loss_err, grad_err, grad_worst = f32_card_vs_cpu(
+    loss_err, grad_err, grad_worst, _ = f32_card_vs_cpu(
         lambda p, bt: fns32.loss(p, bt, 0, 1.0), params,
         train_batch(gen, 4, spec32, torch.float32), "cuda")
     check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
@@ -902,13 +967,7 @@ def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
 
     # the command line on a synthetic 512-d corpus
     def run(argv):
-        out = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(out):
-                return counted(cuda_gru, cuda_lstm, lambda: cli.main(argv))
-        except BaseException:
-            print(out.getvalue()[-4000:], file=sys.stderr)
-            raise
+        return run_cli(cuda_gru, cuda_lstm, argv)
 
     with tempfile.TemporaryDirectory() as tmp:
         data = write_corpus(os.path.join(tmp, "data"), CLI_WORDS, 300, ATT_CLI_TRAIN_VIDEOS,
@@ -948,6 +1007,211 @@ def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
          eval_metrics={k: evaluation[k] for k in ("loss", "acc", "METEOR", "BLEU4")},
          verify_parity_eq_decode=True, phase_seconds=time.perf_counter() - t_phase)
     return {"serve": serve_launches, "rationale": rat_launches,
+            "train": step_launches[-1], "train_remat": remat_launches}
+
+
+def conv_trunk_bound_ms(frames, f, hidden, k, peaks):
+    """Least time of SpatialNet's conv trunk in bf16: its two 3x3 convs'
+    products at the bf16 tensor-core rate (BatchNorm and ReLU left out), or
+    the float32 input read once and the trunk's float32 output written
+    once, whichever is larger."""
+    bf16_rate, _, mem_rate = peaks
+    cells = frames * k * k
+    ops_s = 2 * cells * hidden * 9 * (f + hidden) / bf16_rate
+    bytes_s = (cells * f * 4 + cells * hidden * 4) / mem_rate
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
+
+
+def spatial_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 9: SpatialNet served (greedy, beam, over S2VT-att), float32
+    card against CPU, its train step and its command line, at full width;
+    returns what the kernels line reports of it."""
+    from vcr_tpu_torch import entry, serving
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.models import s2vt, spatial
+    from vcr_tpu_torch.nn.attention import bahdanau_project_keys
+    from vcr_tpu_torch.train import optim, step
+
+    t_phase = time.perf_counter()
+    spec, params = entry.make_spec_and_params(**entry.SPATIAL, device="cuda")
+    cd, frames, b, k = spec.cdtype, spec.num_frames, SPATIAL_BATCH, spec.grid_size
+    f, hidden = spec.vid_feat_size, spec.hidden_size
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    feats = torch.randn((b, frames, f, k, k), generator=gen, device="cuda")
+
+    # serving: B1 once per call (S2VT's prime), greedy and beam
+    caption = serving.build_captioner(params, spec)
+    tokens, serve_launches = counted(cuda_gru, cuda_lstm, lambda: caption(feats))
+    check(serve_launches == expected_counts(1),
+          f"the SpatialNet captioner launched {serve_launches}, not B1 once on the "
+          "tensor-core body and nothing else")
+    check(tuple(tokens.shape) == (b, spec.max_len) and tokens.dtype == torch.int32
+          and 0 <= int(tokens.min()) and int(tokens.max()) < spec.vocab_size,
+          f"SpatialNet tokens {tuple(tokens.shape)} {tokens.dtype}")
+    beam_caption = serving.build_captioner(params, spec, beam_size=SPATIAL_BEAM)
+    beam_tokens, beam_launches = counted(cuda_gru, cuda_lstm, lambda: beam_caption(feats))
+    check(beam_launches == expected_counts(1) and tuple(beam_tokens.shape) == (
+        b, spec.max_len), f"the SpatialNet beam-{SPATIAL_BEAM} captioner launched "
+                          f"{beam_launches}")
+    aspec, aparams = entry.make_spec_and_params(**dict(entry.SPATIAL, base_arch="s2vt-att"),
+                                                device="cuda")
+    att_caption = serving.build_captioner(aparams, aspec)
+    att_tokens, att_launches = counted(cuda_gru, cuda_lstm, lambda: att_caption(feats))
+    check(att_launches == expected_counts(0) and tuple(att_tokens.shape) == (
+        b, spec.max_len), f"SpatialNet over S2VT-att launched {att_launches}, not nothing")
+
+    # float32 at B=2, TF32 off (main() turns it off for cuBLAS and cuDNN)
+    spec32 = spec.with_(compute_dtype="float32")
+    few = feats[:2].clone()
+    params_cpu = params_to(params, "cpu")
+    with torch.inference_mode():
+        logits_card, alphas_card, _ = spatial.apply(params, spec32, few)
+        logits_cpu, alphas_cpu, _ = spatial.apply(params_cpu, spec32, few.cpu())
+    logit_err = max_err(logits_card.cpu(), logits_cpu)
+    alpha_err = max_err(alphas_card.cpu(), alphas_cpu)
+    on_card = serving.build_captioner(params, spec32)(few).cpu()
+    check(torch.equal(on_card, logits_cpu.argmax(-1).to(torch.int32)),
+          "SpatialNet float32 tokens differ, card vs CPU")
+    check(all_finite(logits_card) and logit_err <= LOGIT_TOL
+          and alpha_err <= SPATIAL_ALPHA_TOL,
+          f"SpatialNet float32 card vs CPU: logits err {logit_err}, alphas err "
+          f"{alpha_err}")
+
+    # times: the call (best and median of 3), beam 5, over S2VT-att, stages
+    runs = []
+    for _ in range(3):
+        runs.append(time_ms(lambda: caption(feats), reps=1))
+    caption_ms, caption_median_ms = min(runs), sorted(runs)[1]
+    memory = peak_memory(lambda: caption(feats))
+    beam_ms = time_ms(lambda: beam_caption(feats))
+    att_ms = time_ms(lambda: att_caption(feats))
+    att = params["attention"]
+    with torch.inference_mode():
+        frames_in = feats.reshape(b * frames, f, k, k)
+        trunk, _ = spatial.conv_trunk(params, spec, frames_in, False)
+        keys = trunk.reshape(b, frames, hidden, k * k).transpose(2, 3)
+        output1, state1, _, _ = spatial.encode_spatial(params, spec, feats, False)
+        state2 = s2vt._prime_state2(params["caption_net"], spec, output1)
+        stages = {
+            "conv_trunk_ms": time_ms(lambda: spatial.conv_trunk(params, spec, frames_in,
+                                                                False)),
+            "key_projection_ms": time_ms(lambda: bahdanau_project_keys(att, keys, cd)),
+            "encode_ms": time_ms(lambda: spatial.encode_spatial(params, spec, feats,
+                                                                False)),
+            "prime_ms": time_ms(lambda: s2vt._prime_state2(params["caption_net"], spec,
+                                                           output1)),
+            "decode_ms": time_ms(lambda: s2vt.decode_from_states(
+                params["caption_net"], spec, state1, state2, emit="tokens")),
+        }
+    stages["encoder_loop_ms_derived"] = (stages["encode_ms"] - stages["conv_trunk_ms"]
+                                         - stages["key_projection_ms"])
+    trunk_bound, trunk_bound_by = conv_trunk_bound_ms(b * frames, f, hidden, k, PEAKS)
+    emit("spatial_serving", batch=b, feats=[frames, f, k, k], launches=serve_launches,
+         beam_launches=beam_launches, s2vt_att_launches=att_launches,
+         f32_tokens_card_eq_cpu=True, f32_logits_max_abs_err=logit_err,
+         f32_alphas_max_abs_err=alpha_err, caption_ms=caption_ms,
+         caption_ms_median=caption_median_ms, caption_ms_runs=runs,
+         captions_per_s=b / (caption_ms / 1e3),
+         captions_per_s_median=b / (caption_median_ms / 1e3), memory=memory,
+         beam=SPATIAL_BEAM, beam_caption_ms=beam_ms,
+         beam_captions_per_s=b / (beam_ms / 1e3), s2vt_att_caption_ms=att_ms,
+         s2vt_att_captions_per_s=b / (att_ms / 1e3), stages=stages,
+         conv_trunk={"ms": stages["conv_trunk_ms"], "bound_ms": trunk_bound,
+                     "bound_by": trunk_bound_by, "route": "F.conv2d in bf16 (cuDNN), "
+                     "BatchNorm and ReLU in plain PyTorch"}, nvidia_smi=smi)
+    del feats, trunk, keys, frames_in, output1
+
+    # the train step: B1 once per step (twice with remat), BN stats moved,
+    # card vs CPU, times
+    b = SPATIAL_TRAIN_BATCH
+    opt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns("spatial", spec, opt, static_tf=1.0, device="cuda")
+    batch = train_batch(gen, b, spec, torch.float32, grid=(k, k))
+    conv_w, bn_mean = params["conv1"]["w"], params["bn1"]["mean"]
+    before = (conv_w.detach().clone(), bn_mean.clone())
+    step_launches, step_losses = [], []
+    for i in range(3):
+        (_, _, metrics, _), counts = counted(
+            cuda_gru, cuda_lstm, lambda: train(params, state, batch, i, 1.0))
+        step_launches.append(counts)
+        step_losses.append(metrics["loss"].item())
+    check(all(c == expected_counts(1) for c in step_launches),
+          f"SpatialNet train steps launched {step_launches}, not B1 once each")
+    check(all(math.isfinite(x) for x in step_losses)
+          and not torch.equal(before[0], conv_w) and not torch.equal(before[1], bn_mean),
+          f"SpatialNet losses {step_losses}, or conv1 or bn1's running mean did not move")
+    remat_train, _ = step.build_step_fns("spatial", spec, opt, static_tf=1.0, remat=True,
+                                         device="cuda")
+    _, remat_launches = counted(cuda_gru, cuda_lstm,
+                                lambda: remat_train(params, state, batch, 3, 1.0))
+    check(remat_launches == expected_counts(2),
+          f"a remat=True SpatialNet step launched {remat_launches}, not B1 twice")
+    fns32 = step.build_step_fns("spatial", spec32.with_(dropout_p=0.0), opt,
+                                static_tf=1.0, device="cuda")[0].__self__
+    loss_err, grad_err, grad_worst, bn_err = f32_card_vs_cpu(
+        lambda p, bt: fns32.loss(p, bt, 0, 1.0), params,
+        train_batch(gen, 2, spec32, torch.float32, grid=(k, k)), "cuda")
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+          and bn_err <= SPATIAL_BN_TOL,
+          f"SpatialNet float32 card vs CPU: loss err {loss_err}, gradient err {grad_err} "
+          f"({grad_worst}), BN stats err {bn_err}")
+    timing = step_timing(train, params, state, batch, opt)
+    emit("spatial_train", batch=b, losses=step_losses, launches_per_step=step_launches[-1],
+         remat_launches_per_step=remat_launches, f32_loss_err=loss_err,
+         f32_grad_rel_err=grad_err, f32_grad_worst_leaf=grad_worst, f32_bn_stats_err=bn_err,
+         f32_loss_tolerance=TRAIN_LOSS_TOL, f32_grad_tolerance=TRAIN_GRAD_TOL,
+         f32_bn_tolerance=SPATIAL_BN_TOL, timing=timing, nvidia_smi=smi)
+    del batch
+
+    # the command line on a synthetic corpus of YOLO grid features
+    with tempfile.TemporaryDirectory() as tmp:
+        # ~2 GB of features; a quarter of the videos where the disk is short
+        n_train, n_val = SPATIAL_CLI_TRAIN_VIDEOS, SPATIAL_CLI_VAL_VIDEOS
+        if shutil.disk_usage(tmp).free < 3 * (n_train + n_val) * frames * f * k * k * 4:
+            n_train, n_val = n_train // 4, n_val // 4
+        t0 = time.perf_counter()
+        data = write_corpus(os.path.join(tmp, "data"), CLI_WORDS, 300, n_train, n_val,
+                            frames, (f, k, k), seed=11)
+        corpus_s = time.perf_counter() - t0
+        model = ["--arch", "s2vt", "--num_frames", str(frames), "--vid_feat_size", str(f),
+                 "--max_len", str(spec.max_len), "--hidden_size", str(hidden),
+                 "--compute_dtype", "bfloat16", "--vocab_pad_to", "128", "--log_dir", ""]
+        save = os.path.join(tmp, "spatial")
+        io_flags = data + ["--bsize", str(b), "--save_path", save]
+        steps, val_batches = -(-n_train // b), -(-n_val // b)
+        cli_launches = {}
+        trained, cli_launches["train_spatial"] = run_cli(
+            cuda_gru, cuda_lstm, io_flags + model + ["--mode", "train_spatial", "--epochs",
+                                                     "1", "--beam_size", str(SPATIAL_BEAM)])
+        # each step, then each val batch's greedy eval step and its beam search
+        check(cli_launches["train_spatial"] == expected_counts(steps + 2 * val_batches)
+              and math.isfinite(trained["loss"]),
+              f"--mode train_spatial launched {cli_launches['train_spatial']}, loss "
+              f"{trained['loss']}")
+        evaluation, cli_launches["eval"] = run_cli(cuda_gru, cuda_lstm,
+                                                   io_flags + ["--mode", "eval"])
+        check(cli_launches["eval"] == expected_counts(val_batches)
+              and math.isfinite(evaluation["loss"]),
+              f"--mode eval launched {cli_launches['eval']}")
+        decoded, cli_launches["decode"] = run_cli(cuda_gru, cuda_lstm,
+                                                  io_flags + ["--mode", "decode"])
+        net, _ = run_cli(cuda_gru, cuda_lstm, io_flags + ["--mode", "export_reference"])
+        parity, cli_launches["verify_parity"] = run_cli(
+            cuda_gru, cuda_lstm, io_flags + model + [
+                "--mode", "verify_parity", "--pretrained_base", net,
+                "--save_path", os.path.join(tmp, "parity")])
+        for mode in ("decode", "verify_parity"):
+            check(cli_launches[mode] == expected_counts(val_batches),
+                  f"--mode {mode} launched {cli_launches[mode]}")
+        check(len(parity) == n_val and parity == decoded,
+              "verify_parity of the exported .net differs from decode of its checkpoint")
+    emit("spatial_cli", videos={"train": n_train, "val": n_val},
+         feats=[frames, f, k, k], corpus_seconds=corpus_s, batch=b, launches=cli_launches,
+         train_loss=trained["loss"],
+         eval_metrics={k_: evaluation[k_] for k_ in ("loss", "acc", "METEOR", "BLEU4")},
+         verify_parity_eq_decode=True, phase_seconds=time.perf_counter() - t_phase)
+    return {"serve": serve_launches, "beam": beam_launches, "s2vt_att": att_launches,
             "train": step_launches[-1], "train_remat": remat_launches}
 
 
@@ -1047,7 +1311,9 @@ def main() -> int:
     cases, variant_cases, failures = [], [], []
     bt_equal = dma_twice_equal = dma_bf16_eq_b1 = True
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        shapes = [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17)] + [(1, 17)]
+        # SpatialNet's prime pass runs B1 at B=16 (train) and B=64 (serving)
+        shapes = [(frames, b) for b in (SMOKE_BATCH, 1, 3, 17, SPATIAL_TRAIN_BATCH,
+                                        SPATIAL_BATCH)] + [(1, 17)]
         if dtype == torch.bfloat16:
             shapes += [(steps, b) for b in (RATIONALE_BATCH, TIMING_BATCH)
                        for steps in (frames, 1)]
@@ -1475,6 +1741,9 @@ def main() -> int:
 
     # 8. S2VT-att: serving, RationaleNet over it, training, the command line
     att = s2vt_att_phase(cuda_gru, cuda_lstm, smi)
+
+    # 9. SpatialNet: serving, float32 card vs CPU, training, the command line
+    sp = spatial_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -1491,6 +1760,9 @@ def main() -> int:
         "launches_rationale": rationale_launches["gru_seq"],
         "launches_s2vt_att": att["serve"]["gru_seq"],
         "launches_rationale_s2vt_att": att["rationale"]["gru_seq"],
+        "launches_spatial": sp["serve"]["gru_seq"],
+        "launches_spatial_beam": sp["beam"]["gru_seq"],
+        "launches_spatial_s2vt_att": sp["s2vt_att"]["gru_seq"],
         "max_abs_err": worst(cases, "bfloat16"), "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1501,7 +1773,9 @@ def main() -> int:
             "s2vt_remat": train_s2vt["remat_launches_per_step"]["gru_seq"],
             "rationale": train_rationale["launches_per_step"]["gru_seq"],
             "s2vt_att": att["train"]["gru_seq"],
-            "s2vt_att_remat": att["train_remat"]["gru_seq"]},
+            "s2vt_att_remat": att["train_remat"]["gru_seq"],
+            "spatial": sp["train"]["gru_seq"],
+            "spatial_remat": sp["train_remat"]["gru_seq"]},
         "backward": {"route": backward_route.format("gru_sequence", "157-164"),
                      "batch": TRAIN_BATCH, **train_s2vt["gru_seq_encoder"]}}, {
         "name": "gru_seq_bt", "route": "cuda",

@@ -282,8 +282,9 @@ def test_decode_refusals(s2vt):
     x = torch.from_numpy(feats)
     with pytest.raises(NotImplementedError, match="A13"):
         tdecode.decode_tokens(tparams, tspec, x, 1, 2, decode_weights="int8")
-    # S2VT-att decodes since A9; an unknown architecture takes its place
-    for arch, item in (("lstm-lm", "Unknown"), ("spatial", "A11"), ("transformer", "A12")):
+    # S2VT-att decodes since A9 and SpatialNet since A11; an unknown
+    # architecture takes the first's place
+    for arch, item in (("lstm-lm", "Unknown"), ("transformer", "A12")):
         with pytest.raises(NotImplementedError, match=item):
             tdecode.decode_tokens(tparams, tspec.with_(arch=arch), x, 1, 2)
         with pytest.raises(NotImplementedError, match=item):

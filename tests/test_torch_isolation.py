@@ -16,7 +16,7 @@ import torch
 
 from vcr_tpu_torch import cli, entry, serving
 from vcr_tpu_torch.device import params_to
-from vcr_tpu_torch.models import s2vt_att
+from vcr_tpu_torch.models import s2vt_att, spatial
 from vcr_tpu_torch.nn import attention, layers, rnn
 from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
 from vcr_tpu_torch.train import optim, step
@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "cli", "config", "decode", "tools", "vocab", "train.loop",
                  "train.checkpoint", "evals.metrics", "evals.porter", "data.captions",
                  "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler",
-                 "nn.attention", "models.s2vt_att", "convert"):
+                 "nn.attention", "models.s2vt_att", "convert", "models.spatial"):
         assert f"vcr_tpu_torch.{name}" in mods
     # nor what the JAX package's counterparts of the command line need:
     # nltk (tokenizer, stemmer), orbax (checkpoints), optax and flax
@@ -107,10 +107,10 @@ def _gru_case(g, cuda, t, b, hidden, dtype, batch_major=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
-def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
+def test_gru_kernel_matches_plain_on_the_card(cuda, monkeypatch, dtype, tol):
     """B1 against its plain version; bf16 runs the tensor-core body (its
     counter moves), float32 the scalar body (it does not)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     g = torch.Generator(device=cuda).manual_seed(0)
     for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1, 17, 256))):
         for b in batches:
@@ -127,14 +127,14 @@ def test_gru_kernel_matches_plain_on_the_card(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["bt", "dma"])
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
-def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
+def test_gru_variant_kernels_match_plain_on_the_card(cuda, monkeypatch, dtype, tol, variant):
     """B3 (batch-major) and B4 (copy pipeline) against their plain versions;
     each launch moves its own counter and not B1's. bf16 B3 runs B1's
     tensor-core body (launches_tc moves) and bf16 B4 its own (launches_dma_tc
     moves), and both equal B1 bit for bit there; B=2048 gives B4's warps
     several chunks each, so its copy rings wrap within a step. float32 runs
     the scalar bodies."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     g = torch.Generator(device=cuda).manual_seed(0)
     wrapper, plain, counter = {
         "bt": (cuda_gru.gru_recurrence_bt, cuda_gru.gru_recurrence_bt_plain,
@@ -168,12 +168,12 @@ def test_gru_variant_kernels_match_plain_on_the_card(cuda, dtype, tol, variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 1e-3), (torch.float32, 1e-4)])
-def test_lstm_kernel_matches_plain_on_the_card(cuda, dtype, tol, reverse):
+def test_lstm_kernel_matches_plain_on_the_card(cuda, monkeypatch, dtype, tol, reverse):
     """B2 against its plain version; bf16 runs the tensor-core body (its
     counter moves), float32 the scalar body (it does not). H=512 at B=1024
     is one direction of RationaleNet's serving call; H=640, the widest the
     tensor-core body takes, runs it with fewer warps."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     g = torch.Generator(device=cuda).manual_seed(0)
     for t, hidden, batches in ((7, 128, (1, 3, 8, 17)), (30, 512, (1024,)), (7, 640, (17,))):
         for b in batches:
@@ -221,11 +221,11 @@ def _assert_grads_close(got, want, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", GRAD_TOLS)
-def test_gru_sequence_gradient_on_the_card_matches_cpu(cuda, dtype, tol):
+def test_gru_sequence_gradient_on_the_card_matches_cpu(cuda, monkeypatch, dtype, tol):
     """B1's Function: one B1 launch in the forward, none in the backward
     (the plain recompute), and the CPU's gradients for w_ih, b_ih, w_hh,
     b_hh, xs and h0."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     g = torch.Generator().manual_seed(0)
     t, b, i, hidden = 7, 17, 64, 128
     params = rnn.gru_init(g, i, hidden)
@@ -242,10 +242,10 @@ def test_gru_sequence_gradient_on_the_card_matches_cpu(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype, tol", GRAD_TOLS)
-def test_lstm_sequence_gradient_on_the_card_matches_cpu(cuda, dtype, tol, reverse):
+def test_lstm_sequence_gradient_on_the_card_matches_cpu(cuda, monkeypatch, dtype, tol, reverse):
     """B2's Function in either direction: one B2 launch, and the CPU's
     gradients for every input."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     g = torch.Generator().manual_seed(1)
     t, b, i, hidden = 7, 17, 64, 128
     params = rnn.lstm_init(g, i, hidden)
@@ -311,11 +311,11 @@ def test_command_line_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_s2vt_att_on_the_card_equals_cpu(cuda):
+def test_s2vt_att_on_the_card_equals_cpu(cuda, monkeypatch):
     """S2VT-att in float32 (TF32 off): greedy tokens on the card equal the
     CPU's and logits agree, with one B1 launch per call; AttentionScan's
     gradient for every input on the card equals the CPU's."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     dims = dict(vocab_size=40, embed_size=16, hidden=128, vid_feat=64, max_len=7,
                 num_frames=6)
     spec, params = entry.make_spec_and_params(**dims, arch="s2vt-att",
@@ -347,4 +347,67 @@ def test_s2vt_att_on_the_card_equals_cpu(cuda):
                   + [a.to(device).requires_grad_(True) for a in args])
         states = s2vt_att.AttentionScan.apply(torch.float32, *leaves)
         out.append([x.cpu() for x in torch.autograd.grad(states, leaves, cot.to(device))])
+    _assert_grads_close(out[1], out[0], 1e-4)
+
+
+@pytest.mark.cuda
+def test_spatial_on_the_card_equals_cpu(cuda, monkeypatch):
+    """SpatialNet over S2VT in float32, TF32 off for cuBLAS and cuDNN: greedy
+    tokens on the card equal the CPU's, logits and attention maps agree, one
+    B1 launch per call; a train step's loss, BN running stats and every
+    gradient leaf on the card agree with the CPU's."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    dims = dict(vocab_size=40, embed_size=16, hidden=128, vid_feat=64, max_len=7,
+                num_frames=6)
+    spec, params = entry.make_spec_and_params(**dims, arch="spatial", grid_size=5,
+                                              compute_dtype="float32", device="cpu")
+    g = torch.Generator().manual_seed(3)
+    feats = torch.randn((4, 6, 64, 5, 5), generator=g)
+    want = serving.build_captioner(params, spec, device="cpu")(feats)
+    before = cuda_gru.launches
+    got = serving.build_captioner(params, spec)(feats)
+    torch.cuda.synchronize()
+    assert cuda_gru.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    with torch.no_grad():
+        out = [spatial.apply(params_to(params, d), spec, feats.to(d)) for d in ("cpu", cuda)]
+    assert (out[0][0] - out[1][0].cpu()).abs().max().item() <= 1e-4
+    assert (out[0][1] - out[1][1].cpu()).abs().max().item() <= 1e-5
+    s = torch.randint(0, 40, (4, 7), generator=g)
+    results = []
+    for device in ("cpu", cuda):
+        p = params_to(params, device)
+        leaves = optim.trainable_leaves(p)[1]
+        for x in leaves:
+            x.requires_grad_(True)
+        logits, _, bn = spatial.apply(p, spec.with_(dropout_p=0.0), feats.to(device),
+                                      s.to(device), train=True)
+        loss = logits.logsumexp(-1).mean()
+        results.append((loss.item(), [x.cpu() for x in torch.autograd.grad(loss, leaves)],
+                        bn["bn2"]["var"].detach().cpu()))
+    assert abs(results[0][0] - results[1][0]) <= 1e-5
+    assert (results[0][2] - results[1][2]).abs().max().item() <= 1e-5
+    _assert_grads_close(results[1][1], results[0][1], 1e-4)
+
+
+@pytest.mark.cuda
+def test_conv2d_float32_on_the_card_ignores_cudnn_tf32(cuda, monkeypatch):
+    """A float32 conv and its gradients are float32 on the card even where
+    the caller leaves cuDNN's TF32 on (PyTorch's default): they agree with
+    the CPU's float32 conv to 1e-4, where TF32 (a 10-bit mantissa) is off by
+    about 1e-3 at these widths. The caller's flag is left as it was."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    g = torch.Generator().manual_seed(5)
+    params = layers.conv2d_init(g, 256, 64, 3)
+    x = torch.randn((2, 256, 13, 13), generator=g)
+    cot = torch.randn((2, 64, 13, 13), generator=g)
+    out = []
+    for device in ("cpu", cuda):
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        xd = x.to(device).requires_grad_(True)
+        y = layers.conv2d(p, xd, torch.float32)
+        grads = torch.autograd.grad((y * cot.to(device)).sum(), (p["w"], xd))
+        out.append([y.detach().cpu()] + [t.cpu() for t in grads])
+    assert torch.backends.cudnn.allow_tf32
     _assert_grads_close(out[1], out[0], 1e-4)

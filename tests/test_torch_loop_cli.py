@@ -310,12 +310,14 @@ def test_preemption_signal_saves_and_resumes(tmp_path):
     assert meta is not None and meta["n_iter"] >= 1
 
 
-# verify_parity and export_reference run since A8; their cases keep their ids
-# and hold what those modes still refuse: a Transformer (A12)
+# verify_parity and export_reference run since A8, train_spatial since A11;
+# their cases keep their ids and hold what those modes still refuse: a
+# Transformer (A12)
 @pytest.mark.parametrize("mode, extra", [
     *(pytest.param(m, [], id=m) for m in sorted(cli.NOT_PORTED_MODES)),
     pytest.param("export_reference", ["--arch", "transformer"], id="export_reference"),
-    pytest.param("verify_parity", ["--arch", "transformer"], id="verify_parity")])
+    pytest.param("verify_parity", ["--arch", "transformer"], id="verify_parity"),
+    pytest.param("train_spatial", ["--arch", "transformer"], id="train_spatial")])
 def test_unported_modes_raise(mode, extra):
     item = cli.NOT_PORTED_MODES[mode].split(" (")[0] if not extra else "A12"
     with pytest.raises(NotImplementedError, match=item):
@@ -323,8 +325,9 @@ def test_unported_modes_raise(mode, extra):
 
 
 @pytest.mark.parametrize("argv, item", [
-    # --arch s2vt-att trains since A9; the case keeps its id: SpatialNet's mode
-    pytest.param(["--mode", "train_spatial"], "A11", id="argv0-A9"),
+    # --arch s2vt-att trains since A9 and --mode train_spatial since A11; the
+    # case keeps its id: a mesh axis of model parallelism
+    pytest.param(["--mesh_mp", "2"], "A15", id="argv0-A9"),
     (["--arch", "transformer"], "A12"),
     (["--mesh_dp", "2"], "A15"), (["--serve_port", "80"], "A14")])
 def test_unported_options_raise(argv, item):

@@ -130,16 +130,26 @@ def test_unported_serving_options_raise(models, kwargs, item):
         tserving.build_captioner(tparams, tspec, device="cpu", **kwargs)
 
 
-# S2VT-att (A9) and RationaleNet over either base (A10) are ported; their
-# cases keep their ids and now hold what is still refused: an unknown
-# architecture, and RationaleNet over a base that is no video captioner.
+# S2VT-att (A9), RationaleNet (A10) and SpatialNet (A11) over either base are
+# ported; their cases keep their ids and now hold what is still refused: an
+# unknown architecture, and RationaleNet or SpatialNet over a base that is no
+# video captioner.
 @pytest.mark.parametrize("arch, item", [
     pytest.param("lstm-lm", "Unknown", id="s2vt-att-A9"),
     pytest.param("rationale", "unknown video captioning arch", id="rationale-A10"),
-    ("spatial", "A11"), ("transformer", "A12")])
+    pytest.param("spatial", "unknown video captioning arch", id="spatial-A11"),
+    ("transformer", "A12")])
 def test_unported_families_raise(models, arch, item):
     """Each family not ported raises naming its ROADMAP item."""
     _, _, tspec, tparams, feats = models
+    if arch == "spatial":
+        sspec, sparams = entry.make_spec_and_params(
+            **dict(DIMS, vid_feat=4), arch=arch, grid_size=2, compute_dtype="float32",
+            device="cpu")
+        grid = torch.zeros((B, DIMS["num_frames"], 4, 2, 2))
+        with pytest.raises(NotImplementedError, match=item):
+            tbase.build_model(arch)[1](sparams, sspec.with_(base_arch="transformer"), grid)
+        return
     if arch == "rationale":
         rspec, rparams = entry.make_spec_and_params(
             **DIMS, arch=arch, compute_dtype="float32", device="cpu")

@@ -1,6 +1,6 @@
 """Command line: ``python -m vcr_tpu_torch.cli --mode train | train_rationale
-| eval | decode | verify_parity | export_reference [--flags]``, the
-counterpart of ``vcr_tpu/cli.py``.
+| train_spatial | eval | decode | verify_parity | export_reference
+[--flags]``, the counterpart of ``vcr_tpu/cli.py``.
 
 Every flag of the JAX package's command line parses to the same Config;
 ``--device cuda`` (the default, which raises without a card) or ``--device
@@ -25,7 +25,6 @@ NOT_PORTED_MODES = {
     "extract_bbox_feats": "ROADMAP A17 (featurizers and prep)",
     "extract_glove": "ROADMAP A17 (featurizers and prep)",
     "eval_attention": "ROADMAP A17 (featurizers and prep)",
-    "train_spatial": "ROADMAP A11 (SpatialNet)",
     "serve": "ROADMAP A14 (continuous batching and the HTTP stack)",
     "export_serving": "ROADMAP A16 (deployable artifacts)",
     "export_continuous": "ROADMAP A16 (deployable artifacts)",
@@ -58,7 +57,7 @@ def dispatch(cfg: Config, device=None):
     if cfg.mode in NOT_PORTED_MODES:
         raise NotImplementedError(
             f"--mode {cfg.mode} is not ported yet: {NOT_PORTED_MODES[cfg.mode]}")
-    if cfg.mode in ("train", "train_rationale"):
+    if cfg.mode in ("train", "train_rationale", "train_spatial"):
         from vcr_tpu_torch.train.loop import train
 
         return train(cfg, device)

@@ -3,17 +3,20 @@ counterpart of ``vcr_tpu/convert.py`` for the families the port runs.
 
 The reference saves ``{'state_dict': model.state_dict(), 'opts', 'epoch',
 'n_iter', ...}`` with ``torch.save``. These converters map the state_dicts of
-S2VTModel, S2VTAttModel and RationaleNet over either onto this package's
-parameter dicts, and back:
+S2VTModel, S2VTAttModel, and RationaleNet and SpatialNet over either onto
+this package's parameter dicts, and back:
 
 * torch's Linear stores (out, in), this package (in, out): weights
   transpose;
 * GRU and LSTM gate matrices (gates, in) -> (in, gates), gate order kept;
+* conv weights are (O, I, kH, kW) on both sides and move as they are;
+  BatchNorm's weight and bias are ``scale`` and ``bias``, its running stats
+  ``mean`` and ``var``;
 * vocab-sized tensors (the embedding table, the vocab projection) are
   zero-padded up to ``spec.padded_vocab_size``, and the padding is cut off
   again on export.
 
-SpatialNet and the Transformer raise naming their ROADMAP items (A11, A12).
+The Transformer raises naming its ROADMAP item (A12).
 
 Converted parameters are float32 CPU tensors, copies of the source (a torch
 state_dict's tensors may be a live model's). Exported state_dicts hold
@@ -65,6 +68,17 @@ def _embedding(sd: Dict, key: str, padded_size: int) -> Dict:
     return {"table": _pad_rows(_tensor(sd[key]), padded_size)}
 
 
+def _bn(sd: Dict, prefix: str) -> Dict:
+    return {"scale": _tensor(sd[prefix + ".weight"]), "bias": _tensor(sd[prefix + ".bias"]),
+            "mean": _tensor(sd[prefix + ".running_mean"]),
+            "var": _tensor(sd[prefix + ".running_var"])}
+
+
+def _bahdanau(sd: Dict, prefix: str) -> Dict:
+    return {name: _lin(sd, f"{prefix}.{name}")
+            for name in ("key_layer", "query_layer", "energy_layer")}
+
+
 def _strip(sd: Dict, prefix: str) -> Dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
@@ -86,8 +100,7 @@ def convert_s2vt_att(sd: Dict, spec: ModelSpec) -> Dict:
         "decoder": {
             "embedding": _embedding(sd, "decoder.embedding.weight", spec.padded_vocab_size),
             "rnn": _rnn(sd, "decoder.rnn"),
-            "attention": {name: _lin(sd, f"decoder.attention.{name}")
-                          for name in ("key_layer", "query_layer", "energy_layer")},
+            "attention": _bahdanau(sd, "decoder.attention"),
             "pred_linear": _lin(sd, "decoder.pred_linear.1", spec.padded_vocab_size),
         },
     }
@@ -96,9 +109,8 @@ def convert_s2vt_att(sd: Dict, spec: ModelSpec) -> Dict:
 def convert_rationale(sd: Dict, spec: ModelSpec) -> Dict:
     """RationaleNet over ``spec.base_arch``: its caption net under
     ``caption_net.``, the BiLSTM generator under ``gen.``."""
-    cap = convert_s2vt_att if spec.base_arch == "s2vt-att" else convert_s2vt
     return {
-        "caption_net": cap(_strip(sd, "caption_net."), spec),
+        "caption_net": _convert_base(sd, spec),
         "gen": {
             "rnn": {"fwd": _rnn(sd, "gen.rnn"), "bwd": _rnn(sd, "gen.rnn", "_reverse")},
             "linear": _lin(sd, "gen.linear"),
@@ -106,8 +118,29 @@ def convert_rationale(sd: Dict, spec: ModelSpec) -> Dict:
     }
 
 
+def convert_spatial(sd: Dict, spec: ModelSpec) -> Dict:
+    """SpatialNet over ``spec.base_arch``: its caption net under
+    ``caption_net.``, the trunk's ``nn.Sequential`` under ``conv.`` (convs
+    at 0 and 3, BatchNorms at 1 and 4), the attention under
+    ``attention.``."""
+    return {
+        "caption_net": _convert_base(sd, spec),
+        "conv1": {"w": _tensor(sd["conv.0.weight"]), "b": _tensor(sd["conv.0.bias"])},
+        "bn1": _bn(sd, "conv.1"),
+        "conv2": {"w": _tensor(sd["conv.3.weight"]), "b": _tensor(sd["conv.3.bias"])},
+        "bn2": _bn(sd, "conv.4"),
+        "attention": _bahdanau(sd, "attention"),
+    }
+
+
+def _convert_base(sd: Dict, spec: ModelSpec) -> Dict:
+    """A wrapped family's caption net, from its ``caption_net.`` keys."""
+    cap = convert_s2vt_att if spec.base_arch == "s2vt-att" else convert_s2vt
+    return cap(_strip(sd, "caption_net."), spec)
+
+
 CONVERTERS = {"s2vt": convert_s2vt, "s2vt-att": convert_s2vt_att,
-              "rationale": convert_rationale}
+              "rationale": convert_rationale, "spatial": convert_spatial}
 
 
 def convert_state_dict(sd: Dict, spec: ModelSpec, arch: str) -> Dict:
@@ -132,6 +165,17 @@ def _rnn_out(p, prefix: str, out: Dict, suffix: str = "") -> None:
     out[f"{prefix}.weight_hh_l0{suffix}"] = _tensor(p["w_hh"]).t().contiguous()
     out[f"{prefix}.bias_ih_l0{suffix}"] = _tensor(p["b_ih"])
     out[f"{prefix}.bias_hh_l0{suffix}"] = _tensor(p["b_hh"])
+
+
+def _bn_out(p, prefix: str, out: Dict) -> None:
+    """BatchNorm back to torch's keys, with a ``num_batches_tracked`` of 0
+    (``tools.export_reference_checkpoint`` writes the checkpoint's n_iter
+    there)."""
+    out[prefix + ".weight"] = _tensor(p["scale"])
+    out[prefix + ".bias"] = _tensor(p["bias"])
+    out[prefix + ".running_mean"] = _tensor(p["mean"])
+    out[prefix + ".running_var"] = _tensor(p["var"])
+    out[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
 def export_s2vt(params: Dict, spec: ModelSpec) -> Dict:
@@ -163,16 +207,34 @@ def export_s2vt_att(params: Dict, spec: ModelSpec) -> Dict:
 def export_rationale(params: Dict, spec: ModelSpec) -> Dict:
     """RationaleNet params -> a reference RationaleNet state_dict; the
     inverse of :func:`convert_rationale`."""
-    exp = export_s2vt_att if spec.base_arch == "s2vt-att" else export_s2vt
-    out = {"caption_net." + k: v for k, v in exp(params["caption_net"], spec).items()}
+    out = _export_base(params, spec)
     _rnn_out(params["gen"]["rnn"]["fwd"], "gen.rnn", out)
     _rnn_out(params["gen"]["rnn"]["bwd"], "gen.rnn", out, suffix="_reverse")
     _lin_out(params["gen"]["linear"], "gen.linear", out)
     return out
 
 
+def export_spatial(params: Dict, spec: ModelSpec) -> Dict:
+    """SpatialNet params -> a reference SpatialNet state_dict; the inverse of
+    :func:`convert_spatial`."""
+    out = _export_base(params, spec)
+    for conv, bn, index in (("conv1", "bn1", 0), ("conv2", "bn2", 3)):
+        out[f"conv.{index}.weight"] = _tensor(params[conv]["w"])
+        out[f"conv.{index}.bias"] = _tensor(params[conv]["b"])
+        _bn_out(params[bn], f"conv.{index + 1}", out)
+    for name in ("key_layer", "query_layer", "energy_layer"):
+        _lin_out(params["attention"][name], f"attention.{name}", out)
+    return out
+
+
+def _export_base(params: Dict, spec: ModelSpec) -> Dict:
+    """A wrapped family's caption net under ``caption_net.``."""
+    exp = export_s2vt_att if spec.base_arch == "s2vt-att" else export_s2vt
+    return {"caption_net." + k: v for k, v in exp(params["caption_net"], spec).items()}
+
+
 EXPORTERS = {"s2vt": export_s2vt, "s2vt-att": export_s2vt_att,
-             "rationale": export_rationale}
+             "rationale": export_rationale, "spatial": export_spatial}
 
 
 def export_state_dict(params: Dict, spec: ModelSpec, arch: str) -> Dict:

@@ -85,13 +85,16 @@ def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
 
 class CaptionDataset:
     """One corpus split: msvd and msvd_vgg keyed by 'video_key', msrvtt by
-    'video_id'. Reads the CNN features under ``feats/``; SpatialNet's box
-    features (``bbox_feats/``) come with its workload, ROADMAP A11."""
+    'video_id'. ``feat_type="cnn"`` reads each video's (N, V) CNN features
+    under ``feats/``; ``"yolo"`` reads SpatialNet's (N, F, K, K) YOLO grid
+    features under ``bbox_feats/``."""
 
     def __init__(self, root: str, corpus: str, split: str, vocab: Vocab,
-                 num_frames: int, max_len: int):
+                 num_frames: int, max_len: int, feat_type: str = "cnn"):
         if corpus not in ("msvd", "msvd_vgg", "msrvtt"):
             raise NotImplementedError(f"Unknown corpus {corpus!r}")
+        if feat_type not in ("cnn", "yolo"):
+            raise NotImplementedError(f"unknown feat_type {feat_type!r}")
         self.key_field = "video_id" if corpus == "msrvtt" else "video_key"
         self.corpus_dir = os.path.join(root, corpus)
         self.captions = read_caption_file(
@@ -99,13 +102,15 @@ class CaptionDataset:
         self.vocab = vocab
         self.num_frames = num_frames
         self.max_len = max_len
-        self.vid_feat_dir = os.path.join(self.corpus_dir, "feats/")
+        self.vid_feat_dir = os.path.join(self.corpus_dir,
+                                         "feats/" if feat_type == "cnn" else "bbox_feats/")
 
     def __len__(self) -> int:
         return len(self.captions)
 
     def load_features(self, idx: int) -> np.ndarray:
-        """One video's features, zero-padded or truncated to num_frames."""
+        """One video's features, (N, V) or (N, F, K, K), zero-padded or
+        truncated to num_frames."""
         key = self.captions[idx][self.key_field]
         feats = np.load(os.path.join(self.vid_feat_dir, key + ".npy"))
         return np.concatenate(

@@ -1,5 +1,5 @@
-"""Decoding beyond greedy: beam search and sampling, for S2VT, S2VT-att and
-RationaleNet over either. The counterpart of those parts of
+"""Decoding beyond greedy: beam search and sampling, for S2VT, S2VT-att, and
+RationaleNet and SpatialNet over either. The counterpart of those parts of
 ``vcr_tpu/decode.py``.
 
 The beam folds into the batch axis: B*K rows go through the same cell as the
@@ -32,7 +32,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vcr_tpu_torch.models import base as model_base
-from vcr_tpu_torch.models import rationale, s2vt, s2vt_att
+from vcr_tpu_torch.models import rationale, s2vt, s2vt_att, spatial
 from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_project_keys
 from vcr_tpu_torch.nn.gumbel import sample_gumbel
 from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, vdot
@@ -321,7 +321,7 @@ def _rationale_select(params, spec: model_base.ModelSpec, vid_feats: torch.Tenso
     """Hard Gumbel frame selection (eval): the selected features (B, N, V).
     The noise is ``gumbel_noise`` (B, N, 2), else drawn from ``gen`` as
     ``rationale.apply`` draws it at eval."""
-    rationale.base_module(spec)  # raises for a base not ported
+    model_base.base_module(spec)  # raises for a base not ported
     vid_feats = vid_feats.to(spec.cdtype)
     if gumbel_noise is None:
         gumbel_noise = sample_gumbel((*vid_feats.shape[:2], 2), gen, vid_feats.device)
@@ -346,11 +346,26 @@ def rationale_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.T
                          eos_id, beam_size)
 
 
+# ------------------------------------------------------------ SpatialNet
+
+def spatial_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
+                        beam_size: int, eos_id: int,
+                        decode_weights: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spatial-attention encode at B rows, then beam search on the wrapped
+    captioner's decoder (S2VT's prime through B1 at B rows)."""
+    check_decode_weights(decode_weights)
+    outs, state, _, _ = spatial.encode_for_base(params, spec, vid_feats, train=False)
+    beam = s2vt_beam_from_states if spec.base_arch == "s2vt" else s2vt_att_beam_from_states
+    return beam(params["caption_net"], spec, outs, state, beam_size, eos_id)
+
+
 def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, rng=0, temperature: float = 1.0, top_k: int = 0,
                   top_p: float = 0.0, gumbel: Optional[torch.Tensor] = None,
                   gumbel_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stochastic decoding for S2VT, S2VT-att and RationaleNet -> tokens (B, L).
+    """Stochastic decoding for S2VT, S2VT-att, RationaleNet and SpatialNet
+    -> tokens (B, L).
     ``top_k=1`` is argmax: the greedy decode up to the first eos.
 
     One generator seeded with ``rng`` draws everything, in order:
@@ -368,6 +383,12 @@ def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
         sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
         return sample_tokens(params["caption_net"], spec.with_(arch=spec.base_arch),
                              sel, eos_id, gen, temperature, top_k, top_p, gumbel=gumbel)
+    if spec.arch == "spatial":
+        outs, state, _, _ = spatial.encode_for_base(params, spec, vid_feats, train=False)
+        sample = (s2vt_sample_from_states if spec.base_arch == "s2vt"
+                  else s2vt_att_sample_from_states)
+        return sample(params["caption_net"], spec, outs, state, rng, eos_id, temperature,
+                      top_k, top_p, gumbel=gumbel)
     _not_ported(spec.arch)
 
 
@@ -375,8 +396,8 @@ def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, beam_size: int = 1, rng=None,
                   decode_weights: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Beam decode for S2VT, S2VT-att and RationaleNet -> (tokens (B, K, L),
-    scores (B, K)). Beam width 1's best row equals the greedy rollout up to
+    """Beam decode for S2VT, S2VT-att, RationaleNet and SpatialNet -> (tokens
+    (B, K, L), scores (B, K)). Beam width 1's best row equals the greedy rollout up to
     the first eos. ``rng`` seeds RationaleNet's frame selection."""
     if spec.arch == "s2vt":
         return s2vt_beam_decode(params, spec, vid_feats, beam_size, eos_id,
@@ -387,4 +408,7 @@ def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
     if spec.arch == "rationale":
         return rationale_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                      rng=rng, decode_weights=decode_weights)
+    if spec.arch == "spatial":
+        return spatial_beam_decode(params, spec, vid_feats, beam_size, eos_id,
+                                   decode_weights=decode_weights)
     _not_ported(spec.arch)

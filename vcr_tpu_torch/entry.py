@@ -20,6 +20,11 @@ RATIONALE = dict(FLAGSHIP, arch="rationale", base_arch="s2vt", tau=1.0)
 # package's bench row (bench_all.py:151-152, bench_train.py:30): H=512,
 # N=30, L=20, vocab 9000 padded to 128, bf16 products.
 S2VT_ATT = dict(FLAGSHIP, arch="s2vt-att", vid_feat=512)
+# SpatialNet over that S2VT on YOLOv3 grid features (30, 1024, 13, 13), the
+# JAX package's bench row (bench_all.py:514-517 serves it at B=64,
+# bench_train.py:33 trains it at B=16): a 2-conv trunk 1024 -> 512, Bahdanau
+# attention over the 169 cells per frame, then S2VT's decode; bf16 products.
+SPATIAL = dict(FLAGSHIP, arch="spatial", base_arch="s2vt", vid_feat=1024, grid_size=13)
 
 
 def make_spec_and_params(vocab_size: int, embed_size: int, hidden: int,

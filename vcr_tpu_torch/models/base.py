@@ -80,9 +80,20 @@ _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
 
 # Families of the JAX package not ported yet, with their ROADMAP items.
 _NOT_PORTED = {
-    "spatial": "ROADMAP A11 (SpatialNet)",
     "transformer": "ROADMAP A12 (Transformer)",
 }
+
+
+def base_module(spec: ModelSpec):
+    """The captioner module that RationaleNet and SpatialNet wrap; raises
+    for an unknown one."""
+    if spec.base_arch == "s2vt":
+        from vcr_tpu_torch.models import s2vt
+        return s2vt
+    if spec.base_arch == "s2vt-att":
+        from vcr_tpu_torch.models import s2vt_att
+        return s2vt_att
+    raise NotImplementedError(f"unknown video captioning arch {spec.base_arch!r}")
 
 
 def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:
@@ -90,13 +101,14 @@ def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:
 
 
 def build_model(name: str) -> Tuple[Callable, Callable]:
-    """-> (init_params, apply). Ported so far: ``s2vt``, ``s2vt-att`` and
-    ``rationale`` over either, each with its eval and train branches
-    (``apply(..., train=True)``, driven by ``train.step``); the others raise
-    naming their ROADMAP item."""
+    """-> (init_params, apply). Ported so far: ``s2vt``, ``s2vt-att``, and
+    ``rationale`` and ``spatial`` over either, each with its eval and train
+    branches (``apply(..., train=True)``, driven by ``train.step``); the
+    others raise naming their ROADMAP item."""
     import vcr_tpu_torch.models.rationale  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt_att  # noqa: F401  (registers itself)
+    import vcr_tpu_torch.models.spatial  # noqa: F401  (registers itself)
 
     if name in _REGISTRY:
         return _REGISTRY[name]

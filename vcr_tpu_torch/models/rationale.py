@@ -23,26 +23,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from vcr_tpu_torch.models import base, s2vt, s2vt_att
+from vcr_tpu_torch.models import base, s2vt
 from vcr_tpu_torch.nn.gumbel import gumbel_softmax, sample_gumbel
 from vcr_tpu_torch.nn.layers import apply_keep_mask, dense, dense_init, keep_mask
 from vcr_tpu_torch.nn.rnn import bilstm_init
 from vcr_tpu_torch.ops.cuda_lstm import bilstm_sequence_fused
 
 
-def base_module(spec: base.ModelSpec):
-    """The wrapped captioner's module; raises for an unknown one."""
-    if spec.base_arch == "s2vt":
-        return s2vt
-    if spec.base_arch == "s2vt-att":
-        return s2vt_att
-    raise NotImplementedError(f"unknown video captioning arch {spec.base_arch!r}")
-
-
 def init_params(gen: torch.Generator, spec: base.ModelSpec, glove_vectors) -> dict:
     """Float32 parameters on the CPU, drawn from the CPU generator ``gen``."""
     return {
-        "caption_net": base_module(spec).init_params(gen, spec, glove_vectors),
+        "caption_net": base.base_module(spec).init_params(gen, spec, glove_vectors),
         "gen": {
             "rnn": bilstm_init(gen, spec.vid_feat_size, spec.hidden_size),
             "linear": dense_init(gen, 2 * spec.hidden_size, 2),
@@ -85,7 +76,7 @@ def apply(params, spec: base.ModelSpec, vid_feats: torch.Tensor,
     The draws come from a generator on the features' device seeded with
     ``rng`` (None: 0), so one call is deterministic; ``gumbel_noise`` injects
     the Gumbel noise instead."""
-    captioner = base_module(spec)
+    captioner = base.base_module(spec)
     s2vt._check_call(s, train, emit)
     vid_feats = vid_feats.to(spec.cdtype)
     b, frames = vid_feats.shape[:2]

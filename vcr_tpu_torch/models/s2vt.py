@@ -64,6 +64,16 @@ def encode(params, spec: base.ModelSpec, vid_feats: torch.Tensor):
     return gru_sequence_fused(params["rnn1"], xs, compute_dtype=spec.cdtype)
 
 
+def encode_step(params, spec: base.ModelSpec, vid_feat: torch.Tensor,
+                state: torch.Tensor):
+    """One GRU1 step (B, V), (B, H) -> (out, state), both the new h:
+    SpatialNet's encoder, which feeds each frame's attended context."""
+    rnn = params["rnn1"]
+    h = gru_gates(vdot(vid_feat, rnn["w_ih"], spec.cdtype) + rnn["b_ih"], state, rnn,
+                  spec.cdtype)
+    return h, h
+
+
 def _prime_state2(params, spec: base.ModelSpec, enc_outs: torch.Tensor) -> torch.Tensor:
     """Run GRU2 over [enc_outs ; zero word embeddings], keep the final state.
     The zero half contributes nothing to the input projection, so only the

@@ -1,5 +1,5 @@
-"""Core functional layers: the mixed-precision product, dense, embedding and
-dropout.
+"""Core functional layers: the mixed-precision product, dense, embedding,
+dropout, and SpatialNet's conv and BatchNorm.
 
 Every product runs through :func:`vdot`: operands rounded to the compute
 dtype, float32 accumulation and a float32 result. Parameters are stored
@@ -8,9 +8,11 @@ float32.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vcr_tpu_torch.nn import init as vinit
 
@@ -125,3 +127,109 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if generator is None:
         raise ValueError("dropout at train time needs an explicit generator")
     return apply_keep_mask(x, keep_mask(x.shape, rate, generator, x.device), rate)
+
+
+# ---------------- conv2d (NCHW, torch layout) + batchnorm ----------------
+
+# BatchNorm2d's defaults, the only values SpatialNet uses
+_BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1
+
+
+def conv2d_init(gen: torch.Generator, in_ch: int, out_ch: int, ksize: int) -> dict:
+    """Torch Conv2d layout (O, I, kH, kW) and a bias; xavier fans follow
+    torch: fan_in = I*kH*kW, fan_out = O*kH*kW."""
+    return {"w": vinit.xavier_normal(gen, (out_ch, in_ch, ksize, ksize),
+                                     in_ch * ksize * ksize, out_ch * ksize * ksize),
+            "b": vinit.const_bias(out_ch)}
+
+
+def _same(w: torch.Tensor) -> Tuple[int, int]:
+    """SAME padding of a stride-1 conv with an odd kernel."""
+    return w.shape[2] // 2, w.shape[3] // 2
+
+
+@contextlib.contextmanager
+def _cudnn_tf32_off():
+    """cuDNN's TF32 off for the scope; its other flags stay the caller's
+    (``torch.backends.cudnn.flags`` would reset them to its defaults)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+class _Conv2dF32(torch.autograd.Function):
+    """A float32 SAME conv whose forward and backward both run with cuDNN's
+    TF32 off, so a float32 conv is float32 whatever the caller's flags are
+    (``torch.backends.cudnn.allow_tf32`` defaults to True, and autograd runs
+    the backward outside any scope of the forward)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        with _cudnn_tf32_off():
+            return F.conv2d(x, w, padding=_same(w))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        with _cudnn_tf32_off():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], list(_same(w)), [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw
+
+
+def conv2d(params, x: torch.Tensor,
+           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x (B, C, H, W) NCHW, weights (O, I, kH, kW), stride 1, SAME padding
+    -> (B, O, H, W) float32.
+
+    As in the JAX package, the convolution's result is in the compute dtype
+    (a bf16 conv's output is rounded to bf16), then up-cast to float32 and
+    the bias added. On the card a bf16 conv is one cuDNN call on bf16
+    operands (float32 accumulation, bf16 output), and a float32 conv is a
+    cuDNN call with TF32 off, whatever ``torch.backends.cudnn.allow_tf32``
+    says; on the CPU both operands are rounded to the compute dtype,
+    convolved in float32 and the result rounded to the compute dtype.
+    Autograd gives JAX's gradient on both: the output's cotangent rounded
+    to the compute dtype, each operand's gradient rounded to its dtype."""
+    xc, wc = x.to(compute_dtype), params["w"].to(compute_dtype)
+    if compute_dtype == torch.float32:
+        y = _Conv2dF32.apply(xc, wc)
+    elif xc.is_cuda:
+        y = F.conv2d(xc, wc, padding=_same(wc))
+    else:
+        y = F.conv2d(xc.float(), wc.float(), padding=_same(wc)).to(compute_dtype)
+    return y.float() + params["b"][None, :, None, None]
+
+
+def batchnorm_init(ch: int) -> dict:
+    return {"scale": torch.ones((ch,)), "bias": torch.zeros((ch,)),
+            "mean": torch.zeros((ch,)), "var": torch.ones((ch,))}
+
+
+def batchnorm(params, x: torch.Tensor, train: bool) -> Tuple[torch.Tensor, dict]:
+    """BatchNorm2d over NCHW -> (y, new params). The running statistics are
+    returned, never updated in place: at train the batch's mean and biased
+    variance normalize, and the new stats take the mean and the unbiased
+    variance with momentum 0.1; at eval the stored stats normalize and the
+    params come back unchanged. ``F.batch_norm`` would update its buffers in
+    place, so a checkpointed forward's replay would apply the momentum
+    twice."""
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        new = dict(params)
+        m = _BN_MOMENTUM
+        new["mean"] = (1 - m) * params["mean"] + m * mean
+        new["var"] = (1 - m) * params["var"] + m * (var * n / max(n - 1, 1))
+    else:
+        mean, var, new = params["mean"], params["var"], params
+    inv = torch.rsqrt(var + _BN_EPS)
+    y = (x - mean[None, :, None, None]) * (inv * params["scale"])[None, :, None, None]
+    return y + params["bias"][None, :, None, None], new

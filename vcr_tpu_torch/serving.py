@@ -1,11 +1,12 @@
 """Serving: features -> caption tokens, as one callable.
 
 PyTorch counterpart of ``vcr_tpu/serving.py``. Ported so far: captioning on
-precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, and by
-RationaleNet over either (hard-Gumbel frame selection, then its captioner),
-greedy, by beam search or by sampling (``decode``). Every other featurizer,
-family and decode-weight mode raises ``NotImplementedError`` naming its
-ROADMAP item, so no option is ever silently ignored.
+precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, by
+RationaleNet over either (hard-Gumbel frame selection, then its captioner)
+and by SpatialNet over either (on (B, N, F, K, K) grid features), greedy, by
+beam search or by sampling (``decode``). Every other featurizer (YOLOv3's
+among them), family and decode-weight mode raises ``NotImplementedError``
+naming its ROADMAP item, so no option is ever silently ignored.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from vcr_tpu_torch import decode
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
-from vcr_tpu_torch.models import rationale
+from vcr_tpu_torch.models import rationale, spatial
 
 
 def resolve_eos_id(spec: model_base.ModelSpec, eos_id: int | None = None,
@@ -52,8 +53,8 @@ def build_captioner(params, spec: model_base.ModelSpec,
                     decode_weights: str | None = None,
                     rng: int = 0,
                     device=None) -> Callable:
-    """-> fn(feats (B, N, V), array or tensor) -> tokens (B, L) int32 tensor
-    on ``device``.
+    """-> fn(feats (B, N, V), or SpatialNet's (B, N, F, K, K); array or
+    tensor) -> tokens (B, L) int32 tensor on ``device``.
 
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     versions on the CPU. The parameters are moved there once, here.
@@ -109,8 +110,8 @@ def make_caption_fn(spec: model_base.ModelSpec,
     if eos_id is None:
         eos_id = spec.sos_id + 1
     _, apply_fn = model_base.build_model(spec.arch)  # raises, naming the ROADMAP item
-    if spec.arch == "rationale":
-        rationale.base_module(spec)  # raises for an unknown base
+    if spec.arch in ("rationale", "spatial"):
+        model_base.base_module(spec)  # raises for an unknown base
 
     if sample_temperature > 0:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
@@ -124,6 +125,9 @@ def make_caption_fn(spec: model_base.ModelSpec,
     elif spec.arch == "rationale":
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
             return rationale.apply(params, spec, feats, emit="tokens", rng=rng)[0]
+    elif spec.arch == "spatial":
+        def caption(params, feats: torch.Tensor) -> torch.Tensor:
+            return spatial.apply(params, spec, feats, emit="tokens")[0]
     else:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
             return apply_fn(params, spec, feats, train=False, emit="tokens")

@@ -25,23 +25,22 @@ from vcr_tpu_torch.data.pipeline import CaptionDataset
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
 from vcr_tpu_torch.train import checkpoint as ckpt
-from vcr_tpu_torch.train.loop import fold_seed, load_vocab
+from vcr_tpu_torch.train.loop import feat_type, fold_seed, load_vocab, workload
 from vcr_tpu_torch.vocab import Vocab
 
 
 def load_inference_state(cfg: Config, checkpoint_path: str = "", device=None):
     """Checkpoint -> ``(cfg, params on device, spec, vocab)``. Model
     hyperparameters come from the checkpoint's embedded config; a
-    train_rationale checkpoint gives RationaleNet's spec (``cfg.arch`` stays
-    its base captioner)."""
+    train_rationale or train_spatial checkpoint gives RationaleNet's or
+    SpatialNet's spec (``cfg.arch`` stays its base captioner)."""
     device = resolve_device(device)
     path = checkpoint_path or ckpt.best_path(cfg.save_path)
     params, _, meta = ckpt.load_checkpoint(path, device)
     cfg = adopt_checkpoint_config(cfg, meta)
     vocab = load_vocab(cfg)
     spec = model_base.spec_from_config(cfg, vocab)
-    if cfg.mode == "train_rationale":
-        spec = spec.with_(arch="rationale")
+    spec = spec.with_(arch=workload(cfg.mode)[0](cfg))
     return cfg, params, spec, vocab
 
 
@@ -49,7 +48,7 @@ def decode_features(params, spec, eos_id: int, feats: np.ndarray, chunk: int,
                     beam_size: int = 1, sample_temperature: float = 0.0,
                     sample_top_k: int = 0, sample_top_p: float = 0.0, seed: int = 0,
                     device=None) -> np.ndarray:
-    """feats (N_vids, num_frames, V) -> tokens (N_vids, L) int32: greedy, the
+    """feats (N_vids, num_frames, ...) -> tokens (N_vids, L) int32: greedy, the
     best beam, or sampled (chunk i seeded with ``fold_seed(seed, i)``), in
     chunks of ``chunk`` videos, the last one zero-padded (rows are
     independent at eval, so padding changes no real row). Each chunk goes
@@ -81,16 +80,18 @@ def decode_features(params, spec, eos_id: int, feats: np.ndarray, chunk: int,
 
 def greedy_captions(params, spec, vocab: Vocab, feats: np.ndarray, batch_size: int = 32,
                     device=None) -> List[Dict]:
-    """feats (N_vids, num_frames, V) -> list of {tokens, caption}, greedy."""
+    """feats (N_vids, num_frames, ...) -> list of {tokens, caption}, greedy."""
     tokens = decode_features(params, spec, vocab.eos_id, feats, batch_size, device=device)
     return [{"tokens": row.tolist(), "caption": vocab.get_sent_from_index(row)}
             for row in tokens]
 
 
-def load_split_features(cfg: Config, vocab: Vocab, split: str = "val"):
-    """-> (features (N_vids, num_frames, V) float32, video keys) of a split."""
+def load_split_features(cfg: Config, vocab: Vocab, split: str = "val",
+                        feat_type: str = "cnn"):
+    """-> (features (N_vids, num_frames, ...) float32, video keys) of a split:
+    CNN features, or YOLO grid features with ``feat_type="yolo"``."""
     ds = CaptionDataset(cfg.data_dir, cfg.corpus, split, vocab, cfg.num_frames,
-                        cfg.max_len)
+                        cfg.max_len, feat_type)
     feats = np.stack([ds.load_features(i) for i in range(len(ds))])
     return feats, [ds.captions[i][ds.key_field] for i in range(len(ds))]
 
@@ -103,7 +104,7 @@ def decode_corpus(cfg: Config, checkpoint_path: str = "",
     write ``[{vid_key, tokens, caption}]`` to ``out_file`` when given."""
     device = resolve_device(device)
     cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
-    feats, keys = load_split_features(cfg, vocab, split)
+    feats, keys = load_split_features(cfg, vocab, split, feat_type(spec.arch))
     chunk = min(max(1, cfg.bsize), max(len(feats), 1))
     tokens = decode_features(params, spec, vocab.eos_id, feats, chunk, beam_size,
                              cfg.sample_temperature, cfg.sample_top_k,
@@ -133,11 +134,11 @@ def verify_parity(cfg: Config, checkpoint_path: str, out_file: Optional[str] = N
     vocab = load_vocab(cfg)
     spec = model_base.spec_from_config(cfg, vocab)
     params, meta = load_reference_checkpoint(checkpoint_path, spec, cfg.arch)
-    if meta["detected_arch"] == "rationale":
-        spec = spec.with_(arch="rationale")
+    if meta["detected_arch"] in ("rationale", "spatial"):
+        spec = spec.with_(arch=meta["detected_arch"])
     if meta["detected_base_arch"] is not None:
         spec = spec.with_(base_arch=meta["detected_base_arch"])
-    feats, keys = load_split_features(cfg, vocab)
+    feats, keys = load_split_features(cfg, vocab, feat_type=feat_type(spec.arch))
     captions = greedy_captions(params_to(params, device), spec, vocab, feats, cfg.bsize,
                                device)
     results = [{"vid_key": k, **c} for k, c in zip(keys, captions)]
@@ -151,18 +152,24 @@ def export_reference_checkpoint(cfg: Config, checkpoint_path: str = "",
     (``torch.save`` of {'state_dict', 'opts', 'epoch', 'n_iter',
     'val_meteor_score', 'best_val_meteor_score'}), which the PyTorch
     reference and :func:`verify_parity` load. The optimizer state is left
-    out, as the reference never restores it. A conversion on the host: no
-    device is used. -> the file's path (default ``save_path/model_export.net``)."""
+    out, as the reference never restores it. BatchNorm's
+    ``num_batches_tracked`` counters hold the checkpoint's ``n_iter``: torch
+    adds one per train forward, which is one per optimizer step. A conversion
+    on the host: no device is used. -> the file's path (default
+    ``save_path/model_export.net``)."""
     path = checkpoint_path or ckpt.best_path(cfg.save_path)
     params, _, meta = ckpt.load_checkpoint(path, "cpu")
     cfg = adopt_checkpoint_config(cfg, meta)
     spec = model_base.spec_from_config(cfg, load_vocab(cfg))
-    arch = "rationale" if cfg.mode == "train_rationale" else cfg.arch
+    sd = export_state_dict(params, spec, workload(cfg.mode)[0](cfg))
+    for k in sd:
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(meta.get("n_iter", 0), dtype=torch.int64)
     out = out_file or os.path.join(cfg.save_path, "model_export.net")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     torch.save({
         "epoch": meta.get("epoch", 0),
-        "state_dict": export_state_dict(params, spec, arch),
+        "state_dict": sd,
         "n_iter": meta.get("n_iter", 0),
         # the reference reads checkpoint['opts'] as an argparse.Namespace
         "opts": argparse.Namespace(**meta.get("config", {})),

@@ -1,6 +1,7 @@
 """The training loop of the captioners: the counterpart of
-``vcr_tpu/train/loop.py``, for the workloads ``train`` (S2VT) and
-``train_rationale`` (RationaleNet over S2VT).
+``vcr_tpu/train/loop.py``, for the workloads ``train`` (S2VT or S2VT-att),
+``train_rationale`` (RationaleNet over either) and ``train_spatial``
+(SpatialNet over either, on YOLO grid features).
 
 Per epoch: the teacher-forcing schedule, windowed train logging, a
 validation pass with METEOR, BLEU-4, CIDEr-D, ROUGE-L and the embedding
@@ -47,16 +48,19 @@ WORKLOADS = {
     "train_rationale": (lambda cfg: "rationale",
                         ["acc", "loss", "loss_ce", "loss_brev", "loss_cont", "len"],
                         False),
+    "train_spatial": (lambda cfg: "spatial", ["acc", "loss"], True),
 }
 
 
 def workload(mode: str):
-    """The WORKLOADS entry of ``mode``; eval-style modes train S2VT's. A
-    SpatialNet run raises naming its ROADMAP item."""
-    if mode == "train_spatial":
-        raise NotImplementedError("--mode train_spatial is not ported yet: "
-                                  "ROADMAP A11 (SpatialNet)")
+    """The WORKLOADS entry of ``mode``; eval-style modes train S2VT's."""
     return WORKLOADS[mode if mode in WORKLOADS else "train"]
+
+
+def feat_type(model_name: str) -> str:
+    """The features a family reads: SpatialNet YOLO grid features, the
+    others CNN features (``CaptionDataset``'s feat_type)."""
+    return "yolo" if model_name == "spatial" else "cnn"
 
 
 def fold_seed(seed: int, i: int) -> int:
@@ -82,13 +86,15 @@ def load_vocab(cfg: Config) -> Vocab:
 
 def make_datasets(cfg: Config, vocab: Vocab, with_train: bool = True
                   ) -> Tuple[Optional[BatchIterator], BatchIterator]:
-    """with_train=False reads only the val split (eval-only consumers)."""
+    """The splits of ``cfg``'s workload, with its features;
+    with_train=False reads only the val split (eval-only consumers)."""
+    feats = feat_type(workload(cfg.mode)[0](cfg))
     val_ds = CaptionDataset(cfg.data_dir, cfg.corpus, "val", vocab,
-                            cfg.num_frames, cfg.max_len)
+                            cfg.num_frames, cfg.max_len, feats)
     train_it = None
     if with_train:
         train_ds = CaptionDataset(cfg.data_dir, cfg.corpus, "train", vocab,
-                                  cfg.num_frames, cfg.max_len)
+                                  cfg.num_frames, cfg.max_len, feats)
         train_it = BatchIterator(train_ds, cfg.bsize, shuffle=True, seed=cfg.seed,
                                  num_threads=cfg.nworkers)
     val_it = BatchIterator(val_ds, cfg.bsize, shuffle=False, seed=cfg.seed,
@@ -211,8 +217,9 @@ def evaluate_checkpoint(cfg: Config, ckpt_path: str = "", device=None) -> Dict[s
 
 
 def train(cfg: Config, device=None) -> Dict[str, float]:
-    """Entry point of the modes train and train_rationale -> the last
-    epoch's validation metrics, with its step times under ``perf/``."""
+    """Entry point of the modes train, train_rationale and train_spatial ->
+    the last epoch's validation metrics, with its step times under
+    ``perf/``."""
     device = resolve_device(device)
     # resume adopts the checkpointed config before the model is built, so
     # `--resume true` needs only I/O flags

@@ -27,9 +27,11 @@ BATCH_KEYS = ("vid_feats", "sent", "sent_len", "valid")
 def _forward(model_name: str, fwd: Callable, params, batch, rng, tf_prob,
              lambda_brev: float, lambda_cont: float):
     """Run a bound forward ``fwd(params, vid_feats, sent, sent_len, rng,
-    tf_prob)`` and compute (loss, metrics, pred) for the family."""
+    tf_prob)`` and compute (loss, metrics, pred, aux) for the family; aux
+    holds SpatialNet's new BatchNorm state under ``bn_state``."""
     valid = batch["valid"]
     out = fwd(params, batch["vid_feats"], batch["sent"], batch["sent_len"], rng, tf_prob)
+    aux: Dict = {}
     if model_name == "rationale":
         logits, probs = out
         ce = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid)
@@ -40,10 +42,21 @@ def _forward(model_name: str, fwd: Callable, params, batch, rng, tf_prob,
                    "len": losses.rationale_length(probs, valid)}
     else:
         logits = out
+        if model_name == "spatial":
+            logits, _seq_alphas, aux["bn_state"] = out
         loss = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid)
         metrics = {"loss": loss}
     metrics["acc"] = losses.masked_accuracy(logits, batch["sent"], batch["sent_len"], valid)
-    return loss, metrics, logits.argmax(dim=-1).to(torch.int32)
+    return loss, metrics, logits.argmax(dim=-1).to(torch.int32), aux
+
+
+@torch.no_grad()
+def _merge_bn(params, bn_state) -> None:
+    """Write the forward's new BatchNorm running stats into ``params``, in
+    place: they are state, not parameters the optimizer trains."""
+    for name, stats in bn_state.items():
+        for k in ("mean", "var"):
+            params[name][k].copy_(stats[k])
 
 
 def microbatch_seed(rng: int, i: int, grad_accum: int) -> int:
@@ -78,7 +91,7 @@ class StepFns:
             if train and self.static_tf is not None:
                 tf_prob = self.static_tf
             # S2VT and S2VT-att train with gate remat by default, as in the
-            # JAX package; RationaleNet keeps it off. The scope is entered
+            # JAX package; RationaleNet and SpatialNet keep it off. The scope is entered
             # here, inside what remat=True checkpoints, so that its replay
             # sees it too.
             with gate_remat_default(train and self.model_name in ("s2vt", "s2vt-att")):
@@ -103,22 +116,28 @@ class StepFns:
             raise ValueError(f"the parameters must be on {self.device}")
 
     def loss(self, params, batch, rng: int, tf_prob):
-        """The train forward under autograd: (loss, metrics, pred)."""
+        """The train forward under autograd: (loss, metrics, pred, aux)."""
         with torch.enable_grad():
             return _forward(self.model_name, self._fwd(True), params, batch, rng, tf_prob,
                             *self.lambdas)
 
     def grads(self, params, leaves: List[torch.Tensor], batch, rng: int, tf_prob):
-        """(gradients of the loss for ``leaves``, detached metrics, pred)."""
-        loss, metrics, pred = self.loss(params, batch, rng, tf_prob)
+        """(gradients of the loss for ``leaves``, detached metrics, pred,
+        aux)."""
+        loss, metrics, pred, aux = self.loss(params, batch, rng, tf_prob)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return list(grads), {k: v.detach() for k, v in metrics.items()}, pred
+        return list(grads), {k: v.detach() for k, v in metrics.items()}, pred, aux
 
     def _accum_grads(self, params, leaves, batch, rng: int, tf_prob):
         """The full-batch gradient from ``grad_accum`` microbatches: each
         microbatch's gradient weighted by its count of valid rows, the sum
-        divided by the batch's. Metrics take the same weights."""
+        divided by the batch's. Metrics take the same weights; aux (the
+        BatchNorm state) is the last microbatch's forward from the step's
+        starting stats, as the JAX package's scan takes ``aux[-1]``. That
+        is neither one big batch's stats nor what torch's chained in-place
+        ``F.batch_norm`` would leave (the momentum applied once per
+        microbatch)."""
         b, k = batch["vid_feats"].shape[0], self.grad_accum
         if b % k:
             raise ValueError(f"batch size {b} not divisible by grad_accum={k}")
@@ -126,8 +145,8 @@ class StepFns:
         g_sum, ms, preds, ns = None, [], [], []
         for i in range(k):
             micro = {name: x[i * m:(i + 1) * m] for name, x in batch.items()}
-            grads, metrics, pred = self.grads(params, leaves, micro,
-                                              microbatch_seed(rng, i, k), tf_prob)
+            grads, metrics, pred, aux = self.grads(params, leaves, micro,
+                                                   microbatch_seed(rng, i, k), tf_prob)
             n = micro["valid"].float().sum()
             g_sum = ([g * n for g in grads] if g_sum is None
                      else [a + g * n for a, g in zip(g_sum, grads)])
@@ -137,12 +156,13 @@ class StepFns:
         w_sum = torch.stack(ns).sum().clamp(min=1.0)
         metrics = {name: sum(mi[name] * (n / w_sum) for mi, n in zip(ms, ns))
                    for name in ms[0]}
-        return [g / w_sum for g in g_sum], metrics, torch.cat(preds)
+        return [g / w_sum for g in g_sum], metrics, torch.cat(preds), aux
 
     def train_step(self, params, opt_state: OptState, batch: Dict[str, torch.Tensor],
                    rng: int, tf_prob):
         """-> (params, opt_state, metrics, pred): one optimizer update of
-        ``params``' trainable leaves, in place."""
+        ``params``' trainable leaves, in place; then SpatialNet's new
+        BatchNorm running stats, written in place."""
         self._check(params, batch)
         _, leaves = trainable_leaves(params)
         if len(leaves) != len(opt_state.leaves) or any(
@@ -150,10 +170,13 @@ class StepFns:
             raise ValueError("opt_state was built for other parameter tensors: "
                              "call optimizer.init(params)")
         if self.grad_accum > 1:
-            grads, metrics, pred = self._accum_grads(params, leaves, batch, rng, tf_prob)
+            grads, metrics, pred, aux = self._accum_grads(params, leaves, batch, rng,
+                                                          tf_prob)
         else:
-            grads, metrics, pred = self.grads(params, leaves, batch, rng, tf_prob)
+            grads, metrics, pred, aux = self.grads(params, leaves, batch, rng, tf_prob)
         self.optimizer.step(opt_state, grads)
+        if "bn_state" in aux:
+            _merge_bn(params, aux["bn_state"])
         return params, opt_state, metrics, pred
 
     def eval_step(self, params, batch: Dict[str, torch.Tensor], rng=None):
@@ -161,8 +184,8 @@ class StepFns:
         RationaleNet's Gumbel noise (None: 0); S2VT ignores it."""
         self._check(params, batch)
         with torch.no_grad():
-            _, metrics, pred = _forward(self.model_name, self._fwd(False), params, batch,
-                                        rng, 0.0, *self.lambdas)
+            _, metrics, pred, _ = _forward(self.model_name, self._fwd(False), params,
+                                           batch, rng, 0.0, *self.lambdas)
         return metrics, pred
 
 
@@ -170,8 +193,8 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
                    lambda_brev: float = 1.0, lambda_cont: float = 1.0,
                    remat: bool = False, grad_accum: int = 1, static_tf=None,
                    device=None) -> Tuple[Callable, Callable]:
-    """-> (train_step, eval_step) for "s2vt", "s2vt-att" or "rationale" on ``device``
-    (None: the card; raises without one).
+    """-> (train_step, eval_step) for "s2vt", "s2vt-att", "rationale" or
+    "spatial" on ``device`` (None: the card; raises without one).
 
     train_step(params, opt_state, batch, rng, tf_prob)
         -> (params, opt_state, metrics, pred)
@@ -193,6 +216,7 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
     make one update from their gradients weighted by valid rows: the
     full-batch gradient. Microbatch i is seeded with
     :func:`microbatch_seed`. A batch the count does not divide raises.
+    SpatialNet's BatchNorm stats follow the last microbatch.
 
     static_tf: a Python number that replaces ``tf_prob`` at train; at 1.0
     the decoders take their hoisted form (one vocab product after the loop).

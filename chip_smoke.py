@@ -112,6 +112,24 @@ exit code and no result line:
    export_reference and --mode verify_parity of that .net, whose captions
    equal --mode decode's. Phase 3 holds B1 at this slice's shapes (T=30,
    B=16 and B=64) too.
+10. transformer_path -- the Transformer at full width (MSR-VTT 4096-d
+   features (30, 4096), the encoder at 4096, the decoder at 300, H=512, 6
+   layers, 8 heads, L=20, vocab 9,000 padded to 9,088, bf16;
+   bench_all.py:154-190, bench_train.py:31), the counts set to 0 just
+   before each call and read just after: no kernel of the port launches in
+   serving (KV-cached greedy at B=512, beam 5 with gathered caches at
+   B=128, sampling), in the lineage beam, in the parity greedy (B=128) or
+   in a train step (B=128, also with remat=True). Float32 at B=4, TF32
+   off: the parity greedy's tokens and logits (within 1e-3), the fast
+   greedy's and the lineage beam-5's tokens on the card equal to the
+   CPU's, the train step's loss and every gradient leaf at B=2 with the
+   dropouts at 0. bf16 at B=8, beam 5: the lineage bookkeeping equals a
+   physical reorder of the caches bit for bit, and the lineage and gather
+   steppers driven in lockstep stay within a 0.5 logit gap
+   (tpu_checks.py:157-239); the token cells where the two beams differ are
+   printed. Then best and median of 3 calls (CUDA events) with the peak
+   memory above each call's start, and the train step split into forward,
+   backward and optimizer.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -181,6 +199,17 @@ SPATIAL_ALPHA_TOL = 1e-4     # float32 attention maps card vs CPU, TF32 off
 SPATIAL_BN_TOL = 1e-5        # float32 BatchNorm running stats card vs CPU
 SPATIAL_CLI_TRAIN_VIDEOS = 64  # (30, 1024, 13, 13) float32 features: 20.8 MB a
 SPATIAL_CLI_VAL_VIDEOS = 32    # video, ~2 GB in all
+TF_FAST_BATCH = 512          # the Transformer's KV-cached greedy (bench_all.py:157)
+TF_BEAM_BATCH = 128          # its beam 5, lineage and gather (bench_all.py:173-190)
+TF_PARITY_BATCH = 128        # its parity greedy (bench_all.py:155)
+TF_TRAIN_BATCH = 128         # its train step (bench_train.py:31)
+TF_BEAM = 5
+TF_CHECK_BATCH = 4           # float32 card vs CPU at full width
+TF_LINEAGE_BATCH = 8         # the bf16 lineage checks (tpu_checks.py:185-239)
+TF_LINEAGE_GAP = 0.5         # lineage vs gather stepper, the lockstep logit gap
+                             # bound of tpu_checks.py:230: products of other
+                             # shapes round apart by a few bf16 quanta, a fault
+                             # of the stepper by O(1)
 
 
 class SmokeFailure(RuntimeError):
@@ -1215,6 +1244,201 @@ def spatial_phase(cuda_gru, cuda_lstm, smi):
             "train": step_launches[-1], "train_remat": remat_launches}
 
 
+def lineage_lockstep_gap(tr, gather_rows, params, spec, e_outputs, k, gen):
+    """The lineage and gather steppers driven in lockstep (bf16): the same
+    random words each step and the same random reorder within each item,
+    the lineage one through its ancestry, the gather one by gathering its
+    caches -> the largest |logit difference| over the steps."""
+    b = e_outputs.shape[0]
+    step_l, state_l, reorder_l = tr.make_cached_stepper(params, spec, e_outputs,
+                                                        beam_tile=k, lineage=True)
+    step_g, state_g = tr.make_cached_stepper(params, spec, e_outputs, beam_tile=k)
+    gap = 0.0
+    for i in range(spec.max_len):
+        words = torch.randint(0, spec.vocab_size, (b * k,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        if i > 0:
+            src = torch.randint(0, k, (b, k), generator=gen, device="cuda")
+            flat = (torch.arange(b, device="cuda")[:, None] * k + src).reshape(-1)
+            state_l, state_g = reorder_l(state_l, flat), gather_rows(state_g, flat)
+        state_l, logits_l = step_l(state_l, words, i)
+        state_g, logits_g = step_g(state_g, words, i)
+        gap = max(gap, (logits_l.double() - logits_g.double()).abs().max().item())
+    return gap
+
+
+def median_best_ms(fn):
+    """(best, median) of 3 calls by CUDA events, after the warm-up of the
+    first."""
+    runs = sorted(time_ms(fn, reps=1) for _ in range(3))
+    return runs[0], runs[1]
+
+
+def transformer_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 10: the Transformer served (KV-cached greedy, beam 5 with
+    gathered caches and with lineage, sampling), its parity decodes, float32
+    card against CPU, the bf16 lineage checks and its train step, at full
+    width; returns its launch counts for the kernels line."""
+    from vcr_tpu_torch import decode, entry, serving
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.models import transformer as tr
+    from vcr_tpu_torch.train import optim, step
+
+    t_phase = time.perf_counter()
+    spec, params = entry.make_spec_and_params(**entry.TRANSFORMER, device="cuda")
+    cd, frames, f, eos = spec.cdtype, spec.num_frames, spec.vid_feat_size, spec.sos_id + 1
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    feats = torch.randn((TF_FAST_BATCH, frames, f), generator=gen, device="cuda")
+    beam_feats, parity_feats = feats[:TF_BEAM_BATCH], feats[:TF_PARITY_BATCH]
+    launches = {}
+
+    def valid(tokens, b):
+        return (tuple(tokens.shape) == (b, spec.max_len) and tokens.dtype == torch.int32
+                and 0 <= int(tokens.min()) and int(tokens.max()) < spec.vocab_size)
+
+    # serving and the parity decodes: no kernel of the port launches
+    caption = serving.build_captioner(params, spec)
+    beam_caption = serving.build_captioner(params, spec, beam_size=TF_BEAM)
+    sample_caption = serving.build_captioner(params, spec, sample_temperature=0.7)
+
+    def lineage_beam():
+        with torch.inference_mode():
+            return decode.transformer_beam_decode_fast(params, spec, beam_feats.to(cd),
+                                                       TF_BEAM, eos, lineage=True)[0][:, 0]
+
+    def parity_greedy():
+        with torch.inference_mode():
+            return tr.apply(params, spec, parity_feats, emit="tokens")
+
+    calls = {"greedy": (lambda: caption(feats), TF_FAST_BATCH),
+             "beam_gather": (lambda: beam_caption(beam_feats), TF_BEAM_BATCH),
+             "beam_lineage": (lineage_beam, TF_BEAM_BATCH),
+             "sample": (lambda: sample_caption(beam_feats), TF_BEAM_BATCH),
+             "parity_greedy": (parity_greedy, TF_PARITY_BATCH)}
+    for name, (fn, b) in calls.items():
+        tokens, launches[name] = counted(cuda_gru, cuda_lstm, fn)
+        check(launches[name] == expected_counts(0) and valid(tokens, b),
+              f"Transformer {name} launched {launches[name]} or gave tokens "
+              f"{tuple(tokens.shape)} {tokens.dtype}")
+
+    # float32 card vs CPU at full width, TF32 off (main() turns it off)
+    spec32 = spec.with_(compute_dtype="float32")
+    few = feats[:TF_CHECK_BATCH].clone()
+    params_cpu = params_to(params, "cpu")
+    with torch.inference_mode():
+        logits_card = tr.apply(params, spec32, few)
+        logits_cpu = tr.apply(params_cpu, spec32, few.cpu())
+        lin_card = decode.transformer_beam_decode_fast(params, spec32, few, TF_BEAM, eos,
+                                                       lineage=True)[0].cpu()
+        lin_cpu = decode.transformer_beam_decode_fast(params_cpu, spec32, few.cpu(), TF_BEAM,
+                                                      eos, lineage=True)[0]
+    logit_err = max_err(logits_card.cpu(), logits_cpu)
+    check(all_finite(logits_card) and logit_err <= LOGIT_TOL
+          and torch.equal(logits_card.argmax(-1).cpu(), logits_cpu.argmax(-1)),
+          f"Transformer float32 parity greedy card vs CPU: logits err {logit_err}, or "
+          "tokens differ")
+    fast_card = serving.build_captioner(params, spec32)(few).cpu()
+    fast_cpu = serving.build_captioner(params, spec32, device="cpu")(few.cpu())
+    check(torch.equal(fast_card, fast_cpu), "Transformer float32 fast greedy tokens "
+                                            "differ, card vs CPU")
+    check(torch.equal(lin_card, lin_cpu), "Transformer float32 lineage beam-5 tokens "
+                                          "differ, card vs CPU")
+    dropout = tr.INTERNAL_DROPOUT
+    try:
+        tr.INTERNAL_DROPOUT = 0.0
+        opt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+        fns32 = step.build_step_fns("transformer", spec32.with_(dropout_p=0.0), opt,
+                                    static_tf=1.0, device="cuda")[0].__self__
+        loss_err, grad_err, grad_worst, _ = f32_card_vs_cpu(
+            lambda p, bt: fns32.loss(p, bt, 0, 1.0), params,
+            train_batch(gen, 2, spec32, torch.float32), "cuda")
+    finally:
+        tr.INTERNAL_DROPOUT = dropout
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+          f"Transformer float32 train card vs CPU: loss err {loss_err}, gradient err "
+          f"{grad_err} ({grad_worst})")
+
+    # bf16 on the card: the lineage bookkeeping equals a physical reorder bit
+    # for bit; lineage against gather within the lockstep bound
+    lfeats = feats[:TF_LINEAGE_BATCH].to(cd)
+    with torch.inference_mode():
+        e_out = tr.encode(params, spec, lfeats, tr.create_masks_inp(lfeats))
+        step_fn, init, reorder = tr.make_cached_stepper(params, spec, e_out,
+                                                        beam_tile=TF_BEAM, lineage=True)
+        identity = init["anc"]
+
+        def physical(state, flat_src):
+            moved = decode.gather_rows({k: v for k, v in state.items() if k != "anc"},
+                                       flat_src)
+            return dict(moved, anc=identity)
+
+        runs = [decode.beam_search(step_fn, init, lfeats.shape[0], TF_BEAM, spec.max_len,
+                                   spec.sos_id, eos, reorder_fn=fn)
+                for fn in (reorder, physical)]
+        gap = lineage_lockstep_gap(tr, decode.gather_rows, params, spec, e_out, TF_BEAM,
+                                   torch.Generator(device="cuda").manual_seed(42))
+        lineage_tokens = decode.transformer_beam_decode_fast(params, spec, lfeats, TF_BEAM,
+                                                             eos, lineage=True)[0]
+        gather_tokens = decode.transformer_beam_decode_fast(params, spec, lfeats, TF_BEAM,
+                                                            eos)[0]
+    check(torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1]),
+          "bf16 lineage bookkeeping differs from a physical reorder")
+    check(gap < TF_LINEAGE_GAP, f"bf16 lineage vs gather lockstep logit gap {gap}")
+    differ = (lineage_tokens != gather_tokens).nonzero().tolist()
+    emit("transformer_checks", f32_batch=TF_CHECK_BATCH, f32_parity_tokens_card_eq_cpu=True,
+         f32_parity_logits_max_abs_err=logit_err, f32_fast_tokens_card_eq_cpu=True,
+         f32_lineage_beam_tokens_card_eq_cpu=True, f32_train_loss_err=loss_err,
+         f32_train_grad_rel_err=grad_err, f32_train_grad_worst_leaf=grad_worst,
+         bf16_lineage_bookkeeping_eq_physical=True, bf16_lockstep_logit_gap=gap,
+         bf16_lockstep_gap_bound=TF_LINEAGE_GAP,
+         bf16_lineage_vs_gather_cells_differing=len(differ),
+         bf16_lineage_vs_gather_cells=lineage_tokens.numel(),
+         bf16_lineage_vs_gather_differing_cells=differ[:50])
+
+    # times: best and median of 3, and the peak memory above each call's start
+    timing = {}
+    for name, (fn, b) in calls.items():
+        if name == "sample":
+            continue
+        best, median = median_best_ms(fn)
+        timing[name] = {"batch": b, "ms": best, "ms_median": median,
+                        "captions_per_s": b / (best / 1e3),
+                        "captions_per_s_median": b / (median / 1e3), **peak_memory(fn)}
+    with torch.inference_mode():
+        timing["encode_ms_at_fast_batch"] = time_ms(
+            lambda: tr.encode(params, spec, feats.to(cd), tr.create_masks_inp(feats)))
+    emit("transformer_serving", launches=launches, beam=TF_BEAM, timing=timing,
+         nvidia_smi=smi)
+    del feats
+
+    # the train step at B=128: no kernel launch, times, memory
+    opt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns("transformer", spec, opt, static_tf=1.0, device="cuda")
+    batch = train_batch(gen, TF_TRAIN_BATCH, spec, torch.float32)
+    before = params["decoder"]["pred_linear"]["w"].detach().clone()
+    step_launches, step_losses = [], []
+    for i in range(3):
+        (_, _, metrics, _), counts = counted(
+            cuda_gru, cuda_lstm, lambda: train(params, state, batch, i, 1.0))
+        step_launches.append(counts)
+        step_losses.append(metrics["loss"].item())
+    remat_train, _ = step.build_step_fns("transformer", spec, opt, static_tf=1.0,
+                                         remat=True, device="cuda")
+    _, remat_launches = counted(cuda_gru, cuda_lstm,
+                                lambda: remat_train(params, state, batch, 3, 1.0))
+    check(all(c == expected_counts(0) for c in step_launches + [remat_launches]),
+          f"Transformer train steps launched {step_launches}, {remat_launches}")
+    check(all(math.isfinite(x) for x in step_losses)
+          and not torch.equal(before, params["decoder"]["pred_linear"]["w"]),
+          f"Transformer losses {step_losses}, or pred_linear.w did not move")
+    emit("transformer_train", batch=TF_TRAIN_BATCH, losses=step_losses,
+         launches_per_step=step_launches[-1], remat_launches_per_step=remat_launches,
+         timing=step_timing(train, params, state, batch, opt),
+         phase_seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return {**launches, "train": step_launches[-1], "train_remat": remat_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1744,6 +1968,10 @@ def main() -> int:
 
     # 9. SpatialNet: serving, float32 card vs CPU, training, the command line
     sp = spatial_phase(cuda_gru, cuda_lstm, smi)
+
+    # 10. the Transformer: serving, parity decodes, float32 card vs CPU, the
+    # bf16 lineage checks, training
+    tf = transformer_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -1763,6 +1991,7 @@ def main() -> int:
         "launches_spatial": sp["serve"]["gru_seq"],
         "launches_spatial_beam": sp["beam"]["gru_seq"],
         "launches_spatial_s2vt_att": sp["s2vt_att"]["gru_seq"],
+        "launches_transformer": tf["greedy"]["gru_seq"],
         "max_abs_err": worst(cases, "bfloat16"), "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1775,7 +2004,8 @@ def main() -> int:
             "s2vt_att": att["train"]["gru_seq"],
             "s2vt_att_remat": att["train_remat"]["gru_seq"],
             "spatial": sp["train"]["gru_seq"],
-            "spatial_remat": sp["train_remat"]["gru_seq"]},
+            "spatial_remat": sp["train_remat"]["gru_seq"],
+            "transformer": tf["train"]["gru_seq"]},
         "backward": {"route": backward_route.format("gru_sequence", "157-164"),
                      "batch": TRAIN_BATCH, **train_s2vt["gru_seq_encoder"]}}, {
         "name": "gru_seq_bt", "route": "cuda",
@@ -1809,6 +2039,7 @@ def main() -> int:
         "launches": rationale_launches["lstm_seq"],
         "launches_tc": rationale_launches["lstm_seq_tc"],
         "launches_rationale_s2vt_att": att["rationale"]["lstm_seq"],
+        "launches_transformer": tf["greedy"]["lstm_seq"],
         "max_abs_err": worst(lstm_cases, "bfloat16"), "tolerance": LSTM_BF16_TOL,
         "f32_max_abs_err": worst(lstm_cases, "float32"),
         "f32_tolerance": LSTM_F32_TOL,
@@ -1816,7 +2047,8 @@ def main() -> int:
         "bound_by": lstm_bound_by, "library_ms": lstm_library_ms,
         "projection_ms": lstm_projection_ms,
         "train_launches_per_step": {
-            "rationale": train_rationale["launches_per_step"]["lstm_seq"]},
+            "rationale": train_rationale["launches_per_step"]["lstm_seq"],
+            "transformer": tf["train"]["lstm_seq"]},
         "backward": {"route": backward_route.format("lstm_sequence", "414-423"),
                      "batch": RATIONALE_TRAIN_BATCH,
                      **train_rationale["lstm_seq_forward_direction"]}}]}))

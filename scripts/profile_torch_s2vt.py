@@ -1,16 +1,18 @@
 """Where the time of the port's captioners goes, on one CUDA card.
 
-    python scripts/profile_torch_s2vt.py [--model s2vt|rationale|s2vt-att|spatial]
-                                         [--train] [--batch N] [--calls 3]
+    python scripts/profile_torch_s2vt.py
+        [--model s2vt|rationale|s2vt-att|spatial|transformer] [--train]
+        [--batch N] [--calls 3]
 
 Builds the flagship S2VT greedy captioner (vcr_tpu_torch.entry.FLAGSHIP),
-RationaleNet over it (entry.RATIONALE), S2VT-att (entry.S2VT_ATT) or
-SpatialNet over S2VT (entry.SPATIAL, on (30, 1024, 13, 13) grid features),
-with random weights from a seed, at its serving batch (2048, 1024, 1024 and
-64) unless ``--batch`` says otherwise, warms it up, then runs ``--calls``
+RationaleNet over it (entry.RATIONALE), S2VT-att (entry.S2VT_ATT),
+SpatialNet over S2VT (entry.SPATIAL, on (30, 1024, 13, 13) grid features)
+or the Transformer (entry.TRANSFORMER, its KV-cached greedy decode), with
+random weights from a seed, at its serving batch (2048, 1024, 1024, 64 and
+512) unless ``--batch`` says otherwise, warms it up, then runs ``--calls``
 captioner calls under torch.profiler. With ``--train`` a call is one train
 step instead (train.step.build_step_fns, Adam with the clip, static tf=1.0,
-bench_train.py's batch of 1024, 512, 1024 and 16 drawn on the card). Prints
+bench_train.py's batch of 1024, 512, 1024, 16 and 128 drawn on the card). Prints
 JSON lines: the wall time per call, the share of that time in which the
 card ran no kernel (the union of kernel intervals against the host clock),
 the peak device memory of a call, and the kernels by device time per
@@ -48,8 +50,8 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("s2vt", "rationale", "s2vt-att", "spatial"),
-                    default="s2vt")
+    ap.add_argument("--model", default="s2vt",
+                    choices=("s2vt", "rationale", "s2vt-att", "spatial", "transformer"))
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--calls", type=int, default=3)
@@ -69,7 +71,9 @@ def main() -> int:
     config, default_batch = {"s2vt": (entry.FLAGSHIP, 1024 if args.train else 2048),
                              "rationale": (entry.RATIONALE, 512 if args.train else 1024),
                              "s2vt-att": (entry.S2VT_ATT, 1024),
-                             "spatial": (entry.SPATIAL, 16 if args.train else 64)}[args.model]
+                             "spatial": (entry.SPATIAL, 16 if args.train else 64),
+                             "transformer": (entry.TRANSFORMER, 128 if args.train else 512),
+                             }[args.model]
     batch = args.batch or default_batch
     spec, params = entry.make_spec_and_params(**config, device="cuda")
     grid = (spec.grid_size,) * 2 if args.model == "spatial" else ()

@@ -282,10 +282,16 @@ def test_decode_refusals(s2vt):
     x = torch.from_numpy(feats)
     with pytest.raises(NotImplementedError, match="A13"):
         tdecode.decode_tokens(tparams, tspec, x, 1, 2, decode_weights="int8")
-    # S2VT-att decodes since A9 and SpatialNet since A11; an unknown
-    # architecture takes the first's place
-    for arch, item in (("lstm-lm", "Unknown"), ("transformer", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            tdecode.decode_tokens(tparams, tspec.with_(arch=arch), x, 1, 2)
-        with pytest.raises(NotImplementedError, match=item):
-            tdecode.sample_tokens(tparams, tspec.with_(arch=arch), x, 1)
+    # S2VT-att decodes since A9, SpatialNet since A11 and the Transformer
+    # since A12; an unknown architecture takes the first's place, and the
+    # Transformer's case holds its quantized modes (A13), refused before its
+    # encoder runs
+    with pytest.raises(NotImplementedError, match="Unknown"):
+        tdecode.decode_tokens(tparams, tspec.with_(arch="lstm-lm"), x, 1, 2)
+    with pytest.raises(NotImplementedError, match="Unknown"):
+        tdecode.sample_tokens(tparams, tspec.with_(arch="lstm-lm"), x, 1)
+    tf = tspec.with_(arch="transformer")
+    with pytest.raises(NotImplementedError, match="A13"):
+        tdecode.decode_tokens(tparams, tf, x, 1, 2, decode_weights="int8")
+    with pytest.raises(NotImplementedError, match="A13"):
+        tdecode.transformer_beam_decode_fast(tparams, tf, x, 2, 1, kv_cache="int8")

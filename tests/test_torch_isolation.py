@@ -16,7 +16,8 @@ import torch
 
 from vcr_tpu_torch import cli, entry, serving
 from vcr_tpu_torch.device import params_to
-from vcr_tpu_torch.models import s2vt_att, spatial
+from vcr_tpu_torch import decode
+from vcr_tpu_torch.models import s2vt_att, spatial, transformer
 from vcr_tpu_torch.nn import attention, layers, rnn
 from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
 from vcr_tpu_torch.train import optim, step
@@ -27,6 +28,7 @@ from util_corpus import build_corpus  # noqa: E402
 
 _IMPORT_ALL = """
 import json, pkgutil, sys
+import chip_smoke
 import vcr_tpu_torch
 for m in pkgutil.walk_packages(vcr_tpu_torch.__path__, "vcr_tpu_torch."):
     __import__(m.name)
@@ -35,6 +37,8 @@ print(json.dumps(sorted(sys.modules)))
 
 
 def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter: neither JAX nor the JAX package comes with them."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
     mods = json.loads(out.strip().splitlines()[-1])
@@ -43,8 +47,10 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "cli", "config", "decode", "tools", "vocab", "train.loop",
                  "train.checkpoint", "evals.metrics", "evals.porter", "data.captions",
                  "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler",
-                 "nn.attention", "models.s2vt_att", "convert", "models.spatial"):
+                 "nn.attention", "models.s2vt_att", "convert", "models.spatial",
+                 "models.transformer"):
         assert f"vcr_tpu_torch.{name}" in mods
+    assert "chip_smoke" in mods
     # nor what the JAX package's counterparts of the command line need:
     # nltk (tokenizer, stemmer), orbax (checkpoints), optax and flax
     bad = [m for m in mods
@@ -279,6 +285,74 @@ def test_bf16_vdot_gradient_on_the_card_equals_cpu(cuda):
             y, (a, b), cot.to(device))])
     for want, got in zip(*out):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bmm_f32_on_the_card_equals_cpu(cuda, monkeypatch, dtype):
+    """The batched product with a float32 result (``_BmmF32``, cuBLAS's
+    float32-output bmm, in bf16) against the CPU branch, forward and
+    gradients, on values whose products and sums are exact: equal bit for
+    bit."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(6)
+    a = torch.randint(-8, 9, (2, 3, 5, 64), generator=g) / 4
+    b = torch.randint(-8, 9, (2, 3, 64, 20), generator=g) / 4
+    cot = torch.randint(-16, 17, (2, 3, 5, 20), generator=g) / 8
+    out = []
+    for device in ("cpu", cuda):
+        x, w = a.to(device).requires_grad_(True), b.to(device).requires_grad_(True)
+        y = layers.bmm_f32(x, w, dtype)
+        assert y.dtype == torch.float32
+        out.append([y.detach().cpu()] + [t.cpu() for t in torch.autograd.grad(
+            y, (x, w), cot.to(device))])
+    for want, got in zip(*out):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_transformer_on_the_card_equals_cpu(cuda, monkeypatch):
+    """The Transformer in float32 (TF32 off), no kernel of the port launched:
+    the parity greedy's logits and tokens, the KV-cached greedy's and the
+    lineage beam's tokens on the card equal the CPU's; a train step's loss
+    and every gradient leaf (dropouts at 0) agree with the CPU's."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(transformer, "INTERNAL_DROPOUT", 0.0)
+    dims = dict(vocab_size=40, embed_size=16, hidden=32, vid_feat=64, max_len=7,
+                num_frames=6)
+    spec, params = entry.make_spec_and_params(**dims, arch="transformer", tf_layers=2,
+                                              tf_heads=4, compute_dtype="float32",
+                                              device="cpu")
+    g = torch.Generator().manual_seed(3)
+    feats = torch.randn((5, 6, 64), generator=g)
+    before = (cuda_gru.launches, cuda_lstm.launches)
+    for kw in ({}, {"beam_size": 3}):
+        want = serving.build_captioner(params, spec, device="cpu", **kw)(feats)
+        assert torch.equal(serving.build_captioner(params, spec, **kw)(feats).cpu(), want)
+    with torch.no_grad():
+        logits = [transformer.apply(params_to(params, d), spec, feats.to(d)).cpu()
+                  for d in ("cpu", cuda)]
+        lineage = [decode.transformer_beam_decode_fast(
+            params_to(params, d), spec, feats.to(d), 3, spec.sos_id + 1,
+            lineage=True)[0].cpu() for d in ("cpu", cuda)]
+    assert (logits[0] - logits[1]).abs().max().item() <= 1e-4
+    assert torch.equal(logits[0].argmax(-1), logits[1].argmax(-1))
+    assert torch.equal(lineage[0], lineage[1])
+    s, s_len = torch.randint(0, 40, (5, 7), generator=g), torch.tensor([7, 3, 5, 1, 6])
+    results = []
+    for device in ("cpu", cuda):
+        p = params_to(params, device)
+        leaves = optim.trainable_leaves(p)[1]
+        for x in leaves:
+            x.requires_grad_(True)
+        logits = transformer.apply(p, spec.with_(dropout_p=0.0), feats.to(device),
+                                   s.to(device), s_len.to(device), train=True)
+        loss = logits[..., :40].logsumexp(-1).mean()
+        results.append((loss.item(), [x.cpu() for x in torch.autograd.grad(loss, leaves)]))
+    torch.cuda.synchronize()
+    assert (cuda_gru.launches, cuda_lstm.launches) == before
+    assert abs(results[0][0] - results[1][0]) <= 1e-5
+    _assert_grads_close(results[1][1], results[0][1], 1e-4)
 
 
 @pytest.mark.cuda

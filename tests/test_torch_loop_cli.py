@@ -310,16 +310,20 @@ def test_preemption_signal_saves_and_resumes(tmp_path):
     assert meta is not None and meta["n_iter"] >= 1
 
 
-# verify_parity and export_reference run since A8, train_spatial since A11;
-# their cases keep their ids and hold what those modes still refuse: a
-# Transformer (A12)
-@pytest.mark.parametrize("mode, extra", [
-    *(pytest.param(m, [], id=m) for m in sorted(cli.NOT_PORTED_MODES)),
-    pytest.param("export_reference", ["--arch", "transformer"], id="export_reference"),
-    pytest.param("verify_parity", ["--arch", "transformer"], id="verify_parity"),
-    pytest.param("train_spatial", ["--arch", "transformer"], id="train_spatial")])
-def test_unported_modes_raise(mode, extra):
-    item = cli.NOT_PORTED_MODES[mode].split(" (")[0] if not extra else "A12"
+# verify_parity and export_reference run since A8, train_spatial since A11,
+# and the Transformer in each since A12; their cases keep their ids and hold
+# what those modes still refuse: a Transformer's quantized serving modes
+# (fields of the serving daemon, A14), and SpatialNet over a Transformer
+@pytest.mark.parametrize("mode, extra, item", [
+    *(pytest.param(m, [], cli.NOT_PORTED_MODES[m].split(" (")[0], id=m)
+      for m in sorted(cli.NOT_PORTED_MODES)),
+    pytest.param("export_reference", ["--arch", "transformer", "--serve_kv_cache", "int8"],
+                 "A14", id="export_reference"),
+    pytest.param("verify_parity", ["--arch", "transformer", "--serve_decode_weights",
+                                   "int8"], "A14", id="verify_parity"),
+    pytest.param("train_spatial", ["--arch", "transformer"], "wraps S2VT or S2VT-att",
+                 id="train_spatial")])
+def test_unported_modes_raise(mode, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--mode", mode, "--device", "cpu", *extra])
 
@@ -328,7 +332,10 @@ def test_unported_modes_raise(mode, extra):
     # --arch s2vt-att trains since A9 and --mode train_spatial since A11; the
     # case keeps its id: a mesh axis of model parallelism
     pytest.param(["--mesh_mp", "2"], "A15", id="argv0-A9"),
-    (["--arch", "transformer"], "A12"),
+    # --arch transformer trains since A12; the case keeps its id and holds
+    # RationaleNet over a Transformer, which neither package has
+    pytest.param(["--arch", "transformer", "--mode", "train_rationale"],
+                 "wraps S2VT or S2VT-att", id="argv1-A12"),
     (["--mesh_dp", "2"], "A15"), (["--serve_port", "80"], "A14")])
 def test_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

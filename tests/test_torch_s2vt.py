@@ -130,17 +130,18 @@ def test_unported_serving_options_raise(models, kwargs, item):
         tserving.build_captioner(tparams, tspec, device="cpu", **kwargs)
 
 
-# S2VT-att (A9), RationaleNet (A10) and SpatialNet (A11) over either base are
-# ported; their cases keep their ids and now hold what is still refused: an
-# unknown architecture, and RationaleNet or SpatialNet over a base that is no
-# video captioner.
+# S2VT-att (A9), RationaleNet (A10) and SpatialNet (A11) over either base,
+# and the Transformer (A12), are ported; their cases keep their ids and now
+# hold what is still refused: an unknown architecture, RationaleNet or
+# SpatialNet over a base that is no video captioner (a Transformer among
+# them), and the Transformer's quantized serving modes (A13).
 @pytest.mark.parametrize("arch, item", [
     pytest.param("lstm-lm", "Unknown", id="s2vt-att-A9"),
     pytest.param("rationale", "unknown video captioning arch", id="rationale-A10"),
     pytest.param("spatial", "unknown video captioning arch", id="spatial-A11"),
-    ("transformer", "A12")])
+    pytest.param("transformer", "A13", id="transformer-A12")])
 def test_unported_families_raise(models, arch, item):
-    """Each family not ported raises naming its ROADMAP item."""
+    """What is still refused raises, naming its ROADMAP item where it has one."""
     _, _, tspec, tparams, feats = models
     if arch == "spatial":
         sspec, sparams = entry.make_spec_and_params(
@@ -157,6 +158,14 @@ def test_unported_families_raise(models, arch, item):
         with pytest.raises(NotImplementedError, match=item):
             tbase.build_model(arch)[1](rparams, rspec.with_(base_arch="transformer"),
                                        torch.from_numpy(feats), s, train=True)
+        return
+    if arch == "transformer":
+        tf_spec, tf_params = entry.make_spec_and_params(
+            **DIMS, arch=arch, tf_layers=1, tf_heads=2, compute_dtype="float32",
+            device="cpu")
+        for kw in ({"kv_cache": "int8"}, {"decode_weights": "int8"}):
+            with pytest.raises(NotImplementedError, match=item):
+                tserving.build_captioner(tf_params, tf_spec, device="cpu", **kw)
         return
     with pytest.raises(NotImplementedError, match=item):
         tbase.build_model(arch)

@@ -262,11 +262,14 @@ def test_bf16_step_matches_jax():
 
 def test_step_refusals(f32):
     opt = toptim.build_optimizer("adam", LR, WD, MAX_NORM)
-    # S2VT-att trains since A9 and SpatialNet since A11; an unknown
-    # architecture takes the first's place
-    for arch, item in (("lstm-lm", "Unknown"), ("transformer", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            tstep.build_step_fns(arch, f32["tspec"], opt, device="cpu")
+    # S2VT-att trains since A9, SpatialNet since A11 and the Transformer since
+    # A12; an unknown architecture takes the first's place, and the
+    # Transformer's case holds a refusal of its steps that still exists
+    with pytest.raises(NotImplementedError, match="Unknown"):
+        tstep.build_step_fns("lstm-lm", f32["tspec"], opt, device="cpu")
+    with pytest.raises(ValueError, match="grad_accum must be >= 1"):
+        tstep.build_step_fns("transformer", f32["tspec"].with_(arch="transformer"), opt,
+                             grad_accum=0, device="cpu")
     params = _fresh(f32["tparams"])
     state = opt.init(params)
     batch = _batch(np.random.default_rng(8))

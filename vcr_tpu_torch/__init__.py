@@ -6,11 +6,13 @@ reference. Parameters keep that package's ``(in, out)`` layout and key names,
 so one set of weights drives both (``vcr_tpu_torch.bridge``). This package
 imports torch and numpy only.
 
-It serves and trains the flagship S2VT and RationaleNet over it
-(``serving``, ``train.step``), also from the command line ``python -m
-vcr_tpu_torch.cli --mode train | train_rationale | eval | decode`` (the
-loop, checkpoints, beam search, sampling and the caption metrics). Entry
-points run on ``cuda`` unless the
+It serves and trains the JAX package's five captioners: the flagship
+S2VT, S2VT-att, the Transformer, and RationaleNet and SpatialNet over S2VT
+or S2VT-att (``serving``, ``train.step``), also from the command line
+``python -m vcr_tpu_torch.cli --mode train | train_rationale |
+train_spatial | eval | decode | verify_parity | export_reference`` (the
+loop, checkpoints, beam search, sampling, the caption metrics and the
+reference's ``.net`` files). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``. A CUDA tensor goes through the hand-written
 kernel; the plain PyTorch version of each kernel serves CPU tensors only.
 The kernels on the training path (B1, B2) take their gradients through

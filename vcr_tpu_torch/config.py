@@ -10,8 +10,10 @@ What the port does with each field:
 * the fields of features not ported yet raise ``NotImplementedError``
   naming their ROADMAP item when set away from their defaults
   (:meth:`Config.validate`): ``mesh_*`` (multi-device, A15) and
-  ``serve_*`` (the serving daemon, A14). An architecture not ported raises
-  there too, before any data is read.
+  ``serve_*`` (the serving daemon, A14). An unknown architecture raises
+  there too, before any data is read, and so does ``--mode train_rationale``
+  or ``train_spatial`` with an ``--arch`` other than S2VT or S2VT-att, which
+  the JAX package would quietly replace by S2VT.
 
 The device is not a field: the command line's ``--device`` (:func:`get_config`)
 chooses it, so it never lands in a checkpoint's embedded config.
@@ -150,7 +152,13 @@ class Config:
             raise NotImplementedError(f"Unknown corpus {self.corpus!r}")
         if self.arch not in ARCHS:
             raise NotImplementedError(f"Unknown model architecture {self.arch!r}")
-        model_base.build_model(self.arch)  # raises for a family not ported
+        model_base.build_model(self.arch)  # raises for an unknown family
+        if self.mode in ("train_rationale", "train_spatial") and self.arch not in (
+                "s2vt", "s2vt-att"):
+            # the JAX package trains these over S2VT where --arch names another
+            # family; this package refuses instead of ignoring the flag
+            raise NotImplementedError(
+                f"--mode {self.mode} wraps S2VT or S2VT-att, not --arch {self.arch}")
         defaults = Config()
         for f in dataclasses.fields(self):
             if getattr(self, f.name) == getattr(defaults, f.name):

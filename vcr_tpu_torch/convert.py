@@ -3,8 +3,8 @@ counterpart of ``vcr_tpu/convert.py`` for the families the port runs.
 
 The reference saves ``{'state_dict': model.state_dict(), 'opts', 'epoch',
 'n_iter', ...}`` with ``torch.save``. These converters map the state_dicts of
-S2VTModel, S2VTAttModel, and RationaleNet and SpatialNet over either onto
-this package's parameter dicts, and back:
+S2VTModel, S2VTAttModel, TransformerNet, and RationaleNet and SpatialNet
+over S2VT or S2VT-att onto this package's parameter dicts, and back:
 
 * torch's Linear stores (out, in), this package (in, out): weights
   transpose;
@@ -14,9 +14,11 @@ this package's parameter dicts, and back:
   ``mean`` and ``var``;
 * vocab-sized tensors (the embedding table, the vocab projection) are
   zero-padded up to ``spec.padded_vocab_size``, and the padding is cut off
-  again on export.
-
-The Transformer raises naming its ROADMAP item (A12).
+  again on export;
+* the Transformer's per-layer keys are stacked on a leading layer axis, as
+  this package holds them, and unstacked on export; its ``Norm`` keeps
+  ``alpha`` and ``bias``; its PE buffers, (1, L, d) in torch, are read where
+  present (else built) and written back.
 
 Converted parameters are float32 CPU tensors, copies of the source (a torch
 state_dict's tensors may be a live model's). Exported state_dicts hold
@@ -32,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from vcr_tpu_torch.models import transformer
 from vcr_tpu_torch.models.base import ModelSpec, build_model
 
 
@@ -79,6 +82,20 @@ def _bahdanau(sd: Dict, prefix: str) -> Dict:
             for name in ("key_layer", "query_layer", "energy_layer")}
 
 
+def _mha(sd: Dict, prefix: str) -> Dict:
+    return {"q": _lin(sd, prefix + ".q_linear"), "k": _lin(sd, prefix + ".k_linear"),
+            "v": _lin(sd, prefix + ".v_linear"), "out": _lin(sd, prefix + ".out")}
+
+
+def _norm(sd: Dict, prefix: str) -> Dict:
+    return {"alpha": _tensor(sd[prefix + ".alpha"]), "bias": _tensor(sd[prefix + ".bias"])}
+
+
+def _ff(sd: Dict, prefix: str) -> Dict:
+    return {"linear_1": _lin(sd, prefix + ".linear_1"),
+            "linear_2": _lin(sd, prefix + ".linear_2")}
+
+
 def _strip(sd: Dict, prefix: str) -> Dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
@@ -101,6 +118,40 @@ def convert_s2vt_att(sd: Dict, spec: ModelSpec) -> Dict:
             "embedding": _embedding(sd, "decoder.embedding.weight", spec.padded_vocab_size),
             "rnn": _rnn(sd, "decoder.rnn"),
             "attention": _bahdanau(sd, "decoder.attention"),
+            "pred_linear": _lin(sd, "decoder.pred_linear.1", spec.padded_vocab_size),
+        },
+    }
+
+
+def convert_transformer(sd: Dict, spec: ModelSpec) -> Dict:
+    """TransformerNet: per-layer keys stacked on a leading layer axis."""
+    n = spec.tf_layers
+    enc_layers = [{"norm_1": _norm(sd, f"encoder.layers.{i}.norm_1"),
+                   "norm_2": _norm(sd, f"encoder.layers.{i}.norm_2"),
+                   "attn": _mha(sd, f"encoder.layers.{i}.attn"),
+                   "ff": _ff(sd, f"encoder.layers.{i}.ff")} for i in range(n)]
+    dec_layers = [{"norm_1": _norm(sd, f"decoder.layers.{i}.norm_1"),
+                   "norm_2": _norm(sd, f"decoder.layers.{i}.norm_2"),
+                   "norm_3": _norm(sd, f"decoder.layers.{i}.norm_3"),
+                   "attn_1": _mha(sd, f"decoder.layers.{i}.attn_1"),
+                   "attn_2": _mha(sd, f"decoder.layers.{i}.attn_2"),
+                   "ff": _ff(sd, f"decoder.layers.{i}.ff")} for i in range(n)]
+
+    def pe(key, width):
+        if key in sd:
+            return _tensor(sd[key])[0]
+        return torch.from_numpy(transformer.make_positional_encoding(width))
+
+    return {
+        "encoder": {"pe": pe("encoder.pe.pe", spec.vid_feat_size),
+                    "layers": transformer.stack_layers(enc_layers),
+                    "norm": _norm(sd, "encoder.norm")},
+        "decoder": {
+            "embedding": _embedding(sd, "decoder.embedding.weight", spec.padded_vocab_size),
+            "pe": pe("decoder.pe.pe", spec.embed_size),
+            "layers": transformer.stack_layers(dec_layers),
+            "norm": _norm(sd, "decoder.norm"),
+            "norm_out": _norm(sd, "decoder.norm_out"),
             "pred_linear": _lin(sd, "decoder.pred_linear.1", spec.padded_vocab_size),
         },
     }
@@ -140,13 +191,14 @@ def _convert_base(sd: Dict, spec: ModelSpec) -> Dict:
 
 
 CONVERTERS = {"s2vt": convert_s2vt, "s2vt-att": convert_s2vt_att,
-              "rationale": convert_rationale, "spatial": convert_spatial}
+              "transformer": convert_transformer, "rationale": convert_rationale,
+              "spatial": convert_spatial}
 
 
 def convert_state_dict(sd: Dict, spec: ModelSpec, arch: str) -> Dict:
     """A reference state_dict of family ``arch`` -> this package's params."""
     if arch not in CONVERTERS:
-        build_model(arch)  # raises, naming the ROADMAP item
+        build_model(arch)  # raises for an unknown family
     return CONVERTERS[arch](sd, spec)
 
 
@@ -204,6 +256,51 @@ def export_s2vt_att(params: Dict, spec: ModelSpec) -> Dict:
     return out
 
 
+def _norm_out(p, prefix: str, out: Dict) -> None:
+    out[prefix + ".alpha"] = _tensor(p["alpha"])
+    out[prefix + ".bias"] = _tensor(p["bias"])
+
+
+def _mha_out(p, prefix: str, out: Dict) -> None:
+    for name, key in (("q", "q_linear"), ("k", "k_linear"), ("v", "v_linear"),
+                      ("out", "out")):
+        _lin_out(p[name], f"{prefix}.{key}", out)
+
+
+def _ff_out(p, prefix: str, out: Dict) -> None:
+    _lin_out(p["linear_1"], prefix + ".linear_1", out)
+    _lin_out(p["linear_2"], prefix + ".linear_2", out)
+
+
+def export_transformer(params: Dict, spec: ModelSpec) -> Dict:
+    """Transformer params -> a reference TransformerNet state_dict, the
+    layers unstacked and the PE buffers in torch's (1, L, d) shape; the
+    inverse of :func:`convert_transformer`."""
+    out: Dict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    for i in range(spec.tf_layers):
+        lp = transformer.layer_params(enc["layers"], i)
+        _norm_out(lp["norm_1"], f"encoder.layers.{i}.norm_1", out)
+        _norm_out(lp["norm_2"], f"encoder.layers.{i}.norm_2", out)
+        _mha_out(lp["attn"], f"encoder.layers.{i}.attn", out)
+        _ff_out(lp["ff"], f"encoder.layers.{i}.ff", out)
+        lp = transformer.layer_params(dec["layers"], i)
+        for norm in ("norm_1", "norm_2", "norm_3"):
+            _norm_out(lp[norm], f"decoder.layers.{i}.{norm}", out)
+        _mha_out(lp["attn_1"], f"decoder.layers.{i}.attn_1", out)
+        _mha_out(lp["attn_2"], f"decoder.layers.{i}.attn_2", out)
+        _ff_out(lp["ff"], f"decoder.layers.{i}.ff", out)
+    out["encoder.pe.pe"] = _tensor(enc["pe"])[None]
+    out["decoder.pe.pe"] = _tensor(dec["pe"])[None]
+    _norm_out(enc["norm"], "encoder.norm", out)
+    out["decoder.embedding.weight"] = _tensor(dec["embedding"]["table"])[
+        :spec.vocab_size].contiguous()
+    _norm_out(dec["norm"], "decoder.norm", out)
+    _norm_out(dec["norm_out"], "decoder.norm_out", out)
+    _lin_out(dec["pred_linear"], "decoder.pred_linear.1", out, spec.vocab_size)
+    return out
+
+
 def export_rationale(params: Dict, spec: ModelSpec) -> Dict:
     """RationaleNet params -> a reference RationaleNet state_dict; the
     inverse of :func:`convert_rationale`."""
@@ -234,13 +331,14 @@ def _export_base(params: Dict, spec: ModelSpec) -> Dict:
 
 
 EXPORTERS = {"s2vt": export_s2vt, "s2vt-att": export_s2vt_att,
-             "rationale": export_rationale, "spatial": export_spatial}
+             "transformer": export_transformer, "rationale": export_rationale,
+             "spatial": export_spatial}
 
 
 def export_state_dict(params: Dict, spec: ModelSpec, arch: str) -> Dict:
     """This package's params of family ``arch`` -> a reference state_dict."""
     if arch not in EXPORTERS:
-        build_model(arch)  # raises, naming the ROADMAP item
+        build_model(arch)  # raises for an unknown family
     return EXPORTERS[arch](params, spec)
 
 

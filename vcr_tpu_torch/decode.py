@@ -1,14 +1,23 @@
-"""Decoding beyond greedy: beam search and sampling, for S2VT, S2VT-att, and
-RationaleNet and SpatialNet over either. The counterpart of those parts of
-``vcr_tpu/decode.py``.
+"""Decoding beyond greedy: beam search and sampling, for S2VT, S2VT-att, the
+Transformer, and RationaleNet and SpatialNet over S2VT or S2VT-att. The
+counterpart of those parts of ``vcr_tpu/decode.py``.
 
 The beam folds into the batch axis: B*K rows go through the same cell as the
-greedy decode (``_s2vt_stepper``, ``_s2vt_att_stepper``, plain PyTorch as in
-the JAX package), and reordering the beams gathers the rows of the state.
-Encode (and S2VT's prime) run once at B rows through kernel B1; S2VT-att's
-projected keys and encoder outputs are tiled to B*K rows once, the outputs
-at the compute dtype. Beam width 1 gives the greedy tokens up to and
-including the first eos; after it the search holds finished rows at eos.
+greedy decode (``_s2vt_stepper``, ``_s2vt_att_stepper``, the Transformer's
+``make_cached_stepper``; plain PyTorch as in the JAX package), and
+reordering the beams gathers the rows of the state. Encode (and S2VT's
+prime) run once at B rows through kernel B1; S2VT-att's projected keys and
+encoder outputs are tiled to B*K rows once, the outputs at the compute
+dtype. Beam width 1 gives the greedy tokens up to and including the first
+eos; after it the search holds finished rows at eos.
+
+The Transformer has two beams, as in the JAX package:
+:func:`transformer_beam_decode`, the parity beam of eval and the command
+line, re-runs the whole decoder stack each step; serving's
+:func:`transformer_beam_decode_fast` runs the KV-cached stepper, whose
+caches are either gathered with their beams or, with ``lineage=True``, left
+in place behind an ancestry matrix. Its sampling runs the KV-cached stepper
+too.
 
 Ties break as in the JAX package, whose ``lax.top_k`` is index-stable: among
 equal scores the lower word id wins within a beam, and the lower beam across
@@ -20,8 +29,8 @@ Sampling draws ``argmax(logits + g)`` with Gumbel noise g, which is
 seeded with an int, or is injected. Masked logits are ``NEG_INF``, a finite
 number, so no noise draw makes a masked token win.
 
-Families not ported raise naming their ROADMAP item; decode weights other
-than bf16 (the int8 stepper) raise naming A13. Nothing here reads an
+An unknown family raises; decode weights other than bf16 (the int8
+stepper) and quantized KV caches raise naming A13. Nothing here reads an
 environment variable.
 """
 
@@ -33,20 +42,13 @@ import torch
 
 from vcr_tpu_torch.models import base as model_base
 from vcr_tpu_torch.models import rationale, s2vt, s2vt_att, spatial
+from vcr_tpu_torch.models import transformer as tr
 from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_project_keys
 from vcr_tpu_torch.nn.gumbel import sample_gumbel
-from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, vdot
+from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, torch_norm, vdot
 from vcr_tpu_torch.nn.rnn import gru_gates
 
 NEG_INF = -1e9
-
-
-def check_decode_weights(decode_weights: Optional[str]) -> None:
-    """None and "bf16" are the bf16-weight stepper; anything else raises."""
-    if decode_weights not in (None, "bf16"):
-        raise NotImplementedError(
-            f"decode_weights={decode_weights!r} is not ported yet: ROADMAP A13 "
-            "(quantized serving modes)")
 
 
 def check_decode_mode(beam_size: int, temperature: float, top_k: int,
@@ -63,9 +65,9 @@ def check_decode_mode(beam_size: int, temperature: float, top_k: int,
                          "sample_temperature > 0")
 
 
-def _not_ported(arch: str):
-    """Raise for a family whose decode is not ported, naming its item."""
-    model_base.build_model(arch)
+def _unknown(arch: str):
+    """Raise for a name that is no family of this package."""
+    model_base.build_model(arch)  # raises for an unknown family
     raise NotImplementedError(f"decode for {arch!r}")
 
 
@@ -81,16 +83,37 @@ def _tile_beam(tree, k: int):
     return {name: x.repeat_interleave(k, dim=0) for name, x in tree.items()}
 
 
+def gather_rows(tree, idx: torch.Tensor):
+    """Rows ``idx`` of every tensor of a nest of dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: gather_rows(v, idx) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(gather_rows(v, idx) for v in tree)
+    return tree[idx]
+
+
+def _device_of(tree) -> torch.device:
+    """The device of the first tensor of a nest of dicts and tuples."""
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.device
+
+
 def beam_search(step_fn: Callable, init_state, batch: int, beam_size: int,
-                max_len: int, sos_id: int, eos_id: int
+                max_len: int, sos_id: int, eos_id: int,
+                reorder_fn: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (tokens (B, K, L) int32 sorted best-first, scores (B, K) float32).
 
     ``step_fn(state, words (B*K,), i) -> (state, logits (B*K, V))``;
-    ``init_state`` a dict of tensors with B*K leading rows. Reordering the
-    beams gathers the leading rows of every state tensor."""
+    ``init_state`` a nest of dicts and tuples of tensors with B*K leading
+    rows. Reordering the beams gathers the leading rows of every state
+    tensor, or is ``reorder_fn(state, flat_src)`` where part of the state
+    must not move (the Transformer's lineage stepper permutes only its
+    ancestry matrix)."""
     k = beam_size
-    device = next(iter(init_state.values())).device
+    reorder = reorder_fn or gather_rows
+    device = _device_of(init_state)
     words = torch.full((batch * k,), sos_id, dtype=torch.int32, device=device)
     # only beam 0 of each item is live at step 0 (the beams start as copies)
     scores = torch.full((batch, k), NEG_INF, dtype=torch.float32, device=device)
@@ -117,7 +140,7 @@ def beam_search(step_fn: Callable, init_state, batch: int, beam_size: int,
         beam_idx = torch.div(top_idx, k, rounding_mode="floor")
         word_idx = i1.reshape(batch, k * k).gather(1, top_idx).to(torch.int32)
         flat_src = (rows + beam_idx).reshape(-1)
-        state = {name: x[flat_src] for name, x in state.items()}
+        state = reorder(state, flat_src)
         # the histories follow their beams before step i is written
         tokens = tokens[flat_src]
         finished = finished[flat_src]
@@ -159,7 +182,7 @@ def sample_search(step_fn: Callable, init_state, rows: int, max_len: int,
     Step i adds Gumbel noise ``gumbel[i]`` (max_len, rows, V) where it is
     given, else a fresh (rows, V) draw from a generator seeded with ``rng``
     (an int, or a ``torch.Generator`` on the state's device)."""
-    device = next(iter(init_state.values())).device
+    device = _device_of(init_state)
     gen = None if gumbel is not None else s2vt.generator_for(rng, device)
     words = torch.full((rows,), sos_id, dtype=torch.int32, device=device)
     finished = torch.zeros((rows,), dtype=torch.bool, device=device)
@@ -183,7 +206,7 @@ def _s2vt_stepper(params, spec: model_base.ModelSpec, rows: int,
     """The S2VT decode cell as a (state, words, i) step over ``rows`` rows
     (B*K for beam search, B for sampling): the cell of the greedy decode
     (``s2vt.decode_from_states``). bf16 decode weights only."""
-    check_decode_weights(decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)
     cd = spec.cdtype
     rnn1, rnn2 = params["rnn1"], params["rnn2"]
     # GRU1's decode-phase input is a zero frame: its input gates are b_ih
@@ -206,7 +229,7 @@ def s2vt_beam_from_states(params, spec: model_base.ModelSpec, enc_outs: torch.Te
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode from S2VT's encoder states: the prime through B1 at B
     rows, then the stepper at B*K rows."""
-    check_decode_weights(decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)
     state2 = s2vt._prime_state2(params, spec, enc_outs)
     b = enc_outs.shape[1]
     init_state = _tile_beam({"s1": state1, "s2": state2}, beam_size)
@@ -257,7 +280,7 @@ def _s2vt_att_stepper(params, spec: model_base.ModelSpec, pk: torch.Tensor,
     as a (state, words, i) step, closed over the (possibly beam-tiled)
     projected keys ``pk`` and encoder outputs ``eo``. bf16 decode weights
     only."""
-    check_decode_weights(decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)
     dec, cd = params["decoder"], spec.cdtype
 
     def step_fn(state, words, i):
@@ -279,7 +302,7 @@ def s2vt_att_beam_from_states(params, spec: model_base.ModelSpec,
     rows, then the stepper at B*K rows. The outputs are read only through
     the context product's rounding, so they are tiled at the compute dtype:
     the same bits."""
-    check_decode_weights(decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)
     proj_key = bahdanau_project_keys(params["decoder"]["attention"], encoder_outs,
                                      spec.cdtype)
     tiled = _tile_beam({"h": encoder_final, "pk": proj_key,
@@ -339,7 +362,7 @@ def rationale_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.T
     over the selected features. The selection's noise is drawn from a generator
     seeded with ``rng`` (None: 0), as the greedy ``rationale.apply`` draws it
     for that seed, or is ``gumbel_noise``."""
-    check_decode_weights(decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)
     gen = s2vt.generator_for(rng, vid_feats.device)
     sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
     return decode_tokens(params["caption_net"], spec.with_(arch=spec.base_arch), sel,
@@ -354,18 +377,98 @@ def spatial_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Ten
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spatial-attention encode at B rows, then beam search on the wrapped
     captioner's decoder (S2VT's prime through B1 at B rows)."""
-    check_decode_weights(decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)
     outs, state, _, _ = spatial.encode_for_base(params, spec, vid_feats, train=False)
     beam = s2vt_beam_from_states if spec.base_arch == "s2vt" else s2vt_att_beam_from_states
     return beam(params["caption_net"], spec, outs, state, beam_size, eos_id)
+
+
+# ------------------------------------------------------------ Transformer
+
+def _transformer_encode(params, spec: model_base.ModelSpec,
+                        vid_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(source mask, encoder outputs) of the eval encoder, on the features
+    as given (serving casts them to the compute dtype first)."""
+    src_mask = tr.create_masks_inp(vid_feats)
+    return src_mask, tr.encode(params, spec, vid_feats, src_mask)
+
+
+def transformer_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
+                            beam_size: int, eos_id: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parity beam: each step re-runs the whole decoder stack on the
+    padded prefix with the reference's sqrt(prefix length) scale (a KV
+    cache would change the numbers). Each beam's token history rides in the
+    search state, so reordering keeps the prefixes with their beams."""
+    src_mask, e_outputs = _transformer_encode(params, spec, vid_feats)
+    b, length = vid_feats.shape[0], spec.max_len
+    tiled = _tile_beam({"eo": e_outputs, "sm": src_mask}, beam_size)
+    causal = tr._causal(length, vid_feats.device)
+    dec = params["decoder"]
+
+    def step_fn(state, words, i):
+        # the prefix is [sos, w0 .. w_{i-1}]: words, the last pick, goes to i
+        outputs = state["outputs"].clone()
+        outputs[:, i] = words
+        x = tr._apply_pe(dec["pe"], embed(dec["embedding"], outputs), i + 1)
+        h = torch_norm(dec["norm_out"], tr._run_decoder(params, spec, x, tiled["eo"],
+                                                        tiled["sm"], causal, train=False))
+        logits = mask_vocab_pad(dense(dec["pred_linear"], h[:, i], spec.cdtype),
+                                spec.vocab_size)
+        return {"outputs": outputs}, logits
+
+    init_state = {"outputs": torch.zeros((b * beam_size, length), dtype=torch.int32,
+                                         device=vid_feats.device)}
+    return beam_search(step_fn, init_state, b, beam_size, length, spec.sos_id, eos_id)
+
+
+def transformer_beam_decode_fast(params, spec: model_base.ModelSpec,
+                                 vid_feats: torch.Tensor, beam_size: int, eos_id: int,
+                                 lineage: bool = False, kv_cache: Optional[str] = None,
+                                 decode_weights: Optional[str] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KV-cached beam of serving, with the fast greedy decode's scale
+    (each token keeps its own step's sqrt(i+1)); width 1 gives
+    ``decode_greedy_fast``'s tokens up to the first eos. The cross K/V are
+    projected once per video and repeated per beam.
+
+    ``lineage=False`` (the serving default): every cache leaf is gathered
+    with its beam each step. ``lineage=True``: the caches stay in place and
+    only an ancestry matrix is reordered. The two take products of other
+    shapes, so in bf16 their logits differ by rounding and near-ties may
+    pick other tokens; the ancestry bookkeeping itself equals a physical
+    reorder bit for bit."""
+    model_base.check_serving_modes(kv_cache, decode_weights)  # before the encoder runs
+    _, e_outputs = _transformer_encode(params, spec, vid_feats)
+    b = vid_feats.shape[0]
+    stepper = tr.make_cached_stepper(params, spec, e_outputs, beam_tile=beam_size,
+                                     lineage=lineage, kv_cache=kv_cache,
+                                     decode_weights=decode_weights)
+    step_fn, init_state = stepper[:2]
+    return beam_search(step_fn, init_state, b, beam_size, spec.max_len, spec.sos_id,
+                       eos_id, reorder_fn=stepper[2] if lineage else None)
+
+
+def transformer_sample_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
+                              rng, eos_id: int, temperature: float = 1.0, top_k: int = 0,
+                              top_p: float = 0.0,
+                              gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sampling through the KV-cached stepper (sampling is not a parity
+    decode); ``top_k=1`` gives ``decode_greedy_fast``'s tokens up to the
+    first eos."""
+    _, e_outputs = _transformer_encode(params, spec, vid_feats)
+    step_fn, init_state = tr.make_cached_stepper(params, spec, e_outputs)
+    return sample_search(step_fn, init_state, vid_feats.shape[0], spec.max_len,
+                         spec.sos_id, eos_id, rng, temperature, top_k, top_p,
+                         gumbel=gumbel)
 
 
 def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, rng=0, temperature: float = 1.0, top_k: int = 0,
                   top_p: float = 0.0, gumbel: Optional[torch.Tensor] = None,
                   gumbel_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stochastic decoding for S2VT, S2VT-att, RationaleNet and SpatialNet
-    -> tokens (B, L).
+    """Stochastic decoding for S2VT, S2VT-att, the Transformer, RationaleNet
+    and SpatialNet -> tokens (B, L).
     ``top_k=1`` is argmax: the greedy decode up to the first eos.
 
     One generator seeded with ``rng`` draws everything, in order:
@@ -378,6 +481,9 @@ def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
         eo, ef = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
         return s2vt_att_sample_from_states(params, spec, eo, ef, rng, eos_id, temperature,
                                            top_k, top_p, gumbel=gumbel)
+    if spec.arch == "transformer":
+        return transformer_sample_decode(params, spec, vid_feats, rng, eos_id, temperature,
+                                         top_k, top_p, gumbel=gumbel)
     if spec.arch == "rationale":
         gen = s2vt.generator_for(rng, vid_feats.device)
         sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
@@ -389,26 +495,32 @@ def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   else s2vt_att_sample_from_states)
         return sample(params["caption_net"], spec, outs, state, rng, eos_id, temperature,
                       top_k, top_p, gumbel=gumbel)
-    _not_ported(spec.arch)
+    _unknown(spec.arch)
 
 
 def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, beam_size: int = 1, rng=None,
                   decode_weights: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Beam decode for S2VT, S2VT-att, RationaleNet and SpatialNet -> (tokens
-    (B, K, L), scores (B, K)). Beam width 1's best row equals the greedy rollout up to
-    the first eos. ``rng`` seeds RationaleNet's frame selection."""
+    """Beam decode for S2VT, S2VT-att, the Transformer (its parity beam),
+    RationaleNet and SpatialNet -> (tokens (B, K, L), scores (B, K)). Beam
+    width 1's best row equals the greedy rollout up to the first eos.
+    ``rng`` seeds RationaleNet's frame selection. The Transformer's parity
+    beam has no stepper to quantize: its decode weights other than bf16
+    raise (``transformer_beam_decode_fast`` is the serving beam)."""
     if spec.arch == "s2vt":
         return s2vt_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                 decode_weights=decode_weights)
     if spec.arch == "s2vt-att":
         return s2vt_att_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                     decode_weights=decode_weights)
+    if spec.arch == "transformer":
+        model_base.check_serving_modes(decode_weights=decode_weights)
+        return transformer_beam_decode(params, spec, vid_feats, beam_size, eos_id)
     if spec.arch == "rationale":
         return rationale_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                      rng=rng, decode_weights=decode_weights)
     if spec.arch == "spatial":
         return spatial_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                    decode_weights=decode_weights)
-    _not_ported(spec.arch)
+    _unknown(spec.arch)

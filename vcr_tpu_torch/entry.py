@@ -25,6 +25,12 @@ S2VT_ATT = dict(FLAGSHIP, arch="s2vt-att", vid_feat=512)
 # bench_train.py:33 trains it at B=16): a 2-conv trunk 1024 -> 512, Bahdanau
 # attention over the 169 cells per frame, then S2VT's decode; bf16 products.
 SPATIAL = dict(FLAGSHIP, arch="spatial", base_arch="s2vt", vid_feat=1024, grid_size=13)
+# The Transformer on MSR-VTT 4096-d features, the JAX package's bench row
+# (bench_all.py:154-190 serves it at B=128 parity and B=512 KV-cached,
+# bench_train.py:31 trains it at B=128): the encoder at the raw 4096 width,
+# the decoder at 300, H=512, 6 layers, 8 heads, N=30, L=20, vocab 9000 padded
+# to 128, bf16 products.
+TRANSFORMER = dict(FLAGSHIP, arch="transformer", tf_layers=6, tf_heads=8)
 
 
 def make_spec_and_params(vocab_size: int, embed_size: int, hidden: int,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -75,13 +75,8 @@ def spec_from_config(cfg, vocab) -> ModelSpec:
     )
 
 
-# the ported families, registered by their modules: name -> (init, apply)
+# the families, registered by their modules: name -> (init, apply)
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
-
-# Families of the JAX package not ported yet, with their ROADMAP items.
-_NOT_PORTED = {
-    "transformer": "ROADMAP A12 (Transformer)",
-}
 
 
 def base_module(spec: ModelSpec):
@@ -96,23 +91,38 @@ def base_module(spec: ModelSpec):
     raise NotImplementedError(f"unknown video captioning arch {spec.base_arch!r}")
 
 
+def check_serving_modes(kv_cache: Optional[str] = None,
+                        decode_weights: Optional[str] = None) -> None:
+    """bf16 KV caches and decode weights only: the quantized modes (int8 or
+    int4 caches, int8 weights) raise naming ROADMAP A13, other values
+    ValueError."""
+    item = "ROADMAP A13 (quantized serving modes)"
+    if kv_cache in ("int8", "int4"):
+        raise NotImplementedError(f"kv_cache={kv_cache!r} is not ported yet: {item}")
+    if kv_cache not in (None, "bf16"):
+        raise ValueError(f"kv_cache must be 'bf16', 'int8' or 'int4', got {kv_cache!r}")
+    if decode_weights == "int8":
+        raise NotImplementedError(
+            f"decode_weights={decode_weights!r} is not ported yet: {item}")
+    if decode_weights not in (None, "bf16"):
+        raise ValueError(f"decode_weights must be 'bf16' or 'int8', got {decode_weights!r}")
+
+
 def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:
     _REGISTRY[name] = (init_fn, apply_fn)
 
 
 def build_model(name: str) -> Tuple[Callable, Callable]:
-    """-> (init_params, apply). Ported so far: ``s2vt``, ``s2vt-att``, and
-    ``rationale`` and ``spatial`` over either, each with its eval and train
-    branches (``apply(..., train=True)``, driven by ``train.step``); the
-    others raise naming their ROADMAP item."""
+    """-> (init_params, apply) of ``s2vt``, ``s2vt-att``, ``transformer``,
+    or ``rationale`` and ``spatial`` over S2VT or S2VT-att, each with its
+    eval and train branches (``apply(..., train=True)``, driven by
+    ``train.step``); any other name raises."""
     import vcr_tpu_torch.models.rationale  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.s2vt_att  # noqa: F401  (registers itself)
     import vcr_tpu_torch.models.spatial  # noqa: F401  (registers itself)
+    import vcr_tpu_torch.models.transformer  # noqa: F401  (registers itself)
 
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: {_NOT_PORTED[name]}")
     raise NotImplementedError(f"Unknown model architecture {name!r}")

@@ -1,0 +1,534 @@
+"""The Transformer captioner: the counterpart of ``vcr_tpu/models/transformer.py``
+(the reference's TransformerNet), with its quirks kept for checkpoint and
+decode parity:
+
+* the encoder runs at the raw feature width (4096) and the decoder at the
+  word-vector width (300); attention projects width -> hidden (512) ->
+  width, the feed-forward width <-> 2048;
+* ``Norm`` is a hand-rolled LayerNorm with the unbiased std
+  (``nn.layers.torch_norm``);
+* the positional encoding scales by sqrt(seq_len), not sqrt(d_model), and
+  its cos channel takes the exponent 2(i+1)/d;
+* training feeds the *unshifted* target sentence to the decoder;
+* the internal dropouts are the hard-coded :data:`INTERNAL_DROPOUT`; only the
+  output projection's input uses ``spec.dropout_p``.
+
+Three decodes, which differ on purpose:
+
+* :func:`decode_greedy`, the parity decode of eval and the command line:
+  each step re-runs the whole decoder stack on the padded prefix, because
+  the sqrt(prefix length) scale changes every prefix embedding each step;
+* :func:`make_cached_stepper` and :func:`decode_greedy_fast`, the KV-cached
+  serving decode: each token keeps the sqrt(i+1) scale of the step that
+  emitted it, so its keys and values are reused. Its tokens are not the
+  parity decode's; with :func:`_pe_scale` neutralized they are;
+* the stepper's ``lineage=True`` form for beam search, whose caches are
+  written once and never reordered: an ancestry matrix says which row holds
+  each beam's history, and both reads through it are true gathers.
+
+Training keeps the residual stream in the compute dtype when that is bf16
+(:func:`_stream_cast`), and recomputes each norm of such a stream in the
+backward (:func:`_norm`, ``torch.utils.checkpoint``). The JAX package's
+``VCR_TF_F32_STREAM`` and ``VCR_TF_FF_REMAT`` overrides are not ported: this
+package reads no environment variable.
+
+Randomness: the train branch's dropout keep-masks are all drawn before the
+forward (:func:`draw_train_noise`), from a generator on the features' device
+(an int seed, or a ``torch.Generator``), in the order the layers use them.
+
+The layers are stacked on a leading axis, as the JAX package stacks them for
+its scan, so ``bridge.from_jax_params`` maps a parameter tree leaf for leaf;
+the stack runs as a Python loop over that axis. No kernel of this package
+runs here: the products are ``torch`` products, as they are XLA's in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.utils.checkpoint
+
+from vcr_tpu_torch.models import base
+from vcr_tpu_torch.models.s2vt import Rng, _check_call, generator_for
+from vcr_tpu_torch.nn.attention import mha_apply, mha_init
+from vcr_tpu_torch.nn.layers import (apply_keep_mask, bmm_f32, dense, dense_init, embed,
+                                     embedding_init, keep_mask, mask_vocab_pad, norm_init,
+                                     torch_norm)
+
+INTERNAL_DROPOUT = 0.1  # the reference hard-codes 0.1 for every internal dropout
+D_FF = 2048
+
+
+def _width(flag: str, spec: base.ModelSpec) -> int:
+    """The encoder's layers run at the raw feature width, the decoder's at
+    the word-vector width."""
+    return spec.vid_feat_size if flag == "e" else spec.embed_size
+
+
+def make_positional_encoding(d_model: int, max_seq_len: int = 80) -> np.ndarray:
+    """The reference's PE table, with its 2(i+1)/d exponent on the cos
+    channel; an odd width's last sin has no cos partner."""
+    pe = np.zeros((max_seq_len, d_model), dtype=np.float32)
+    for pos in range(max_seq_len):
+        for i in range(0, d_model, 2):
+            pe[pos, i] = math.sin(pos / (10000 ** ((2 * i) / d_model)))
+            if i + 1 < d_model:
+                pe[pos, i + 1] = math.cos(pos / (10000 ** ((2 * (i + 1)) / d_model)))
+    return pe
+
+
+# ---------------------------------------------------------------- layers
+
+def _ff_init(gen: torch.Generator, flag: str, spec: base.ModelSpec) -> dict:
+    size = _width(flag, spec)
+    return {"linear_1": dense_init(gen, size, D_FF), "linear_2": dense_init(gen, D_FF, size)}
+
+
+def _drop(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    return x if keep is None else apply_keep_mask(x, keep, rate)
+
+
+def _ff_apply(params, x: torch.Tensor, cdtype: torch.dtype,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    h = torch.relu(dense(params["linear_1"], x, cdtype))
+    return dense(params["linear_2"], _drop(h, keep, INTERNAL_DROPOUT), cdtype)
+
+
+def _stream_cast(x: torch.Tensor, train: bool, cdtype: torch.dtype) -> torch.Tensor:
+    """At train under a bf16 compute dtype the residual stream is kept in
+    it; otherwise it stays float32."""
+    return x.to(cdtype) if train and cdtype != torch.float32 else x
+
+
+def _norm(params, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """The Norm; at train over a non-float32 stream it is recomputed in the
+    backward from its bf16 input instead of keeping float32 intermediates,
+    as the JAX package's ``_norm_remat``."""
+    if train and x.dtype != torch.float32 and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(torch_norm, params, x, use_reentrant=False)
+    return torch_norm(params, x)
+
+
+def _encoder_layer_init(gen: torch.Generator, spec: base.ModelSpec) -> dict:
+    w = _width("e", spec)
+    return {"norm_1": norm_init(w), "norm_2": norm_init(w),
+            "attn": mha_init(gen, spec.hidden_size, "e", spec.vid_feat_size,
+                             spec.embed_size),
+            "ff": _ff_init(gen, "e", spec)}
+
+
+def _encoder_layer(params, x: torch.Tensor, mask, heads: int, train: bool,
+                   cdtype: torch.dtype, keep: Optional[Dict] = None) -> torch.Tensor:
+    keep = keep or {}
+    x2 = _norm(params["norm_1"], x, train)
+    a = mha_apply(params["attn"], heads, x2, x2, x2, mask, keep.get("attn"),
+                  INTERNAL_DROPOUT, cdtype)
+    x = x + _drop(a, keep.get("attn_out"), INTERNAL_DROPOUT).to(x.dtype)
+    x2 = _norm(params["norm_2"], x, train)
+    f = _ff_apply(params["ff"], x2, cdtype, keep.get("ff"))
+    return x + _drop(f, keep.get("ff_out"), INTERNAL_DROPOUT).to(x.dtype)
+
+
+def _decoder_layer_init(gen: torch.Generator, spec: base.ModelSpec) -> dict:
+    w = _width("d", spec)
+    return {"norm_1": norm_init(w), "norm_2": norm_init(w), "norm_3": norm_init(w),
+            # self-attention at the decoder's width; cross: q at the
+            # decoder's, k and v at the encoder's
+            "attn_1": mha_init(gen, spec.hidden_size, "d", spec.vid_feat_size,
+                               spec.embed_size),
+            "attn_2": mha_init(gen, spec.hidden_size, "ed", spec.vid_feat_size,
+                               spec.embed_size),
+            "ff": _ff_init(gen, "d", spec)}
+
+
+def _decoder_layer(params, x: torch.Tensor, e_outputs: torch.Tensor, src_mask, trg_mask,
+                   heads: int, train: bool, cdtype: torch.dtype,
+                   keep: Optional[Dict] = None) -> torch.Tensor:
+    keep = keep or {}
+    x2 = _norm(params["norm_1"], x, train)
+    a = mha_apply(params["attn_1"], heads, x2, x2, x2, trg_mask, keep.get("self"),
+                  INTERNAL_DROPOUT, cdtype)
+    x = x + _drop(a, keep.get("self_out"), INTERNAL_DROPOUT).to(x.dtype)
+    x2 = _norm(params["norm_2"], x, train)
+    a = mha_apply(params["attn_2"], heads, x2, e_outputs, e_outputs, src_mask,
+                  keep.get("cross"), INTERNAL_DROPOUT, cdtype)
+    x = x + _drop(a, keep.get("cross_out"), INTERNAL_DROPOUT).to(x.dtype)
+    x2 = _norm(params["norm_3"], x, train)
+    f = _ff_apply(params["ff"], x2, cdtype, keep.get("ff"))
+    return x + _drop(f, keep.get("ff_out"), INTERNAL_DROPOUT).to(x.dtype)
+
+
+def stack_layers(dicts: List[dict]) -> dict:
+    """Per-layer dicts -> one dict of tensors stacked on a leading axis."""
+    return {k: stack_layers([d[k] for d in dicts]) if isinstance(dicts[0][k], dict)
+            else torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked layer dict."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def init_params(gen: torch.Generator, spec: base.ModelSpec, glove_vectors) -> dict:
+    """Float32 parameters on the CPU, drawn from the CPU generator ``gen``:
+    the encoder's layers, then the decoder's, then the output projection."""
+    n = spec.tf_layers
+    enc_layers = [_encoder_layer_init(gen, spec) for _ in range(n)]
+    dec_layers = [_decoder_layer_init(gen, spec) for _ in range(n)]
+    return {
+        "encoder": {
+            "pe": torch.from_numpy(make_positional_encoding(spec.vid_feat_size)),
+            "layers": stack_layers(enc_layers),
+            "norm": norm_init(_width("e", spec)),
+        },
+        "decoder": {
+            "embedding": embedding_init(glove_vectors, spec.padded_vocab_size),
+            "pe": torch.from_numpy(make_positional_encoding(spec.embed_size)),
+            "layers": stack_layers(dec_layers),
+            # the reference builds norm and norm_out and uses only norm_out;
+            # both are kept for checkpoint conversion
+            "norm": norm_init(_width("d", spec)),
+            "norm_out": norm_init(_width("d", spec)),
+            "pred_linear": dense_init(gen, _width("d", spec), spec.padded_vocab_size),
+        },
+    }
+
+
+# ---------------------------------------------------------------- forward
+
+def _pe_scale(scale_len) -> float:
+    """The reference's sqrt(seq_len) embedding scale. Factored out so tests
+    can neutralize it when holding the KV-cached decode against the parity
+    decode."""
+    return math.sqrt(scale_len)
+
+
+def _apply_pe(pe: torch.Tensor, x: torch.Tensor, scale_len) -> torch.Tensor:
+    """x * sqrt(scale_len) + pe[:L], in float32: in the JAX package a bf16 x
+    times the float32 scale promotes to float32, where torch would keep
+    bf16."""
+    return x.float() * _pe_scale(scale_len) + pe[None, :x.shape[1]]
+
+
+def draw_train_noise(gen: torch.Generator, spec: base.ModelSpec, batch: int,
+                     frames: int, length: int, device) -> Dict:
+    """The train forward's dropout keep-masks, drawn from ``gen`` in this
+    order: per encoder layer the attention probabilities (B, h, N, N), the
+    attention's output, the feed-forward's hidden (B, N, 2048) and its
+    output; per decoder layer the self-attention's probabilities and
+    output, the cross-attention's (B, h, L, N) and output, the
+    feed-forward's hidden and output; then the output projection's input.
+    Internal masks are None where :data:`INTERNAL_DROPOUT` is 0, the last
+    where ``spec.dropout_p`` is."""
+    h, rate = spec.tf_heads, INTERNAL_DROPOUT
+    ew, dw = _width("e", spec), _width("d", spec)
+
+    def draw(shape, p=rate):
+        return keep_mask(shape, p, gen, device) if p > 0.0 else None
+
+    encoder = [{"attn": draw((batch, h, frames, frames)),
+                "attn_out": draw((batch, frames, ew)),
+                "ff": draw((batch, frames, D_FF)),
+                "ff_out": draw((batch, frames, ew))} for _ in range(spec.tf_layers)]
+    decoder = [{"self": draw((batch, h, length, length)),
+                "self_out": draw((batch, length, dw)),
+                "cross": draw((batch, h, length, frames)),
+                "cross_out": draw((batch, length, dw)),
+                "ff": draw((batch, length, D_FF)),
+                "ff_out": draw((batch, length, dw))} for _ in range(spec.tf_layers)]
+    return {"encoder": encoder, "decoder": decoder,
+            "pred": draw((batch, length, dw), spec.dropout_p)}
+
+
+def encode(params, spec: base.ModelSpec, vid_features: torch.Tensor, src_mask,
+           train: bool = False, noise: Optional[List[Dict]] = None) -> torch.Tensor:
+    """(B, N, V) -> encoder outputs (B, N, V); ``noise`` the encoder
+    layers' keep-masks (:func:`draw_train_noise`), none without it."""
+    enc = params["encoder"]
+    x = _stream_cast(_apply_pe(enc["pe"], vid_features, vid_features.shape[1]), train,
+                     spec.cdtype)
+    for i in range(spec.tf_layers):
+        x = _encoder_layer(layer_params(enc["layers"], i), x, src_mask, spec.tf_heads,
+                           train, spec.cdtype, noise[i] if noise else None)
+    return _norm(enc["norm"], x, train)
+
+
+def _run_decoder(params, spec: base.ModelSpec, x: torch.Tensor, e_outputs, src_mask,
+                 trg_mask, train: bool, noise: Optional[List[Dict]] = None
+                 ) -> torch.Tensor:
+    layers = params["decoder"]["layers"]
+    for i in range(spec.tf_layers):
+        x = _decoder_layer(layer_params(layers, i), x, e_outputs, src_mask, trg_mask,
+                           spec.tf_heads, train, spec.cdtype, noise[i] if noise else None)
+    return x
+
+
+def decode_train(params, spec: base.ModelSpec, e_outputs: torch.Tensor, s: torch.Tensor,
+                 src_mask, trg_mask, train: bool = False, noise: Optional[Dict] = None
+                 ) -> torch.Tensor:
+    """The parallel training pass -> logits (B, L, padded vocab) float32.
+    The input is the *unshifted* target sentence, as in the reference.
+    ``noise``: :func:`draw_train_noise`'s dict, or None for no dropout."""
+    dec = params["decoder"]
+    x = embed(dec["embedding"], s.to(torch.int32))
+    x = _stream_cast(_apply_pe(dec["pe"], x, x.shape[1]), train, spec.cdtype)
+    x = _run_decoder(params, spec, x, e_outputs, src_mask, trg_mask, train,
+                     noise["decoder"] if noise else None)
+    x = _norm(dec["norm_out"], x, train)
+    x = _drop(x, noise["pred"] if noise else None, spec.dropout_p)
+    return mask_vocab_pad(dense(dec["pred_linear"], x, spec.cdtype), spec.vocab_size)
+
+
+def _causal(length: int, device) -> torch.Tensor:
+    """(1, 1, L, L), True where a row may attend."""
+    return torch.ones((length, length), dtype=torch.bool, device=device).tril()[None, None]
+
+
+def decode_greedy(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
+                  src_mask) -> torch.Tensor:
+    """The parity greedy decode -> logits (B, L, padded vocab): each step
+    re-runs the whole decoder stack on the prefix padded to L under the
+    causal mask, with the sqrt(i+1) scale of that step. Row i of the padded
+    run attends to columns <= i only, so it equals the reference's
+    growing-prefix run."""
+    dec = params["decoder"]
+    b, length, device = e_outputs.shape[0], spec.max_len, e_outputs.device
+    causal = _causal(length, device)
+    outputs = torch.zeros((b, length), dtype=torch.int32, device=device)
+    outputs[:, 0] = spec.sos_id
+    logits_all = []
+    for i in range(length):
+        x = _apply_pe(dec["pe"], embed(dec["embedding"], outputs), i + 1)
+        h = torch_norm(dec["norm_out"], _run_decoder(params, spec, x, e_outputs, src_mask,
+                                                     causal, train=False))
+        logits = mask_vocab_pad(dense(dec["pred_linear"], h[:, i], spec.cdtype),
+                                spec.vocab_size)
+        if i + 1 < length:
+            outputs = outputs.clone()
+            outputs[:, i + 1] = logits.argmax(dim=-1).to(torch.int32)
+        logits_all.append(logits)
+    return torch.stack(logits_all, dim=1)
+
+
+# ---------------------------------------------------------------- the KV-cached stepper
+
+def _lineage_select(scores_all: torch.Tensor, anc_b: torch.Tensor) -> torch.Tensor:
+    """out[b, t, h, j] = scores_all[b, t, h, j, anc_b[b, t, j]]: a true
+    gather, never a one-hot product, so the selected scores are the bits
+    computed."""
+    b, t, h, length, _ = scores_all.shape
+    idx = anc_b[:, :, None, :, None].long().expand(b, t, h, length, 1)
+    return torch.gather(scores_all, -1, idx)[..., 0]
+
+
+def _lineage_gather_rows(cache_b: torch.Tensor, anc_b: torch.Tensor) -> torch.Tensor:
+    """cache_b (B, s, h, L, d), anc_b (B, t, L) -> (B, t, h, L, d):
+    out[b, t, h, j, :] = cache_b[b, anc_b[b, t, j], h, j, :], a true gather
+    of each beam's history rows. Reducing the context over j after it makes
+    the sums' order independent of the ancestry, so ancestry tracking gives
+    the bits of physically reordered caches."""
+    b, s, h, length, d = cache_b.shape
+    idx = anc_b[:, :, None, :, None].long().expand(b, anc_b.shape[1], h, length, d)
+    return torch.gather(cache_b, 1, idx)
+
+
+def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
+                        beam_tile: int = 1, lineage: bool = False,
+                        kv_cache: Optional[str] = None,
+                        decode_weights: Optional[str] = None):
+    """The KV-cached one-token decoder step of serving, shared by the fast
+    greedy decode, beam search and sampling.
+
+    Not token-parity with the reference: each token keeps the sqrt(i+1)
+    scale of the step that emitted it, so past keys and values are reused
+    (use :func:`decode_greedy` for parity). ``e_outputs`` (B, S, V) is
+    untiled; the stepper serves rows = B * beam_tile, each item's beams
+    adjacent. The cross-attention's K and V are projected once from the
+    untiled outputs and then repeated per beam.
+
+    -> (step_fn(state, words (rows,), i) -> (state, logits (rows, V)),
+    init_state), and with ``lineage=True`` also ``lineage_reorder(state,
+    flat_src)``. The state is {"c0".."c{n-1}": (k, v)}, per-layer (rows, h,
+    L, d_k) self-attention caches in the compute dtype, every leaf
+    rows-leading, so beam search's default reorder gathers them; step_fn
+    returns a new state and leaves the one it was given as it was.
+
+    ``lineage=True``: the caches are written once at each row's own slot
+    and never moved; the state also holds ``anc`` (rows, L) int32, which of
+    the item's beam_tile rows holds beam r's token j, and the reorder
+    permutes only that. The scores are taken against every source row of
+    the item and selected through the ancestry, the context from the
+    ancestry's V rows reduced over positions: both true gathers.
+
+    bf16 caches and weights only (``base.check_serving_modes``)."""
+    base.check_serving_modes(kv_cache, decode_weights)
+    dec = params["decoder"]
+    rows = e_outputs.shape[0] * beam_tile
+    length, heads, cd = spec.max_len, spec.tf_heads, spec.cdtype
+    hidden = dec["layers"]["attn_1"]["q"]["w"].shape[-1]
+    d_k = hidden // heads
+    scale = d_k ** 0.5
+    device = e_outputs.device
+    per_layer = [layer_params(dec["layers"], i) for i in range(spec.tf_layers)]
+
+    def heads_split(x):  # (rows, S, hidden) -> (rows, h, S, d_k)
+        return x.reshape(x.shape[0], -1, heads, d_k).transpose(1, 2)
+
+    cross = []
+    for lp in per_layer:
+        k = heads_split(dense(lp["attn_2"]["k"], e_outputs, cd)).to(cd)
+        v = heads_split(dense(lp["attn_2"]["v"], e_outputs, cd)).to(cd)
+        if beam_tile > 1:
+            k, v = k.repeat_interleave(beam_tile, 0), v.repeat_interleave(beam_tile, 0)
+        cross.append((k, v))
+
+    zeros = torch.zeros((rows, heads, length, d_k), dtype=cd, device=device)
+    init_state = {f"c{i}": (zeros, zeros) for i in range(spec.tf_layers)}
+    pos = torch.arange(length, device=device)
+    b_items = rows // beam_tile
+    row_local = (torch.arange(rows, device=device) % beam_tile).to(torch.int32)
+
+    def write(cache, x2, attn_p, i):
+        """q (rows, h, 1, d_k) and the cache with this token's K and V at i."""
+        q = heads_split(dense(attn_p["q"], x2, cd))
+        ck, cv = cache
+        ck = ck.slice_scatter(heads_split(dense(attn_p["k"], x2, cd)).to(ck.dtype), 2, i,
+                              i + 1)
+        cv = cv.slice_scatter(heads_split(dense(attn_p["v"], x2, cd)).to(cv.dtype), 2, i,
+                              i + 1)
+        return q, (ck, cv)
+
+    def attend_cached(attn_p, x2, cache, i):
+        """One token's self-attention against the cache, itself included."""
+        q, (ck, cv) = write(cache, x2, attn_p, i)
+        scores = bmm_f32(q, ck.transpose(-1, -2), cd) / scale         # (rows, h, 1, L)
+        w = torch.softmax(scores.masked_fill(pos > i, -1e9), dim=-1)
+        ctx = bmm_f32(w, cv, cd)                                       # (rows, h, 1, d)
+        out = ctx.transpose(1, 2).reshape(rows, 1, hidden)
+        return dense(attn_p["out"], out, cd), (ck, cv)
+
+    def attend_lineage(attn_p, x2, cache, i, anc):
+        q, (ck, cv) = write(cache, x2, attn_p, i)
+        k_b = beam_tile
+        qb = q.reshape(b_items, k_b, heads, d_k).transpose(1, 2)      # (B, h, t, d)
+        kb = ck.reshape(b_items, k_b, heads, length, d_k).transpose(1, 2).reshape(
+            b_items, heads, k_b * length, d_k)                          # (B, h, s*j, d)
+        # every target beam against every source row: (B, t, h, j, s)
+        scores_all = (bmm_f32(qb, kb.transpose(-1, -2), cd) / scale).reshape(
+            b_items, heads, k_b, k_b, length).permute(0, 2, 1, 4, 3)
+        anc_b = anc.reshape(b_items, k_b, length)
+        scores = _lineage_select(scores_all, anc_b)                    # (B, t, h, L)
+        w = torch.softmax(scores.masked_fill(pos > i, -1e9), dim=-1)
+        vsel = _lineage_gather_rows(cv.reshape(b_items, k_b, heads, length, d_k), anc_b)
+        ctx = (w.to(cd).float()[..., None] * vsel.float()).sum(dim=3)  # (B, t, h, d)
+        return dense(attn_p["out"], ctx.reshape(rows, 1, hidden), cd), (ck, cv)
+
+    def attend_cross(attn_p, x2, kv):
+        q = heads_split(dense(attn_p["q"], x2, cd))
+        k, v = kv
+        w = torch.softmax(bmm_f32(q, k.transpose(-1, -2), cd) / scale, dim=-1)
+        out = bmm_f32(w, v, cd).transpose(1, 2).reshape(rows, 1, hidden)
+        return dense(attn_p["out"], out, cd)
+
+    def step_fn(state, words, i):
+        x = embed(dec["embedding"], words)[:, None, :]
+        x = x.float() * _pe_scale(i + 1) + dec["pe"][i:i + 1][None]
+        new_state = {}
+        anc = None
+        if lineage:
+            # this step's K and V land in each row's own slot: claim column i
+            # before attending (later columns hold stale values, masked off)
+            anc = state["anc"].slice_scatter(row_local[:, None], 1, i, i + 1)
+            new_state["anc"] = anc
+        for li, lp in enumerate(per_layer):
+            x2 = torch_norm(lp["norm_1"], x)
+            if lineage:
+                a, cache = attend_lineage(lp["attn_1"], x2, state[f"c{li}"], i, anc)
+            else:
+                a, cache = attend_cached(lp["attn_1"], x2, state[f"c{li}"], i)
+            x = x + a
+            x = x + attend_cross(lp["attn_2"], torch_norm(lp["norm_2"], x), cross[li])
+            x = x + _ff_apply(lp["ff"], torch_norm(lp["norm_3"], x), cd)
+            new_state[f"c{li}"] = cache
+        h = torch_norm(dec["norm_out"], x)[:, 0]
+        return new_state, mask_vocab_pad(dense(dec["pred_linear"], h, cd), spec.vocab_size)
+
+    if not lineage:
+        return step_fn, init_state
+
+    init_state = dict(init_state, anc=row_local[:, None].repeat(1, length))
+
+    def lineage_reorder(state, flat_src):
+        """Only the ancestry matrix is permuted; the caches stay in place."""
+        return {k: (v[flat_src] if k == "anc" else v) for k, v in state.items()}
+
+    return step_fn, init_state, lineage_reorder
+
+
+def decode_greedy_fast(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
+                       src_mask=None, kv_cache: Optional[str] = None,
+                       decode_weights: Optional[str] = None) -> torch.Tensor:
+    """The KV-cached greedy decode of serving -> tokens (B, L) int32 (see
+    :func:`make_cached_stepper` for its scale, which is not the parity
+    decode's)."""
+    del src_mask
+    step_fn, state = make_cached_stepper(params, spec, e_outputs, kv_cache=kv_cache,
+                                         decode_weights=decode_weights)
+    words = torch.full((e_outputs.shape[0],), spec.sos_id, dtype=torch.int32,
+                       device=e_outputs.device)
+    tokens = []
+    for i in range(spec.max_len):
+        state, logits = step_fn(state, words, i)
+        words = logits.argmax(dim=-1).to(torch.int32)
+        tokens.append(words)
+    return torch.stack(tokens, dim=1)
+
+
+# ---------------------------------------------------------------- masks and apply
+
+def create_masks_inp(vid_features: torch.Tensor) -> torch.Tensor:
+    """The all-ones source mask (B, 1, 1, N)."""
+    b, n = vid_features.shape[:2]
+    return torch.ones((b, 1, 1, n), device=vid_features.device)
+
+
+def create_masks_trg(s: torch.Tensor, s_len: torch.Tensor) -> torch.Tensor:
+    """Length mask and causal no-peek mask -> (B, 1, L, L) bool."""
+    length = s.shape[1]
+    cols = torch.arange(length, device=s.device)[None, :] < s_len[:, None]   # (B, L)
+    return (cols[:, None, :] & _causal(length, s.device)[0])[:, None]
+
+
+def apply(params, spec: base.ModelSpec, vid_feats: torch.Tensor,
+          s: Optional[torch.Tensor] = None, s_len: Optional[torch.Tensor] = None,
+          rng: Rng = None, train: bool = False, teacher_force_prob=1.0,
+          emit: str = "logits", noise: Optional[Dict] = None) -> torch.Tensor:
+    """The full forward -> logits (B, L, padded vocab) float32, or at eval
+    with ``emit="tokens"`` the parity greedy tokens (B, L) int32. Train: the
+    parallel pass under the length and causal target mask, its dropout
+    keep-masks ``noise`` or drawn from ``rng``. Eval: the parity greedy
+    decode. ``teacher_force_prob`` is unused, as in the JAX package."""
+    del teacher_force_prob
+    _check_call(s, train, emit)
+    if train and emit != "logits":
+        raise ValueError("emit='tokens' is eval-only")
+    b, n = vid_feats.shape[:2]
+    if train and noise is None:
+        noise = draw_train_noise(generator_for(rng, vid_feats.device), spec, b, n,
+                                 s.shape[1], vid_feats.device)
+    src_mask = create_masks_inp(vid_feats)
+    e_outputs = encode(params, spec, vid_feats, src_mask, train,
+                       noise["encoder"] if train else None)
+    if train:
+        return decode_train(params, spec, e_outputs, s, src_mask,
+                            create_masks_trg(s, s_len), train, noise)
+    logits = decode_greedy(params, spec, e_outputs, src_mask)
+    return logits.argmax(dim=-1).to(torch.int32) if emit == "tokens" else logits
+
+
+base.register("transformer", init_params, apply)

@@ -1,9 +1,9 @@
-"""Core functional layers: the mixed-precision product, dense, embedding,
-dropout, and SpatialNet's conv and BatchNorm.
+"""Core functional layers: the mixed-precision products, dense, embedding,
+dropout, the Transformer's Norm, and SpatialNet's conv and BatchNorm.
 
-Every product runs through :func:`vdot`: operands rounded to the compute
-dtype, float32 accumulation and a float32 result. Parameters are stored
-float32.
+Every product runs through :func:`vdot` (or, batched, :func:`bmm_f32`):
+operands rounded to the compute dtype, float32 accumulation and a float32
+result. Parameters are stored float32.
 """
 
 from __future__ import annotations
@@ -60,6 +60,48 @@ def vdot(x: torch.Tensor, w: torch.Tensor,
         y = _MatmulF32.apply(xc.reshape(-1, xc.shape[-1]), wc)
         return y.reshape(*xc.shape[:-1], wc.shape[-1])
     return xc.float() @ wc.float()
+
+
+class _BmmF32(torch.autograd.Function):
+    """a (G, M, K) @ b (G, K, N) on the card, both operands in the compute
+    dtype, with a float32 result from cuBLAS (``torch.bmm(...,
+    out_dtype=)``, which has no derivative of its own). The backward is
+    :class:`_MatmulF32`'s, batched: float32 products of the float32 gradient
+    and the rounded operands, each rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) \
+            if ctx.needs_input_grad[0] else None
+        gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor,
+            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) over matching leading dims, operands
+    cast to ``compute_dtype``, float32 accumulation and a float32 result:
+    the JAX package's ``einsum(..., preferred_element_type=float32)``.
+
+    A bf16 ``torch.matmul`` would round its result to bf16. On the card the
+    product asks cuBLAS for a float32 output (:class:`_BmmF32`); on the
+    CPU the bf16-rounded operands are up-cast to float32, which gives the
+    same exact products, as :func:`vdot` does."""
+    ac, bc = a.to(compute_dtype), b.to(compute_dtype)
+    if compute_dtype == torch.float32:
+        return ac @ bc
+    if not ac.is_cuda:
+        return ac.float() @ bc.float()
+    lead = ac.shape[:-2]
+    y = _BmmF32.apply(ac.reshape(-1, *ac.shape[-2:]), bc.reshape(-1, *bc.shape[-2:]))
+    return y.reshape(*lead, *y.shape[-2:])
 
 
 # ---------------- dense ----------------
@@ -127,6 +169,25 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if generator is None:
         raise ValueError("dropout at train time needs an explicit generator")
     return apply_keep_mask(x, keep_mask(x.shape, rate, generator, x.device), rate)
+
+
+# ---------------- the reference Transformer's Norm ----------------
+
+def norm_init(dim: int) -> dict:
+    return {"alpha": torch.ones((dim,)), "bias": torch.zeros((dim,))}
+
+
+def torch_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference Transformer's hand-rolled Norm: alpha * (x - mean) /
+    (std + eps) + bias, with the *unbiased* std and eps added to the std,
+    not to the variance. The statistics are float32 whatever ``x``'s dtype,
+    and the result is cast back to it, so a bf16 residual stream stays
+    bf16."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mean) ** 2).sum(dim=-1, keepdim=True) / (x.shape[-1] - 1)
+    out = params["alpha"] * (x32 - mean) / (var.sqrt() + eps) + params["bias"]
+    return out.to(x.dtype)
 
 
 # ---------------- conv2d (NCHW, torch layout) + batchnorm ----------------

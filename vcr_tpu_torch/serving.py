@@ -1,12 +1,13 @@
 """Serving: features -> caption tokens, as one callable.
 
 PyTorch counterpart of ``vcr_tpu/serving.py``. Ported so far: captioning on
-precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, by
-RationaleNet over either (hard-Gumbel frame selection, then its captioner)
-and by SpatialNet over either (on (B, N, F, K, K) grid features), greedy, by
-beam search or by sampling (``decode``). Every other featurizer (YOLOv3's
-among them), family and decode-weight mode raises ``NotImplementedError``
-naming its ROADMAP item, so no option is ever silently ignored.
+precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, by the
+Transformer (its KV-cached serving decodes), by RationaleNet over S2VT or
+S2VT-att (hard-Gumbel frame selection, then its captioner) and by SpatialNet
+over either (on (B, N, F, K, K) grid features), greedy, by beam search or by
+sampling (``decode``). Every other featurizer (YOLOv3's among them) and
+quantized mode raises ``NotImplementedError`` naming its ROADMAP item, so no
+option is ever silently ignored.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from vcr_tpu_torch import decode
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
 from vcr_tpu_torch.models import rationale, spatial
+from vcr_tpu_torch.models import transformer as tr
 
 
 def resolve_eos_id(spec: model_base.ModelSpec, eos_id: int | None = None,
@@ -43,6 +45,8 @@ def resolve_eos_id(spec: model_base.ModelSpec, eos_id: int | None = None,
 
 def build_captioner(params, spec: model_base.ModelSpec,
                     featurizer: str = "none",
+                    feat_params=None,
+                    rng: int | None = None,
                     beam_size: int = 1,
                     eos_id: int | None = None,
                     sample_temperature: float = 0.0,
@@ -51,31 +55,44 @@ def build_captioner(params, spec: model_base.ModelSpec,
                     vocab=None,
                     kv_cache: str | None = None,
                     decode_weights: str | None = None,
-                    rng: int = 0,
                     device=None) -> Callable:
     """-> fn(feats (B, N, V), or SpatialNet's (B, N, F, K, K); array or
     tensor) -> tokens (B, L) int32 tensor on ``device``.
 
-    ``device`` defaults to the card; pass ``device="cpu"`` for the plain
-    versions on the CPU. The parameters are moved there once, here.
+    The arguments come in the JAX package's order, so a positional call
+    means the same in both, then ``device``, which defaults to the card;
+    pass ``device="cpu"`` for the plain versions on the CPU. The parameters
+    are moved there once, here.
 
-    ``beam_size > 1`` returns each item's best beam (``decode.decode_tokens``);
+    ``featurizer`` stays ``"none"`` (precomputed features) until ROADMAP A17
+    ports the featurizers: any other, and any ``feat_params``, raises naming
+    A17. The JAX package defaults to ``"vgg16"``.
+
+    Greedy: S2VT, S2VT-att, RationaleNet and SpatialNet their greedy decode,
+    the Transformer its KV-cached ``decode_greedy_fast`` on features cast to
+    the compute dtype. ``beam_size > 1`` returns each item's best beam
+    (``decode.decode_tokens``; the Transformer's KV-cached
+    ``transformer_beam_decode_fast`` with gathered caches);
     ``sample_temperature > 0`` samples instead, optionally top-k and/or top-p
     restricted (``decode.sample_tokens``). The two together raise
     ValueError, and so do the sampling filters without sampling. ``eos_id``
     comes from ``vocab`` or is given (:func:`resolve_eos_id`). ``kv_cache``
-    (a Transformer's) and ``decode_weights`` other than bf16 raise naming
-    ROADMAP A13.
+    and ``decode_weights`` other than bf16 raise naming ROADMAP A13.
 
     Every random draw of a call (RationaleNet's Gumbel noise, the sampling
-    noise) comes from a generator seeded with ``rng``, so the returned fn is
-    deterministic per input; build it with another ``rng`` to re-roll.
+    noise) comes from a generator seeded with ``rng`` (an int; None: 0), so
+    the returned fn is deterministic per input; build it with another
+    ``rng`` to re-roll.
     """
+    if feat_params is not None:
+        raise NotImplementedError(
+            "feat_params (a featurizer's weights) is not ported yet: ROADMAP A17 "
+            "(featurizers); pass precomputed features with featurizer='none'")
     device = resolve_device(device)
     caption = make_caption_fn(spec, featurizer, beam_size,
                               resolve_eos_id(spec, eos_id, vocab), sample_temperature,
-                              sample_top_k, sample_top_p, rng, kv_cache=kv_cache,
-                              decode_weights=decode_weights)
+                              sample_top_k, sample_top_p, 0 if rng is None else rng,
+                              kv_cache=kv_cache, decode_weights=decode_weights)
     params = params_to(params, device)
 
     def run(feats) -> torch.Tensor:
@@ -101,18 +118,17 @@ def make_caption_fn(spec: model_base.ModelSpec,
         raise NotImplementedError(
             f"featurizer {featurizer!r} is not ported yet: ROADMAP A17 "
             "(featurizers); pass precomputed features with featurizer='none'")
-    if kv_cache not in (None, "bf16"):
-        raise NotImplementedError(
-            f"kv_cache={kv_cache!r} is not ported yet: ROADMAP A13 "
-            "(quantized serving modes)")
-    decode.check_decode_weights(decode_weights)
+    model_base.check_serving_modes(kv_cache, decode_weights)
     decode.check_decode_mode(beam_size, sample_temperature, sample_top_k, sample_top_p)
     if eos_id is None:
         eos_id = spec.sos_id + 1
-    _, apply_fn = model_base.build_model(spec.arch)  # raises, naming the ROADMAP item
+    _, apply_fn = model_base.build_model(spec.arch)  # raises for an unknown family
     if spec.arch in ("rationale", "spatial"):
         model_base.base_module(spec)  # raises for an unknown base
 
+    if spec.arch == "transformer":
+        return _transformer_caption_fn(spec, beam_size, eos_id, sample_temperature,
+                                       sample_top_k, sample_top_p, rng)
     if sample_temperature > 0:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
             return decode.sample_tokens(params, spec, feats, eos_id, rng,
@@ -131,5 +147,25 @@ def make_caption_fn(spec: model_base.ModelSpec,
     else:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
             return apply_fn(params, spec, feats, train=False, emit="tokens")
+
+    return caption
+
+
+def _transformer_caption_fn(spec: model_base.ModelSpec, beam_size: int, eos_id: int,
+                            sample_temperature: float, sample_top_k: int,
+                            sample_top_p: float, rng: int) -> Callable:
+    """The Transformer's serving decodes, all through the KV-cached stepper
+    on features cast to the compute dtype: greedy, the gathered-cache beam,
+    or sampling."""
+    def caption(params, feats: torch.Tensor) -> torch.Tensor:
+        feats = feats.to(spec.cdtype)
+        if sample_temperature > 0:
+            return decode.sample_tokens(params, spec, feats, eos_id, rng,
+                                        sample_temperature, sample_top_k, sample_top_p)
+        if beam_size > 1:
+            return decode.transformer_beam_decode_fast(params, spec, feats, beam_size,
+                                                       eos_id)[0][:, 0]
+        e_outputs = tr.encode(params, spec, feats, tr.create_masks_inp(feats))
+        return tr.decode_greedy_fast(params, spec, e_outputs)
 
     return caption

@@ -24,6 +24,7 @@ from vcr_tpu_torch.convert import export_state_dict, load_reference_checkpoint
 from vcr_tpu_torch.data.pipeline import CaptionDataset
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
+from vcr_tpu_torch.models import transformer
 from vcr_tpu_torch.train import checkpoint as ckpt
 from vcr_tpu_torch.train.loop import feat_type, fold_seed, load_vocab, workload
 from vcr_tpu_torch.vocab import Vocab
@@ -52,7 +53,8 @@ def decode_features(params, spec, eos_id: int, feats: np.ndarray, chunk: int,
     best beam, or sampled (chunk i seeded with ``fold_seed(seed, i)``), in
     chunks of ``chunk`` videos, the last one zero-padded (rows are
     independent at eval, so padding changes no real row). Each chunk goes
-    through ``serving.make_caption_fn``."""
+    through ``serving.make_caption_fn``, except the Transformer's
+    (:func:`_transformer_tokens`)."""
     device = resolve_device(device)
     decode.check_decode_mode(beam_size, sample_temperature, sample_top_k, sample_top_p)
 
@@ -60,6 +62,9 @@ def decode_features(params, spec, eos_id: int, feats: np.ndarray, chunk: int,
         # only sampling re-seeds per chunk; greedy and beam draw RationaleNet's
         # frame selection from seed 0, as the JAX package's rng=None does
         rng = fold_seed(seed, i) if sample_temperature > 0 else 0
+        if spec.arch == "transformer":
+            return _transformer_tokens(params, spec, eos_id, v, beam_size,
+                                       sample_temperature, sample_top_k, sample_top_p, rng)
         caption = serving.make_caption_fn(spec, beam_size=beam_size, eos_id=eos_id,
                                           sample_temperature=sample_temperature,
                                           sample_top_k=sample_top_k,
@@ -76,6 +81,22 @@ def decode_features(params, spec, eos_id: int, feats: np.ndarray, chunk: int,
                     [part, np.zeros((chunk - n, *part.shape[1:]), part.dtype)])
             parts.append(run(torch.as_tensor(part, device=device), ci).cpu().numpy()[:n])
     return np.concatenate(parts) if parts else np.zeros((0, spec.max_len), np.int32)
+
+
+def _transformer_tokens(params, spec, eos_id: int, feats: torch.Tensor, beam_size: int,
+                        sample_temperature: float, sample_top_k: int, sample_top_p: float,
+                        rng: int) -> torch.Tensor:
+    """The Transformer's decodes of the command line, on the features as
+    stored, as the JAX package's ``decode_corpus`` and ``verify_parity``
+    run them: the parity greedy decode, the parity beam, or sampling through
+    the KV-cached stepper. Serving's greedy and beam are the KV-cached ones,
+    whose tokens differ."""
+    if sample_temperature > 0:
+        return decode.sample_tokens(params, spec, feats, eos_id, rng, sample_temperature,
+                                    sample_top_k, sample_top_p)
+    if beam_size > 1:
+        return decode.decode_tokens(params, spec, feats, eos_id, beam_size)[0][:, 0]
+    return transformer.apply(params, spec, feats, emit="tokens")
 
 
 def greedy_captions(params, spec, vocab: Vocab, feats: np.ndarray, batch_size: int = 32,

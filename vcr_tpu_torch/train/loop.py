@@ -1,7 +1,8 @@
 """The training loop of the captioners: the counterpart of
-``vcr_tpu/train/loop.py``, for the workloads ``train`` (S2VT or S2VT-att),
-``train_rationale`` (RationaleNet over either) and ``train_spatial``
-(SpatialNet over either, on YOLO grid features).
+``vcr_tpu/train/loop.py``, for the workloads ``train`` (S2VT, S2VT-att or
+the Transformer, whose validation runs its parity greedy and beam decodes),
+``train_rationale`` (RationaleNet over S2VT or S2VT-att) and
+``train_spatial`` (SpatialNet over either, on YOLO grid features).
 
 Per epoch: the teacher-forcing schedule, windowed train logging, a
 validation pass with METEOR, BLEU-4, CIDEr-D, ROUGE-L and the embedding

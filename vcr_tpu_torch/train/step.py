@@ -193,8 +193,9 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
                    lambda_brev: float = 1.0, lambda_cont: float = 1.0,
                    remat: bool = False, grad_accum: int = 1, static_tf=None,
                    device=None) -> Tuple[Callable, Callable]:
-    """-> (train_step, eval_step) for "s2vt", "s2vt-att", "rationale" or
-    "spatial" on ``device`` (None: the card; raises without one).
+    """-> (train_step, eval_step) for "s2vt", "s2vt-att", "transformer",
+    "rationale" or "spatial" on ``device`` (None: the card; raises without
+    one).
 
     train_step(params, opt_state, batch, rng, tf_prob)
         -> (params, opt_state, metrics, pred)
@@ -210,7 +211,8 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
 
     remat: run the train forward under ``torch.utils.checkpoint``, so the
     backward recomputes it (B1, and B2, launched again) instead of keeping
-    its activations.
+    its activations. (A bf16 Transformer recomputes its Norms in the
+    backward either way.)
 
     grad_accum: split the batch into that many microbatches, in order, and
     make one update from their gradients weighted by valid rows: the

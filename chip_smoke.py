@@ -130,6 +130,23 @@ exit code and no result line:
    printed. Then best and median of 3 calls (CUDA events) with the peak
    memory above each call's start, and the train step split into forward,
    backward and optimizer.
+11. continuous_serving -- the continuous-batching slot pool and its HTTP
+   daemon at full width. B1 and B2 against their plain versions at the
+   admission chunk's shapes (T=30, B=8 and 64, bf16 and float32, phase 3's
+   bounds), with their times at both beside the bound, the plain version
+   and cuDNN. Then a CaptionServer on port 0 over the flagship S2VT's pool
+   (R=512, A=64, bf16) takes 1,024 POST /caption from 32 CaptionClient
+   threads and one POST /caption_batch of 256, (30, 4096) features each,
+   the clients in a process of their own: the counts set to 0 just before the load and read just after (B1 twice
+   per admission chunk on the tensor-core body, nothing else), no null
+   response and no scheduler error, captions/s, client latency p50/p99,
+   the daemon's /healthz stats; every response's tokens against
+   serving.build_captioner's greedy on the same features cut at its first
+   eos (at least 98% of the tokens equal), and a float32 pool on the card
+   equal to one on the CPU at R=4. The Transformer's pool (R=512 greedy,
+   lineage beam 5 at R=128) launches no kernel; its tokens/s beside phase
+   10's KV-cached greedy; float32 card = CPU at R=4. RationaleNet's pool
+   (R=256, A=64): B2 and B1 twice per admission chunk.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -206,6 +223,17 @@ TF_TRAIN_BATCH = 128         # its train step (bench_train.py:31)
 TF_BEAM = 5
 TF_CHECK_BATCH = 4           # float32 card vs CPU at full width
 TF_LINEAGE_BATCH = 8         # the bf16 lineage checks (tpu_checks.py:185-239)
+CONT_SLOTS = 512             # the flagship daemon's slot pool (R)
+CONT_ADMIT = 64              # its admission chunk (A; bench_all.py:430-431)
+CONT_REQUESTS = 1024         # single POST /caption requests, from
+CONT_THREADS = 32            # this many client threads,
+CONT_BATCH = 256             # and one POST /caption_batch of this many rows
+CONT_ADMIT_BATCHES = (8, 64)  # B1 and B2 at the default and the bench admission chunk
+CONT_TOKEN_AGREEMENT = 0.98  # the port's bf16 bound: pool against batch greedy
+CONT_CHECK_SLOTS = 4         # float32 pool, card vs CPU
+TF_CONT_SLOTS = 512          # the Transformer's greedy pool
+TF_CONT_BEAM_SLOTS = 128     # its lineage beam-5 pool
+RATIONALE_CONT_SLOTS = 256   # RationaleNet's pool
 TF_LINEAGE_GAP = 0.5         # lineage vs gather stepper, the lockstep logit gap
                              # bound of tpu_checks.py:230: products of other
                              # shapes round apart by a few bf16 quanta, a fault
@@ -1436,7 +1464,255 @@ def transformer_phase(cuda_gru, cuda_lstm, smi):
          launches_per_step=step_launches[-1], remat_launches_per_step=remat_launches,
          timing=step_timing(train, params, state, batch, opt),
          phase_seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
-    return {**launches, "train": step_launches[-1], "train_remat": remat_launches}
+    return {**launches, "train": step_launches[-1], "train_remat": remat_launches,
+            "timing": timing}
+
+
+# The daemon's load, run in a process of its own so the clients do not share
+# the daemon's interpreter lock: argv url, requests, threads, batch rows,
+# seed, frames, feature width; prints {"seconds", "singles": [[tokens,
+# latency s]], "batch": [tokens | null]}. The features are the parent's: the
+# same seed.
+LOAD_CLIENT = r"""
+import concurrent.futures, json, sys, time
+import numpy as np
+from vcr_tpu_torch.client import CaptionClient
+
+url = sys.argv[1]
+n, threads, batch, seed, frames, width = map(int, sys.argv[2:8])
+feats = np.random.default_rng(seed).standard_normal((n + batch, frames, width),
+                                                    dtype=np.float32)
+client = CaptionClient(url, timeout_s=600, retries=0)
+
+
+def one(i):
+    t = time.perf_counter()
+    tokens, _ = client.caption(feats[i])
+    return tokens, time.perf_counter() - t
+
+
+t0 = time.perf_counter()
+with concurrent.futures.ThreadPoolExecutor(threads + 1) as ex:
+    batch_future = ex.submit(client.caption_batch, feats[n:])
+    singles = [f.result() for f in [ex.submit(one, i) for i in range(n)]]
+    rows = batch_future.result()
+json.dump({"seconds": time.perf_counter() - t0, "singles": singles,
+           "batch": [None if r is None else r[0] for r in rows]}, sys.stdout)
+"""
+
+
+def cut_at_eos(row, eos):
+    """A token row up to and including its first eos, as a list."""
+    row = list(row)
+    return row[: row.index(eos) + 1] if eos in row else row
+
+
+def token_agreement(got, want):
+    """Share of token positions equal over pairs of token lists, each pair
+    counted over the longer of the two."""
+    total = sum(max(len(g), len(w)) for g, w in zip(got, want))
+    same = sum(sum(a == b for a, b in zip(g, w)) for g, w in zip(got, want))
+    return same / total
+
+
+def admission_kernels(cuda_gru, cuda_lstm, spec):
+    """B1 and B2 at the admission chunk's shapes: each against its plain
+    version in bf16 and float32 (phase 3's bounds, both LSTM directions),
+    then bf16 times beside the bound, the plain version and cuDNN (with the
+    input projection, timed alone too)."""
+    from vcr_tpu_torch.nn.layers import vdot
+
+    hidden, frames, cd = spec.hidden_size, spec.num_frames, torch.bfloat16
+    cases, failures, timing = [], [], {"gru_seq": {}, "lstm_seq": {}}
+    for dtype, gtol, ltol in ((torch.bfloat16, BF16_TOL, LSTM_BF16_TOL),
+                              (torch.float32, F32_TOL, LSTM_F32_TOL)):
+        name = str(dtype).split(".")[-1]
+        for b in CONT_ADMIT_BATCHES:
+            args = gru_inputs(frames, b, hidden, dtype, seed=100 + b)
+            tc = cuda_gru.launches_tc
+            got = cuda_gru.gru_recurrence_cuda(*args, dtype)
+            tc = cuda_gru.launches_tc - tc
+            runs = [("gru_seq", None, got, cuda_gru.gru_recurrence_plain(*args, dtype),
+                     tc, gtol)]
+            for reverse in (False, True):
+                largs = lstm_inputs(frames, b, hidden, dtype, seed=200 + b)
+                tc = cuda_lstm.launches_tc
+                lgot = cuda_lstm.lstm_recurrence_cuda(*largs, dtype, reverse)
+                tc = cuda_lstm.launches_tc - tc
+                runs.append(("lstm_seq", reverse, lgot,
+                             cuda_lstm.lstm_recurrence_plain(*largs, dtype, reverse), tc,
+                             ltol))
+            torch.cuda.synchronize()
+            for kernel, reverse, out, want, tc, tol in runs:
+                err = max_err(out, want)
+                cases.append({"kernel": kernel, "dtype": name, "steps": frames, "batch": b,
+                              "reverse": reverse,
+                              "body": "tensor-core" if tc else "scalar",
+                              "max_abs_err": err, "tolerance": tol})
+                if not (all_finite(out) and err <= tol):
+                    failures.append(f"{kernel} at B={b} {name} reverse={reverse}: err {err}")
+                if tc != int(dtype == torch.bfloat16):
+                    failures.append(f"{kernel} at B={b} {name} ran the wrong body")
+    check(not failures, "; ".join(failures))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gru = torch.nn.GRU(spec.vid_feat_size, hidden).to("cuda", cd)
+    lstm = torch.nn.LSTM(spec.vid_feat_size, hidden).to("cuda", cd)
+    w_ih = torch.randn((spec.vid_feat_size, 3 * hidden), generator=g, device="cuda")
+    for b in CONT_ADMIT_BATCHES:
+        xs = torch.randn((frames, b, spec.vid_feat_size), generator=g, device="cuda").to(cd)
+        projection_ms = time_ms(lambda: vdot(xs.reshape(-1, xs.shape[-1]), w_ih, cd))
+        with torch.inference_mode():
+            args = gru_inputs(frames, b, hidden, cd, seed=100 + b)
+            bound, by = gru_bound_ms(frames, b, hidden, PEAKS)
+            timing["gru_seq"][b] = {
+                "ms": time_ms(lambda: cuda_gru.gru_recurrence_cuda(*args, cd), iters=5),
+                "plain_ms": time_ms(lambda: cuda_gru.gru_recurrence_plain(*args, cd)),
+                "bound_ms": bound, "bound_by": by, "library_ms": time_ms(lambda: gru(xs)),
+                "library": "torch.nn.GRU (cuDNN), input projection included",
+                "projection_ms": projection_ms}
+            largs = lstm_inputs(frames, b, hidden, cd, seed=200 + b)
+            bound, by = lstm_bound_ms(frames, b, hidden, PEAKS)
+            timing["lstm_seq"][b] = {
+                "ms": time_ms(lambda: cuda_lstm.lstm_recurrence_cuda(*largs, cd, False),
+                              iters=5),
+                "plain_ms": time_ms(lambda: cuda_lstm.lstm_recurrence_plain(*largs, cd,
+                                                                            False)),
+                "bound_ms": bound, "bound_by": by, "library_ms": time_ms(lambda: lstm(xs)),
+                "library": "torch.nn.LSTM (cuDNN), one direction, input projection "
+                           "included", "projection_ms": projection_ms}
+    return cases, timing
+
+
+def continuous_phase(cuda_gru, cuda_lstm, smi, tf_timing):
+    """Phase 11: B1 and B2 at the admission shapes, the HTTP daemon over
+    the flagship S2VT's slot pool under concurrent clients, the
+    Transformer's and RationaleNet's pools; returns what the kernels line
+    reports of it."""
+    from vcr_tpu_torch import entry, serving
+    from vcr_tpu_torch.client import CaptionClient
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.server import CaptionServer
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
+    t_phase = time.perf_counter()
+    spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
+    frames, eos = spec.num_frames, spec.sos_id + 1
+    cases, kernel_timing = admission_kernels(cuda_gru, cuda_lstm, spec)
+    emit("continuous_kernels", cases=cases, timing=kernel_timing, nvidia_smi=smi)
+
+    # the daemon under load from a client process: the counts set to 0 just
+    # before, read just after
+    seed, width = 11, spec.vid_feat_size
+    feats = np.random.default_rng(seed).standard_normal(
+        (CONT_REQUESTS + CONT_BATCH, frames, width), dtype=np.float32)
+    pool = ContinuousCaptioner(params, spec, slots=CONT_SLOTS, admit_chunk=CONT_ADMIT)
+    with CaptionServer(pool, port=0) as server:
+        url = f"http://127.0.0.1:{server.port}"
+        client = CaptionClient(url, timeout_s=600, retries=0)
+        client.caption(feats[0])                      # first use of the card's pool
+        before = client.health()
+        reset_counts(cuda_gru, cuda_lstm)
+        load = subprocess.run(
+            [sys.executable, "-c", LOAD_CLIENT, url] + [str(x) for x in (
+                CONT_REQUESTS, CONT_THREADS, CONT_BATCH, seed, frames, width)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        torch.cuda.synchronize()
+        daemon_launches = launch_counts(cuda_gru, cuda_lstm)
+        after = client.health()
+        error = server.error
+    check(load.returncode == 0, f"the client process failed: {load.stderr[-2000:]}")
+    load = json.loads(load.stdout)
+    wall, singles = load["seconds"], load["singles"]
+    responses = [t for t, _ in singles] + load["batch"]
+    check(error is None, f"the daemon's scheduler failed: {error}")
+    nulls = sum(r is None for r in responses)
+    check(nulls == 0, f"{nulls} null responses of {len(responses)}")
+    stats = {k: after[k] - before[k] for k in ("ticks", "admit_chunks", "served",
+                                               "useful_steps", "slot_steps")}
+    check(daemon_launches == expected_counts(b1=2 * stats["admit_chunks"]),
+          f"the daemon launched {daemon_launches} in {stats['admit_chunks']} admission "
+          "chunks, not B1 twice per chunk on the tensor-core body and nothing else")
+    with torch.inference_mode():
+        batch_tokens = serving.build_captioner(params, spec)(feats).cpu().numpy()
+    agreement = token_agreement(responses, [cut_at_eos(r, eos) for r in batch_tokens])
+    check(agreement >= CONT_TOKEN_AGREEMENT,
+          f"daemon against batch greedy: {agreement} of the tokens equal")
+    latency = sorted(dt for _, dt in singles)
+    spec32 = spec.with_(compute_dtype="float32")
+    f32 = [ContinuousCaptioner(params_to(params, d), spec32, slots=CONT_CHECK_SLOTS,
+                               admit_chunk=2, device=d).caption_all(
+               dict(enumerate(feats[:2 * CONT_CHECK_SLOTS]))) for d in ("cuda", "cpu")]
+    check(all(f32[0][k].tolist() == f32[1][k].tolist() for k in f32[1]),
+          "float32 pool tokens differ, card vs CPU")
+    emit("continuous_daemon", slots=CONT_SLOTS, admit_chunk=CONT_ADMIT,
+         requests=CONT_REQUESTS, client_threads=CONT_THREADS, batch_request_rows=CONT_BATCH,
+         seconds=wall, captions_per_s=len(responses) / wall,
+         client_latency_p50_ms=1e3 * latency[len(latency) // 2],
+         client_latency_p99_ms=1e3 * latency[int(len(latency) * 0.99)],
+         daemon_latency_p50_ms=after.get("latency_p50_ms"),
+         daemon_latency_p95_ms=after.get("latency_p95_ms"), stats=stats,
+         occupancy=stats["useful_steps"] / stats["slot_steps"],
+         mean_caption_tokens=stats["useful_steps"] / stats["served"],
+         launches=daemon_launches, token_agreement_vs_batch_greedy=agreement,
+         token_agreement_bound=CONT_TOKEN_AGREEMENT,
+         f32_check_slots=CONT_CHECK_SLOTS, f32_tokens_card_eq_cpu=True, nvidia_smi=smi)
+
+    # the Transformer's pool: greedy, lineage beam 5; no kernel launch
+    tspec, tparams = entry.make_spec_and_params(**entry.TRANSFORMER, device="cuda")
+    tf_runs = {}
+    for name, slots, beam in (("greedy", TF_CONT_SLOTS, 1),
+                              ("beam_lineage", TF_CONT_BEAM_SLOTS, TF_BEAM)):
+        tpool = ContinuousCaptioner(tparams, tspec, slots=slots, admit_chunk=CONT_ADMIT,
+                                    beam_size=beam)
+        tpool.caption_all(dict(enumerate(feats[:CONT_ADMIT])))      # first use
+        t0 = time.perf_counter()
+        out, counts = counted(cuda_gru, cuda_lstm, lambda: tpool.caption_all(
+            dict(enumerate(feats[:slots]))))
+        dt = time.perf_counter() - t0
+        check(counts == expected_counts(0) and len(out) == slots,
+              f"the Transformer's {name} pool launched {counts} or lost requests")
+        tokens = sum(len(t) for t in out.values())
+        tf_runs[name] = {"slots": slots, "beam": beam, "requests": slots, "seconds": dt,
+                         "captions_per_s": slots / dt, "tokens_per_s": tokens / dt,
+                         "mean_caption_tokens": tokens / slots, "launches": counts}
+    batch_ms = tf_timing["greedy"]["ms"]
+    tf_runs["phase10_kv_cached_greedy"] = {
+        "batch": TF_FAST_BATCH, "ms": batch_ms,
+        "captions_per_s": TF_FAST_BATCH / (batch_ms / 1e3),
+        "tokens_per_s": TF_FAST_BATCH * tspec.max_len / (batch_ms / 1e3)}
+    tspec32 = tspec.with_(compute_dtype="float32")
+    tf32 = [ContinuousCaptioner(params_to(tparams, d), tspec32, slots=CONT_CHECK_SLOTS,
+                                admit_chunk=2, device=d).caption_all(
+                dict(enumerate(feats[:CONT_CHECK_SLOTS]))) for d in ("cuda", "cpu")]
+    check(all(tf32[0][k].tolist() == tf32[1][k].tolist() for k in tf32[1]),
+          "the Transformer's float32 pool tokens differ, card vs CPU")
+    emit("continuous_transformer", runs=tf_runs, f32_check_slots=CONT_CHECK_SLOTS,
+         f32_tokens_card_eq_cpu=True, nvidia_smi=smi)
+    del tparams
+
+    # RationaleNet's pool: B2 and B1 twice per admission chunk
+    rspec, rparams = entry.make_spec_and_params(**entry.RATIONALE, device="cuda")
+    rpool = ContinuousCaptioner(rparams, rspec, slots=RATIONALE_CONT_SLOTS,
+                                admit_chunk=CONT_ADMIT)
+    rpool.caption_all(dict(enumerate(feats[:CONT_ADMIT])))           # first use
+    chunks = rpool.stats["admit_chunks"]
+    t0 = time.perf_counter()
+    out, rationale_launches = counted(cuda_gru, cuda_lstm, lambda: rpool.caption_all(
+        dict(enumerate(feats[:RATIONALE_CONT_SLOTS]))))
+    dt = time.perf_counter() - t0
+    chunks = rpool.stats["admit_chunks"] - chunks
+    check(rationale_launches == expected_counts(b1=2 * chunks, b2=2 * chunks)
+          and len(out) == RATIONALE_CONT_SLOTS,
+          f"RationaleNet's pool launched {rationale_launches} in {chunks} chunks, not B2 "
+          "and B1 twice per chunk, or lost requests")
+    emit("continuous_rationale", slots=RATIONALE_CONT_SLOTS, admit_chunk=CONT_ADMIT,
+         requests=RATIONALE_CONT_SLOTS, admit_chunks=chunks, seconds=dt,
+         captions_per_s=RATIONALE_CONT_SLOTS / dt, launches=rationale_launches,
+         phase_seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return {"daemon": daemon_launches, "daemon_admit_chunks": stats["admit_chunks"],
+            "rationale": rationale_launches, "rationale_admit_chunks": chunks,
+            "kernel_cases": cases, "kernel_timing": kernel_timing}
 
 
 def main() -> int:
@@ -1972,6 +2248,9 @@ def main() -> int:
     # 10. the Transformer: serving, parity decodes, float32 card vs CPU, the
     # bf16 lineage checks, training
     tf = transformer_phase(cuda_gru, cuda_lstm, smi)
+
+    # 11. continuous batching: the slot pools and the HTTP daemon
+    cont = continuous_phase(cuda_gru, cuda_lstm, smi, tf["timing"])
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -1992,6 +2271,12 @@ def main() -> int:
         "launches_spatial_beam": sp["beam"]["gru_seq"],
         "launches_spatial_s2vt_att": sp["s2vt_att"]["gru_seq"],
         "launches_transformer": tf["greedy"]["gru_seq"],
+        "launches_continuous_daemon": cont["daemon"]["gru_seq"],
+        "continuous_daemon_admit_chunks": cont["daemon_admit_chunks"],
+        "launches_continuous_rationale": cont["rationale"]["gru_seq"],
+        "at_admission_batch": cont["kernel_timing"]["gru_seq"],
+        "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
+                                                "gru_seq"),
         "max_abs_err": worst(cases, "bfloat16"), "tolerance": BF16_TOL,
         "f32_max_abs_err": worst(cases, "float32"), "f32_tolerance": F32_TOL,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2040,6 +2325,11 @@ def main() -> int:
         "launches_tc": rationale_launches["lstm_seq_tc"],
         "launches_rationale_s2vt_att": att["rationale"]["lstm_seq"],
         "launches_transformer": tf["greedy"]["lstm_seq"],
+        "launches_continuous_rationale": cont["rationale"]["lstm_seq"],
+        "continuous_rationale_admit_chunks": cont["rationale_admit_chunks"],
+        "at_admission_batch": cont["kernel_timing"]["lstm_seq"],
+        "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
+                                                "lstm_seq"),
         "max_abs_err": worst(lstm_cases, "bfloat16"), "tolerance": LSTM_BF16_TOL,
         "f32_max_abs_err": worst(lstm_cases, "float32"),
         "f32_tolerance": LSTM_F32_TOL,

@@ -14,7 +14,7 @@ import sys
 import pytest
 import torch
 
-from vcr_tpu_torch import cli, entry, serving
+from vcr_tpu_torch import cli, entry, serving, serving_continuous
 from vcr_tpu_torch.device import params_to
 from vcr_tpu_torch import decode
 from vcr_tpu_torch.models import s2vt_att, spatial, transformer
@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "train.checkpoint", "evals.metrics", "evals.porter", "data.captions",
                  "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler",
                  "nn.attention", "models.s2vt_att", "convert", "models.spatial",
-                 "models.transformer"):
+                 "models.transformer", "serving_continuous", "server", "multiserver",
+                 "client"):
         assert f"vcr_tpu_torch.{name}" in mods
     assert "chip_smoke" in mods
     # nor what the JAX package's counterparts of the command line need:
@@ -71,6 +72,12 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
     tokens = serving.build_captioner(params, spec, device="cpu")(
         torch.zeros((2, 2, 6)))
     assert tokens.shape == (2, 3) and tokens.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_continuous.ContinuousCaptioner(params, spec, slots=2, admit_chunk=1)
+    pool = serving_continuous.ContinuousCaptioner(params, spec, slots=2, admit_chunk=1,
+                                                  device="cpu")
+    assert all(1 <= len(t) <= 3 for t in pool.caption_all(
+        {i: torch.randn((2, 6)).numpy() for i in range(3)}).values())
     spec, params = entry.make_spec_and_params(**dims, arch="rationale", device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.build_captioner(params, spec)
@@ -353,6 +360,40 @@ def test_transformer_on_the_card_equals_cpu(cuda, monkeypatch):
     assert (cuda_gru.launches, cuda_lstm.launches) == before
     assert abs(results[0][0] - results[1][0]) <= 1e-5
     _assert_grads_close(results[1][1], results[0][1], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, beam", [("s2vt", 1), ("s2vt", 3), ("rationale", 1),
+                                        ("transformer", 1), ("transformer", 3)])
+def test_slot_pool_on_the_card_equals_cpu(cuda, monkeypatch, arch, beam):
+    """The continuous pool in float32 (TF32 off) on the card and on the CPU,
+    the same requests in the same order: the same harvested tokens, and on
+    the card the kernels launched at admission (S2VT: B1 twice per chunk;
+    RationaleNet: B2 twice and B1 twice; the Transformer: none)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dims = dict(vocab_size=40, embed_size=16, hidden=32, vid_feat=64, max_len=7,
+                num_frames=6)
+    kw = {"tf_layers": 2, "tf_heads": 4} if arch == "transformer" else {}
+    spec, params = entry.make_spec_and_params(**dims, arch=arch, compute_dtype="float32",
+                                              device="cpu", **kw)
+    feats = torch.randn((9, 6, 64), generator=torch.Generator().manual_seed(4)).numpy()
+    noise = (lambda c: torch.zeros((2, 6, 2))) if arch == "rationale" else None
+    out, launches = [], []
+    for device in ("cpu", cuda):
+        pool = serving_continuous.ContinuousCaptioner(
+            params, spec, slots=4, admit_chunk=2, beam_size=beam, select_noise=noise,
+            device=device)
+        before = (cuda_gru.launches, cuda_lstm.launches)
+        out.append(pool.caption_all(dict(enumerate(feats))))
+        torch.cuda.synchronize()
+        launches.append((cuda_gru.launches - before[0], cuda_lstm.launches - before[1],
+                         pool.stats["admit_chunks"]))
+    assert sorted(out[0]) == sorted(out[1]) == list(range(9))
+    assert all((out[0][k] == out[1][k]).all() and len(out[0][k]) == len(out[1][k])
+               for k in out[0])
+    b1, b2, chunks = launches[1]
+    assert (b1, b2) == {"s2vt": (2 * chunks, 0), "rationale": (2 * chunks, 2 * chunks),
+                        "transformer": (0, 0)}[arch]
 
 
 @pytest.mark.cuda

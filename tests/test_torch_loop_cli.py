@@ -311,16 +311,17 @@ def test_preemption_signal_saves_and_resumes(tmp_path):
 
 
 # verify_parity and export_reference run since A8, train_spatial since A11,
-# and the Transformer in each since A12; their cases keep their ids and hold
-# what those modes still refuse: a Transformer's quantized serving modes
-# (fields of the serving daemon, A14), and SpatialNet over a Transformer
+# the Transformer in each since A12 and serve since A14; their cases keep
+# their ids and hold what those modes still refuse: the quantized serving
+# modes (A13), and SpatialNet over a Transformer
 @pytest.mark.parametrize("mode, extra, item", [
     *(pytest.param(m, [], cli.NOT_PORTED_MODES[m].split(" (")[0], id=m)
       for m in sorted(cli.NOT_PORTED_MODES)),
+    pytest.param("serve", ["--serve_kv_cache", "int8"], "A13", id="serve"),
     pytest.param("export_reference", ["--arch", "transformer", "--serve_kv_cache", "int8"],
-                 "A14", id="export_reference"),
+                 "A13", id="export_reference"),
     pytest.param("verify_parity", ["--arch", "transformer", "--serve_decode_weights",
-                                   "int8"], "A14", id="verify_parity"),
+                                   "int8"], "A13", id="verify_parity"),
     pytest.param("train_spatial", ["--arch", "transformer"], "wraps S2VT or S2VT-att",
                  id="train_spatial")])
 def test_unported_modes_raise(mode, extra, item):
@@ -336,7 +337,10 @@ def test_unported_modes_raise(mode, extra, item):
     # RationaleNet over a Transformer, which neither package has
     pytest.param(["--arch", "transformer", "--mode", "train_rationale"],
                  "wraps S2VT or S2VT-att", id="argv1-A12"),
-    (["--mesh_dp", "2"], "A15"), (["--serve_port", "80"], "A14")])
+    (["--mesh_dp", "2"], "A15"),
+    # the serving daemon's fields parse since A14; the case keeps its id and
+    # holds a quantized serving mode (A13)
+    pytest.param(["--serve_kv_cache", "int4"], "A13", id="argv3-A14")])
 def test_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--mode", "train", "--device", "cpu", *argv])

@@ -80,14 +80,17 @@ def test_config_has_every_field_with_its_default():
 
 @pytest.mark.parametrize("argv, item", [
     (["--mesh_dp", "2"], "A15"), (["--mesh_mp", "2"], "A15"),
-    (["--serve_slots", "8"], "A14"), (["--serve_kv_cache", "int8"], "A14"),
-    (["--serve_decode_weights", "int8"], "A14"),
+    # the serving daemon's fields parse since A14; these cases keep their
+    # ids and hold the quantized serving modes (A13)
+    pytest.param(["--serve_kv_cache", "int4"], "A13", id="argv2-A14"),
+    pytest.param(["--serve_kv_cache", "int8"], "A13", id="argv3-A14"),
+    pytest.param(["--serve_decode_weights", "int8"], "A13", id="argv4-A14"),
     # --arch s2vt-att parses since A9; the case keeps its id, an unknown arch
     pytest.param(["--arch", "lstm-lm"], "Unknown", id="argv5-A9"),
     # --arch transformer parses since A12; the case keeps its id and holds what
     # the Transformer still refuses on the command line: a quantized serving
-    # KV cache, a field of the serving daemon (A14)
-    pytest.param(["--arch", "transformer", "--serve_kv_cache", "int4"], "A14",
+    # KV cache (A13)
+    pytest.param(["--arch", "transformer", "--serve_kv_cache", "int4"], "A13",
                  id="argv6-A12"),
 ])
 def test_config_refuses_what_is_not_ported(argv, item):

@@ -10,9 +10,11 @@ It serves and trains the JAX package's five captioners: the flagship
 S2VT, S2VT-att, the Transformer, and RationaleNet and SpatialNet over S2VT
 or S2VT-att (``serving``, ``train.step``), also from the command line
 ``python -m vcr_tpu_torch.cli --mode train | train_rationale |
-train_spatial | eval | decode | verify_parity | export_reference`` (the
-loop, checkpoints, beam search, sampling, the caption metrics and the
-reference's ``.net`` files). Entry points run on ``cuda`` unless the
+train_spatial | eval | decode | serve | verify_parity | export_reference``
+(the loop, checkpoints, beam search, sampling, the caption metrics and the
+reference's ``.net`` files). ``--mode serve`` runs an HTTP daemon
+(``server``, ``multiserver``; ``client`` talks to it) over a
+continuous-batching slot pool (``serving_continuous``). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``. A CUDA tensor goes through the hand-written
 kernel; the plain PyTorch version of each kernel serves CPU tensors only.
 The kernels on the training path (B1, B2) take their gradients through

@@ -1,5 +1,5 @@
 """Command line: ``python -m vcr_tpu_torch.cli --mode train | train_rationale
-| train_spatial | eval | decode | verify_parity | export_reference
+| train_spatial | eval | decode | serve | verify_parity | export_reference
 [--flags]``, the counterpart of ``vcr_tpu/cli.py``.
 
 Every flag of the JAX package's command line parses to the same Config;
@@ -25,7 +25,6 @@ NOT_PORTED_MODES = {
     "extract_bbox_feats": "ROADMAP A17 (featurizers and prep)",
     "extract_glove": "ROADMAP A17 (featurizers and prep)",
     "eval_attention": "ROADMAP A17 (featurizers and prep)",
-    "serve": "ROADMAP A14 (continuous batching and the HTTP stack)",
     "export_serving": "ROADMAP A16 (deployable artifacts)",
     "export_continuous": "ROADMAP A16 (deployable artifacts)",
     "bench": "ROADMAP A4 (the port's benchmark)",
@@ -73,6 +72,10 @@ def dispatch(cfg: Config, device=None):
                                 beam_size=cfg.beam_size, device=device)
         print(f"captions written to {out}")
         return results
+    if cfg.mode == "serve":
+        from vcr_tpu_torch.tools import serve_captions
+
+        return serve_captions(cfg, cfg.pretrained_base or "", device=device)
     if cfg.mode == "export_reference":
         from vcr_tpu_torch.tools import export_reference_checkpoint
 

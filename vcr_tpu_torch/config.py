@@ -7,13 +7,14 @@ What the port does with each field:
 
 * most fields mean what they mean in the JAX package;
 * :data:`INERT_FIELDS` are accepted and do nothing here (see there);
-* the fields of features not ported yet raise ``NotImplementedError``
-  naming their ROADMAP item when set away from their defaults
-  (:meth:`Config.validate`): ``mesh_*`` (multi-device, A15) and
-  ``serve_*`` (the serving daemon, A14). An unknown architecture raises
-  there too, before any data is read, and so does ``--mode train_rationale``
-  or ``train_spatial`` with an ``--arch`` other than S2VT or S2VT-att, which
-  the JAX package would quietly replace by S2VT.
+* the values of features not ported yet raise ``NotImplementedError``
+  naming their ROADMAP item (:meth:`Config.validate`): ``mesh_*`` away from
+  1 (multi-device, A15) and the quantized serving modes
+  ``serve_kv_cache`` int8/int4 and ``serve_decode_weights`` int8 (A13). An
+  unknown architecture raises there too, before any data is read, and so
+  does ``--mode train_rationale`` or ``train_spatial`` with an ``--arch``
+  other than S2VT or S2VT-att, which the JAX package would quietly replace
+  by S2VT.
 
 The device is not a field: the command line's ``--device`` (:func:`get_config`)
 chooses it, so it never lands in a checkpoint's embedded config.
@@ -122,7 +123,12 @@ class Config:
     sample_top_p: float = 0.0
     # Save a mid-epoch checkpoint every N train iterations (0 = off).
     ckpt_iter: int = 0
-    # --mode serve (ROADMAP A14): kept at their defaults here
+    # --mode serve: the HTTP daemon over a continuous-batching slot pool.
+    # serve_slots = R decode slots, serve_admit_chunk = A videos encoded per
+    # admission, serve_port 0 = OS-assigned; serve_max_pending -1 = 4 *
+    # serve_slots; serve_models "name=path,..." serves several checkpoints
+    # from one port. The quantized serve_kv_cache / serve_decode_weights
+    # modes are ROADMAP A13 and raise.
     serve_port: int = 8000
     serve_slots: int = 64
     serve_admit_chunk: int = 8
@@ -165,11 +171,9 @@ class Config:
                 continue
             if f.name.startswith("mesh_"):
                 raise NotImplementedError(
-                    f"--{f.name} {getattr(self, f.name)}: multi-device training is "
-                    "not ported yet: ROADMAP A15")
-            if f.name.startswith("serve_"):
-                raise NotImplementedError(
-                    f"--{f.name}: the serving daemon is not ported yet: ROADMAP A14")
+                    f"--{f.name} {getattr(self, f.name)}: multi-device training and "
+                    "serving are not ported yet: ROADMAP A15")
+        model_base.check_serving_modes(self.serve_kv_cache, self.serve_decode_weights)
         return self
 
     # ---- serialization (checkpoints embed the config) ----

@@ -337,6 +337,80 @@ def _lineage_gather_rows(cache_b: torch.Tensor, anc_b: torch.Tensor) -> torch.Te
     return torch.gather(cache_b, 1, idx)
 
 
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(rows, S, hidden) -> (rows, h, S, d_k)."""
+    return x.reshape(x.shape[0], -1, heads, x.shape[-1] // heads).transpose(1, 2)
+
+
+def _cross_kv(attn_p, e_outputs: torch.Tensor, heads: int, cd: torch.dtype):
+    """The cross-attention's K and V of the encoder outputs, (rows, h, S, d_k)
+    in the compute dtype."""
+    return (_split_heads(dense(attn_p["k"], e_outputs, cd), heads).to(cd),
+            _split_heads(dense(attn_p["v"], e_outputs, cd), heads).to(cd))
+
+
+def _attend_cross(attn_p, x2: torch.Tensor, kv, heads: int, cd: torch.dtype) -> torch.Tensor:
+    """One token's cross-attention over the video's K and V."""
+    q = _split_heads(dense(attn_p["q"], x2, cd), heads)
+    k, v = kv
+    w = torch.softmax(bmm_f32(q, k.transpose(-1, -2), cd) / q.shape[-1] ** 0.5, dim=-1)
+    out = bmm_f32(w, v, cd).transpose(1, 2).reshape(x2.shape[0], 1, -1)
+    return dense(attn_p["out"], out, cd)
+
+
+def _attend_self(attn_p, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 masked: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """One token's self-attention against its row's cache, itself included;
+    ``masked`` (broadcast to (rows, h, 1, L)) is True at positions not yet
+    written."""
+    scores = bmm_f32(q, ck.transpose(-1, -2), cd) / q.shape[-1] ** 0.5   # (rows, h, 1, L)
+    w = torch.softmax(scores.masked_fill(masked, -1e9), dim=-1)
+    ctx = bmm_f32(w, cv, cd)                                              # (rows, h, 1, d)
+    return dense(attn_p["out"], ctx.transpose(1, 2).reshape(q.shape[0], 1, -1), cd)
+
+
+def _attend_lineage(attn_p, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                    anc: torch.Tensor, masked: torch.Tensor, beam_tile: int,
+                    cd: torch.dtype) -> torch.Tensor:
+    """The lineage form of :func:`_attend_self`: each item's beam_tile rows
+    are scored against every source row of the item, and the scores and the
+    context's V rows are selected through the ancestry ``anc`` (rows, L),
+    both true gathers; ``masked`` broadcasts to (items, beam_tile, h, L)."""
+    rows, heads, _, d_k = q.shape
+    length, k_b = ck.shape[2], beam_tile
+    items = rows // k_b
+    qb = q.reshape(items, k_b, heads, d_k).transpose(1, 2)                 # (B, h, t, d)
+    kb = ck.reshape(items, k_b, heads, length, d_k).transpose(1, 2).reshape(
+        items, heads, k_b * length, d_k)                                    # (B, h, s*j, d)
+    # every target beam against every source row: (B, t, h, j, s)
+    scores_all = (bmm_f32(qb, kb.transpose(-1, -2), cd) / d_k ** 0.5).reshape(
+        items, heads, k_b, k_b, length).permute(0, 2, 1, 4, 3)
+    anc_b = anc.reshape(items, k_b, length)
+    scores = _lineage_select(scores_all, anc_b)                            # (B, t, h, L)
+    w = torch.softmax(scores.masked_fill(masked, -1e9), dim=-1)
+    vsel = _lineage_gather_rows(cv.reshape(items, k_b, heads, length, d_k), anc_b)
+    ctx = (w.to(cd).float()[..., None] * vsel.float()).sum(dim=3)          # (B, t, h, d)
+    return dense(attn_p["out"], ctx.reshape(rows, 1, heads * d_k), cd)
+
+
+def _decoder_step(dec, per_layer, spec: base.ModelSpec, x: torch.Tensor, state: dict,
+                  cross, attend_self):
+    """The decoder stack on one token per row: ``attend_self(attn_p, x2,
+    cache) -> (out, cache)`` is a layer's self-attention against its cache
+    ``state["c{li}"]``, ``cross[li]`` layer li's (K, V). -> (the layers' new
+    caches, logits (rows, V))."""
+    caches = {}
+    for li, lp in enumerate(per_layer):
+        a, caches[f"c{li}"] = attend_self(lp["attn_1"], torch_norm(lp["norm_1"], x),
+                                          state[f"c{li}"])
+        x = x + a
+        x = x + _attend_cross(lp["attn_2"], torch_norm(lp["norm_2"], x), cross[li],
+                              spec.tf_heads, spec.cdtype)
+        x = x + _ff_apply(lp["ff"], torch_norm(lp["norm_3"], x), spec.cdtype)
+    h = torch_norm(dec["norm_out"], x)[:, 0]
+    return caches, mask_vocab_pad(dense(dec["pred_linear"], h, spec.cdtype), spec.vocab_size)
+
+
 def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
                         beam_tile: int = 1, lineage: bool = False,
                         kv_cache: Optional[str] = None,
@@ -370,19 +444,12 @@ def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
     dec = params["decoder"]
     rows = e_outputs.shape[0] * beam_tile
     length, heads, cd = spec.max_len, spec.tf_heads, spec.cdtype
-    hidden = dec["layers"]["attn_1"]["q"]["w"].shape[-1]
-    d_k = hidden // heads
-    scale = d_k ** 0.5
+    d_k = dec["layers"]["attn_1"]["q"]["w"].shape[-1] // heads
     device = e_outputs.device
     per_layer = [layer_params(dec["layers"], i) for i in range(spec.tf_layers)]
-
-    def heads_split(x):  # (rows, S, hidden) -> (rows, h, S, d_k)
-        return x.reshape(x.shape[0], -1, heads, d_k).transpose(1, 2)
-
     cross = []
     for lp in per_layer:
-        k = heads_split(dense(lp["attn_2"]["k"], e_outputs, cd)).to(cd)
-        v = heads_split(dense(lp["attn_2"]["v"], e_outputs, cd)).to(cd)
+        k, v = _cross_kv(lp["attn_2"], e_outputs, heads, cd)
         if beam_tile > 1:
             k, v = k.repeat_interleave(beam_tile, 0), v.repeat_interleave(beam_tile, 0)
         cross.append((k, v))
@@ -390,73 +457,33 @@ def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
     zeros = torch.zeros((rows, heads, length, d_k), dtype=cd, device=device)
     init_state = {f"c{i}": (zeros, zeros) for i in range(spec.tf_layers)}
     pos = torch.arange(length, device=device)
-    b_items = rows // beam_tile
     row_local = (torch.arange(rows, device=device) % beam_tile).to(torch.int32)
-
-    def write(cache, x2, attn_p, i):
-        """q (rows, h, 1, d_k) and the cache with this token's K and V at i."""
-        q = heads_split(dense(attn_p["q"], x2, cd))
-        ck, cv = cache
-        ck = ck.slice_scatter(heads_split(dense(attn_p["k"], x2, cd)).to(ck.dtype), 2, i,
-                              i + 1)
-        cv = cv.slice_scatter(heads_split(dense(attn_p["v"], x2, cd)).to(cv.dtype), 2, i,
-                              i + 1)
-        return q, (ck, cv)
-
-    def attend_cached(attn_p, x2, cache, i):
-        """One token's self-attention against the cache, itself included."""
-        q, (ck, cv) = write(cache, x2, attn_p, i)
-        scores = bmm_f32(q, ck.transpose(-1, -2), cd) / scale         # (rows, h, 1, L)
-        w = torch.softmax(scores.masked_fill(pos > i, -1e9), dim=-1)
-        ctx = bmm_f32(w, cv, cd)                                       # (rows, h, 1, d)
-        out = ctx.transpose(1, 2).reshape(rows, 1, hidden)
-        return dense(attn_p["out"], out, cd), (ck, cv)
-
-    def attend_lineage(attn_p, x2, cache, i, anc):
-        q, (ck, cv) = write(cache, x2, attn_p, i)
-        k_b = beam_tile
-        qb = q.reshape(b_items, k_b, heads, d_k).transpose(1, 2)      # (B, h, t, d)
-        kb = ck.reshape(b_items, k_b, heads, length, d_k).transpose(1, 2).reshape(
-            b_items, heads, k_b * length, d_k)                          # (B, h, s*j, d)
-        # every target beam against every source row: (B, t, h, j, s)
-        scores_all = (bmm_f32(qb, kb.transpose(-1, -2), cd) / scale).reshape(
-            b_items, heads, k_b, k_b, length).permute(0, 2, 1, 4, 3)
-        anc_b = anc.reshape(b_items, k_b, length)
-        scores = _lineage_select(scores_all, anc_b)                    # (B, t, h, L)
-        w = torch.softmax(scores.masked_fill(pos > i, -1e9), dim=-1)
-        vsel = _lineage_gather_rows(cv.reshape(b_items, k_b, heads, length, d_k), anc_b)
-        ctx = (w.to(cd).float()[..., None] * vsel.float()).sum(dim=3)  # (B, t, h, d)
-        return dense(attn_p["out"], ctx.reshape(rows, 1, hidden), cd), (ck, cv)
-
-    def attend_cross(attn_p, x2, kv):
-        q = heads_split(dense(attn_p["q"], x2, cd))
-        k, v = kv
-        w = torch.softmax(bmm_f32(q, k.transpose(-1, -2), cd) / scale, dim=-1)
-        out = bmm_f32(w, v, cd).transpose(1, 2).reshape(rows, 1, hidden)
-        return dense(attn_p["out"], out, cd)
 
     def step_fn(state, words, i):
         x = embed(dec["embedding"], words)[:, None, :]
         x = x.float() * _pe_scale(i + 1) + dec["pe"][i:i + 1][None]
-        new_state = {}
         anc = None
         if lineage:
             # this step's K and V land in each row's own slot: claim column i
             # before attending (later columns hold stale values, masked off)
             anc = state["anc"].slice_scatter(row_local[:, None], 1, i, i + 1)
-            new_state["anc"] = anc
-        for li, lp in enumerate(per_layer):
-            x2 = torch_norm(lp["norm_1"], x)
+        masked = pos > i
+
+        def attend(attn_p, x2, cache):
+            q = _split_heads(dense(attn_p["q"], x2, cd), heads)
+            ck, cv = cache
+            ck = ck.slice_scatter(
+                _split_heads(dense(attn_p["k"], x2, cd), heads).to(ck.dtype), 2, i, i + 1)
+            cv = cv.slice_scatter(
+                _split_heads(dense(attn_p["v"], x2, cd), heads).to(cv.dtype), 2, i, i + 1)
             if lineage:
-                a, cache = attend_lineage(lp["attn_1"], x2, state[f"c{li}"], i, anc)
-            else:
-                a, cache = attend_cached(lp["attn_1"], x2, state[f"c{li}"], i)
-            x = x + a
-            x = x + attend_cross(lp["attn_2"], torch_norm(lp["norm_2"], x), cross[li])
-            x = x + _ff_apply(lp["ff"], torch_norm(lp["norm_3"], x), cd)
-            new_state[f"c{li}"] = cache
-        h = torch_norm(dec["norm_out"], x)[:, 0]
-        return new_state, mask_vocab_pad(dense(dec["pred_linear"], h, cd), spec.vocab_size)
+                return _attend_lineage(attn_p, q, ck, cv, anc, masked, beam_tile, cd), (ck, cv)
+            return _attend_self(attn_p, q, ck, cv, masked, cd), (ck, cv)
+
+        new_state, logits = _decoder_step(dec, per_layer, spec, x, state, cross, attend)
+        if lineage:
+            new_state["anc"] = anc
+        return new_state, logits
 
     if not lineage:
         return step_fn, init_state
@@ -468,6 +495,100 @@ def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
         return {k: (v[flat_src] if k == "anc" else v) for k, v in state.items()}
 
     return step_fn, init_state, lineage_reorder
+
+
+def make_slot_stepper(params, spec: base.ModelSpec, beam_tile: int = 1,
+                      lineage: bool = False, kv_cache: Optional[str] = None,
+                      decode_weights: Optional[str] = None):
+    """The KV-cached decoder step of continuous-batching serving
+    (:class:`vcr_tpu_torch.serving_continuous.ContinuousCaptioner`), where
+    every row carries its own position ``i_vec`` (rows,) int: its slot was
+    admitted at its own time. The three uses of the position are per row:
+    this step's K and V are written at (row, :, i_vec[row], :), the causal
+    mask is pos > i_vec[row], and the PE term and scale are pe[i_vec] and
+    sqrt(i_vec + 1). With a uniform i_vec each step equals
+    :func:`make_cached_stepper`'s element for element.
+
+    The cross-attention's K and V depend on the slot's video, so they are
+    slot state (``cross_state``, computed once per admission), not a
+    closure.
+
+    -> (step_fn(state, words (rows,), i_vec (rows,)) -> (state, logits
+    (rows, V)), init_self_state(rows) -> {"c{l}": (k, v)} of zeros (rows,
+    h, L, d_k) on the parameters' device, every leaf a tensor of its own,
+    cross_state(e_outputs (rows, S, width)) -> {"x{l}": (k, v)} (rows, h,
+    S, d_k)). The slot state is init_self_state's and cross_state's leaves
+    together, all rows-leading, so admission can copy rows in; step_fn
+    returns a new state and leaves the one it was given as it was.
+
+    ``lineage=True`` with ``beam_tile=K`` is the continuous beam's cell:
+    rows are slot-major groups of K beams, the caches are written once at
+    each row's own slot and never moved, and the state also holds ``anc``
+    (rows, L), the ancestry of :func:`make_cached_stepper`'s lineage form,
+    here with per-row positions; reordering beams permutes only ``anc``.
+    After admission each fresh group's ancestry must be re-armed to its
+    local identity (row % K in every column).
+
+    bf16 caches and weights only (``base.check_serving_modes``)."""
+    base.check_serving_modes(kv_cache, decode_weights)
+    dec = params["decoder"]
+    length, heads, cd = spec.max_len, spec.tf_heads, spec.cdtype
+    d_k = dec["layers"]["attn_1"]["q"]["w"].shape[-1] // heads
+    device = dec["pe"].device
+    per_layer = [layer_params(dec["layers"], i) for i in range(spec.tf_layers)]
+    pos = torch.arange(length, device=device)
+
+    def cross_state(e_outputs):
+        return {f"x{li}": _cross_kv(lp["attn_2"], e_outputs, heads, cd)
+                for li, lp in enumerate(per_layer)}
+
+    def init_self_state(rows: int):
+        out = {f"c{li}": tuple(torch.zeros((rows, heads, length, d_k), dtype=cd,
+                                           device=device) for _ in range(2))
+               for li in range(spec.tf_layers)}
+        if lineage:
+            row_local = (torch.arange(rows, device=device) % beam_tile).to(torch.int32)
+            out["anc"] = row_local[:, None].repeat(1, length)
+        return out
+
+    def step_fn(state, words, i_vec):
+        rows = words.shape[0]
+        rows_idx = torch.arange(rows, device=device)
+        i_long = i_vec.long()
+        x = embed(dec["embedding"], words)[:, None, :]
+        x = x.float() * (i_vec + 1).float().sqrt()[:, None, None] + dec["pe"][i_long][:, None]
+        masked = pos[None, :] > i_vec[:, None]                          # (rows, L)
+        anc = None
+        if lineage:
+            # this step's K and V land in each row's own slot: claim column
+            # i_vec[row] before attending
+            anc = state["anc"].clone()
+            anc[rows_idx, i_long] = (rows_idx % beam_tile).to(anc.dtype)
+            masked = masked.reshape(rows // beam_tile, beam_tile, 1, length)
+        else:
+            masked = masked[:, None, None, :]
+
+        def write(c, new):
+            c = c.clone()
+            c[rows_idx, :, i_long] = new[:, :, 0].to(c.dtype)
+            return c
+
+        def attend(attn_p, x2, cache):
+            q = _split_heads(dense(attn_p["q"], x2, cd), heads)
+            ck = write(cache[0], _split_heads(dense(attn_p["k"], x2, cd), heads))
+            cv = write(cache[1], _split_heads(dense(attn_p["v"], x2, cd), heads))
+            if lineage:
+                return _attend_lineage(attn_p, q, ck, cv, anc, masked, beam_tile, cd), (ck, cv)
+            return _attend_self(attn_p, q, ck, cv, masked, cd), (ck, cv)
+
+        cross = [state[f"x{li}"] for li in range(spec.tf_layers)]
+        caches, logits = _decoder_step(dec, per_layer, spec, x, state, cross, attend)
+        new_state = dict(state, **caches)
+        if lineage:
+            new_state["anc"] = anc
+        return new_state, logits
+
+    return step_fn, init_self_state, cross_state
 
 
 def decode_greedy_fast(params, spec: base.ModelSpec, e_outputs: torch.Tensor,

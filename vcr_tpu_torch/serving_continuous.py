@@ -1,0 +1,656 @@
+"""Continuous-batching caption serving: a pool of decode slots on the card.
+
+The counterpart of ``vcr_tpu/serving_continuous.py``. Whole-batch serving
+(``serving.build_captioner``) pays for its slowest row, and a new request
+waits for the batch to drain. Here a fixed pool of R decode slots advances
+one token at a time across every slot; the host harvests the slots that
+finished and refills them from a request queue.
+
+* Admission encodes a fixed-size chunk of A videos through the family's
+  encoder (kernel B1 for S2VT's encode and prime, S2VT-att's encode and
+  SpatialNet-over-S2VT's prime; B2 for RationaleNet's generator), then
+  copies the valid rows into their slots (``index_copy_``: the rows of an
+  incomplete chunk are left out, so no row past the pool is ever written).
+* A tick advances every slot ``step_chunk`` tokens with the family's decode
+  cell: ``decode._s2vt_stepper``, ``decode._s2vt_att_stepper``, or the
+  Transformer's ``make_slot_stepper``, whose rows each carry a position.
+* A finished slot is not masked out of the cell: its row free-runs on
+  garbage that nobody reads until the next admission resets it. Only the
+  bookkeeping (last, steps, active, toks) is masked by ``active``, so a
+  slot's tokens equal the batch greedy's cut at its first eos.
+* Per tick the host reads the (R,) ``active`` flags and, when a slot
+  finished, the (R, L) tokens and (R,) lengths: nothing else leaves the
+  card.
+
+Every state leaf is a tensor of its own (admission writes rows in place).
+Each public operation runs under ``torch.inference_mode()``, whichever
+thread calls it; the kernels launch on that thread's current stream, the
+default one unless the caller chose another.
+
+Beam search (``beam_size=K``): each slot owns K adjacent rows running
+``decode.beam_search``'s step (two-stage top-k with ``lax.top_k``'s tie
+order, eos-clamped continuation, within-slot reorder); a slot's harvest is
+its best beam cut at the first eos, equal to the batch beam's best row. The
+Transformer's beam is the lineage slot stepper: reordering moves only the
+ancestry matrix.
+
+Sampling: each request's stream depends only on the request (its admission
+index and its row in the admission chunk) and the step, never on the pool's
+size or on other slots. At admission its (max_len, V) Gumbel block is drawn
+from a generator seeded with (seed, admission index, row); step s adds row
+s to the filtered logits and takes the argmax, the form of
+``jax.random.categorical``. RationaleNet's frame-selection noise of a chunk
+comes from a generator seeded with (seed, admission index). Both can be
+injected (``select_noise``, ``sample_noise``), as the tests inject the JAX
+package's noise: JAX's random streams cannot be reproduced in torch.
+
+Not ported: ``mesh`` (ROADMAP A15) and the quantized ``kv_cache`` /
+``decode_weights`` modes (A13) raise.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import deque
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vcr_tpu_torch.decode import NEG_INF, _s2vt_att_stepper, _s2vt_stepper, _top_k
+from vcr_tpu_torch.device import params_to, resolve_device
+from vcr_tpu_torch.models import base as model_base
+from vcr_tpu_torch.models import rationale, s2vt, s2vt_att, spatial
+from vcr_tpu_torch.models import transformer as tr
+from vcr_tpu_torch.nn.attention import bahdanau_project_keys
+from vcr_tpu_torch.nn.gumbel import sample_gumbel
+from vcr_tpu_torch.serving import resolve_eos_id
+
+_ARCHS = ("s2vt", "s2vt-att", "spatial", "rationale", "transformer")
+
+
+def _row_sampling_filters(logits: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
+                          topp: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``decode.apply_sampling_filters``: (R, V) logits filtered by
+    per-row temperature / top_k / top_p tensors (0 turns a filter off for
+    that row, as in the scalar version)."""
+    v = logits.shape[-1]
+    lg = logits.float() / temp.clamp(min=1e-6)[:, None]
+    sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+    k_idx = (topk.long() - 1).clamp(0, v - 1)[:, None]
+    kth = sorted_lg.gather(-1, k_idx)
+    lg = torch.where((topk[:, None] > 0) & (lg < kth), NEG_INF, lg)
+    probs = torch.softmax(lg, dim=-1)
+    sp = torch.sort(probs, dim=-1, descending=True).values
+    before = torch.cumsum(sp, dim=-1) - sp                      # mass above
+    keep = (before < topp[:, None]).sum(dim=-1, keepdim=True)
+    thresh = sp.gather(-1, (keep - 1).clamp(0, v - 1))
+    apply_p = (topp > 0.0) & (topp < 1.0)
+    return torch.where(apply_p[:, None] & (probs < thresh), NEG_INF, lg)
+
+
+def run_slot_scheduler(ops, requests: Iterable[Optional[Tuple[object, np.ndarray]]],
+                       *, poll_cancelled=None) -> Iterator[Tuple[object, np.ndarray]]:
+    """The host-side slot scheduler. ``ops`` supplies the device half:
+
+      slots / admit_chunk / step_chunk : pool geometry (ints)
+      stats : dict, in_flight : int    : observability (mutated here)
+      encode_admit(feats (A,...), ids (A,), valid (A,)) : encode a chunk and
+          copy it into the slots
+      tick() : advance all slots step_chunk tokens
+      poll_active() -> np.bool_ (R,)   : which slots still decode
+      read_tokens() -> (toks (R, L), steps (R,)) numpy
+
+    ``requests``: an iterable of (key, feats), or (key, feats, opts) where
+    ``opts`` is a per-request dict (sampling parameters); forwarding opts
+    needs ``ops.accepts_request_opts`` (a ValueError otherwise). Pulled
+    lazily, so a generator models live arrivals. A live source may yield
+    ``None`` as a poll marker ("nothing available right now"), which skips
+    admission for that round instead of blocking in-flight decodes; it ends
+    the stream by returning. Yields (key, tokens (n,) int32 ending at eos or
+    max_len) in COMPLETION order.
+
+    ``poll_cancelled`` (optional): a callable taking the set of outstanding
+    request keys (queued, and in flight where ``ops.release_slots`` exists)
+    and returning the subset to cancel. Queued cancels are dropped;
+    in-flight cancels release their slots through ``ops.release_slots(ids)``.
+    Cancelled keys are never yielded; ``ops.stats["cancelled"]`` counts
+    them.
+    """
+    a = ops.admit_chunk
+    accepts_opts = getattr(ops, "accepts_request_opts", False)
+    can_release = hasattr(ops, "release_slots")
+    queue: deque = deque()
+    req_iter = iter(requests)
+    pending: Dict[int, object] = {}       # slot -> request key
+    free = list(range(ops.slots - 1, -1, -1))
+    exhausted = False
+    feat_shape = None  # from the first request: SpatialNet's features are
+    #                    (N, F, K, K), the others' (N, Dv)
+
+    while True:
+        # refill the host-side queue enough to fill free slots
+        while not exhausted and len(queue) < min(len(free), a):
+            try:
+                item = next(req_iter)
+            except StopIteration:
+                exhausted = True
+                break
+            if item is None:      # poll marker: keep ticking
+                break
+            queue.append(item)
+        # sweep cancellations after the refill and before admission: a
+        # freshly pulled request is checked before it reaches the card, and a
+        # released slot is admittable this same round
+        if poll_cancelled is not None and (pending or queue):
+            outstanding = {it[0] for it in queue}
+            if can_release:
+                outstanding |= set(pending.values())
+            gone = poll_cancelled(outstanding)
+            if gone:
+                n_q = len(queue)
+                queue = deque(it for it in queue if it[0] not in gone)
+                n_cancel = n_q - len(queue)
+                slot_ids = [s for s, key in pending.items() if key in gone]
+                if slot_ids:
+                    ops.release_slots(np.asarray(slot_ids, np.int32))
+                    for s in slot_ids:
+                        pending.pop(s)
+                        free.append(s)
+                    n_cancel += len(slot_ids)
+                    ops.in_flight = len(pending)
+                ops.stats["cancelled"] = ops.stats.get("cancelled", 0) + n_cancel
+        # admit up to A requests into free slots (a fixed-shape chunk)
+        if queue and free:
+            n = min(len(queue), len(free), a)
+            if feat_shape is None:
+                feat_shape = tuple(np.asarray(queue[0][1]).shape)
+            feats = np.zeros((a,) + feat_shape, np.float32)
+            ids = np.zeros((a,), np.int32)
+            valid = np.zeros((a,), bool)
+            keys = []
+            chunk_opts = [None] * a
+            for j in range(n):
+                item = queue.popleft()
+                key, f = item[0], item[1]
+                opt = item[2] if len(item) > 2 else None
+                if opt and not accepts_opts:
+                    raise ValueError(
+                        f"request {key!r} carries opts {sorted(opt)} but this pool "
+                        "does not accept per-request options (greedy or beam mode)")
+                feats[j] = np.asarray(f, np.float32).reshape(feat_shape)
+                ids[j] = free.pop()
+                valid[j] = True
+                keys.append(key)
+                chunk_opts[j] = opt
+            ops.stats["admit_chunks"] += 1
+            if accepts_opts:
+                ops.encode_admit(feats, ids, valid, chunk_opts)
+            else:
+                ops.encode_admit(feats, ids, valid)
+            for j in range(n):
+                pending[int(ids[j])] = keys[j]
+            ops.in_flight = len(pending)
+
+        if not pending:
+            if exhausted and not queue:
+                return
+            continue
+
+        # advance all slots, then harvest finished ones
+        ops.tick()
+        ops.stats["ticks"] += 1
+        ops.stats["slot_steps"] += ops.slots * ops.step_chunk
+        active = ops.poll_active()
+        done = [s for s in pending if not active[s]]
+        if done:
+            toks, steps = ops.read_tokens()
+            for s in done:
+                ops.stats["served"] += 1
+                ops.stats["useful_steps"] += int(steps[s])
+                result = pending.pop(s), toks[s, : steps[s]].copy()
+                ops.in_flight = len(pending)
+                free.append(s)
+                yield result
+
+
+def _stream_seed(seed: int, *index) -> int:
+    """A generator seed from ``seed`` and an index tuple, the same on every
+    host and for every pool geometry."""
+    digest = hashlib.blake2b(repr((int(seed),) + index).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nests of dicts and tuples of one structure."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple):
+        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+class ContinuousCaptioner:
+    """The slot pool (see the module docstring).
+
+    Args:
+      params / spec: a model of any of the five families.
+      slots: R, the pool's size (the serving batch).
+      admit_chunk: A, videos encoded per admission (a fixed shape; the
+        queue is drained A at a time into free slots).
+      step_chunk: decode tokens per tick between host polls, at most
+        max_len.
+      eos_id / vocab: the end token (``serving.resolve_eos_id``).
+      rng: int seed of RationaleNet's frame selection and of the sampling
+        streams (see the module docstring).
+      mesh: not ported (ROADMAP A15); anything but None raises.
+      beam_size: K > 1 makes each slot a beam of K rows.
+      sample_temperature / sample_top_k / sample_top_p: temperature > 0
+        samples per slot (beam_size 1 only): the logits pass the row-wise
+        ``decode.apply_sampling_filters`` and each slot draws from its own
+        stream. top_k=1 is argmax and equals the greedy pool exactly.
+      request_sampling: accept per-request opts ({"temperature", "top_k",
+        "top_p"}, any subset), which override the pool's defaults for that
+        slot. A request without opts decodes greedily unless the pool
+        samples. Implied by sample_temperature > 0.
+      kv_cache / decode_weights: "bf16" (or None) only; the quantized modes
+        raise naming ROADMAP A13.
+      select_noise: (admission index) -> (A, N, 2) Gumbel noise of that
+        chunk's frame selection (RationaleNet); None draws it.
+      sample_noise: (admission index, chunk row) -> (max_len, padded vocab)
+        Gumbel noise of that request's sampling steps; None draws it.
+      device: where the pool lives: the card unless given (``"cpu"`` runs
+        the plain versions).
+    """
+
+    def __init__(self, params, spec: model_base.ModelSpec, *,
+                 slots: int = 64, admit_chunk: int = 8, step_chunk: int = 4,
+                 eos_id: Optional[int] = None, vocab=None, rng: Optional[int] = None,
+                 mesh=None, beam_size: int = 1,
+                 sample_temperature: float = 0.0, sample_top_k: int = 0,
+                 sample_top_p: float = 0.0, request_sampling: bool = False,
+                 kv_cache: Optional[str] = None, decode_weights: Optional[str] = None,
+                 select_noise: Optional[Callable] = None,
+                 sample_noise: Optional[Callable] = None, device=None):
+        if spec.arch not in _ARCHS:
+            raise NotImplementedError(f"continuous serving covers {_ARCHS}; got {spec.arch!r}")
+        if not 1 <= admit_chunk <= slots:
+            raise ValueError("need 1 <= admit_chunk <= slots")
+        if (sample_temperature > 0 or request_sampling) and beam_size > 1:
+            raise ValueError("per-slot sampling and beam search are mutually exclusive "
+                             "(beam maximizes sequence log-prob; sampling draws from it)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh-sharded slot pool is not ported yet: ROADMAP A15 (multi-device)")
+        model_base.check_serving_modes(kv_cache, decode_weights)
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.params = params_to(params, self.device)
+        self.slots = slots
+        self.admit_chunk = admit_chunk
+        self.step_chunk = min(step_chunk, spec.max_len)
+        self.beam_size = beam_size
+        self.eos_id = resolve_eos_id(spec, eos_id, vocab)
+        self.seed = 0 if rng is None else int(rng)
+        self.sample_temperature = sample_temperature
+        self.sample_top_k = sample_top_k
+        self.sample_top_p = sample_top_p
+        self._sample = sample_temperature > 0 or request_sampling
+        # the scheduler checks this before forwarding per-request opts
+        self.accepts_request_opts = self._sample
+        # per-row defaults for requests without opts: the pool's sampling
+        # knobs when set, else exact greedy (T=1, top_k=1 is argmax)
+        self._row_defaults = ((sample_temperature, sample_top_k, sample_top_p)
+                              if sample_temperature > 0 else (1.0, 1, 0.0))
+        self._select_noise = select_noise
+        self._sample_noise = sample_noise
+        self._admit_count = 0
+        self.stats = {"ticks": 0, "admit_chunks": 0, "served": 0,
+                      "useful_steps": 0, "slot_steps": 0, "cancelled": 0}
+        # occupied slots, kept by the scheduler: a polling request source
+        # blocks while the pool is idle and polls while decodes are in flight
+        self.in_flight = 0
+
+        # the decode cell's parameters: spatial and rationale decode through
+        # their wrapped captioner
+        if spec.arch in ("spatial", "rationale"):
+            model_base.base_module(spec)  # raises for an unknown base
+            self._dec_params = self.params["caption_net"]
+            self._base = spec.base_arch
+        else:
+            self._dec_params = self.params
+            self._base = spec.arch
+        rows = slots * beam_size
+        if self._base == "transformer":
+            self._slot_step, self._init_self, self._cross_state = tr.make_slot_stepper(
+                self._dec_params, spec, beam_tile=beam_size, lineage=beam_size > 1)
+        elif self._base == "s2vt":
+            self._s2vt_step = _s2vt_stepper(self._dec_params, spec, rows)
+        with torch.inference_mode():
+            self.state = self._init_state()
+
+    # ---------------------------------------------------------- device fns
+
+    def _zeros_dec_state(self, rows: int):
+        spec, dev = self.spec, self.device
+        if self._base == "transformer":
+            d_k = self._dec_params["decoder"]["layers"]["attn_2"]["k"]["w"].shape[-1] \
+                // spec.tf_heads
+
+            def zx():
+                return torch.zeros((rows, spec.tf_heads, spec.num_frames, d_k),
+                                   dtype=spec.cdtype, device=dev)
+            return {**self._init_self(rows),
+                    **{f"x{li}": (zx(), zx()) for li in range(spec.tf_layers)}}
+
+        def h():
+            return torch.zeros((rows, spec.hidden_size), dtype=torch.float32, device=dev)
+        if self._base == "s2vt":
+            return {"s1": h(), "s2": h()}
+        # eo is stored at the compute dtype: the context product reads it
+        # only through that cast, so the bits are the batch stepper's. pk
+        # stays float32: it enters tanh beside the float32 query uncast.
+        n = spec.num_frames
+        return {"h": h(),
+                "pk": torch.zeros((rows, n, spec.hidden_size), dtype=torch.float32,
+                                  device=dev),
+                "eo": torch.zeros((rows, n, spec.hidden_size), dtype=spec.cdtype,
+                                  device=dev)}
+
+    def _init_state(self):
+        r, l, dev = self.slots, self.spec.max_len, self.device
+
+        def i32(n, value=0):
+            return torch.full((n,), value, dtype=torch.int32, device=dev)
+        common = {"steps": i32(r),
+                  "active": torch.zeros((r,), dtype=torch.bool, device=dev),
+                  "toks": torch.zeros((r, l), dtype=torch.int32, device=dev)}
+        if self.beam_size == 1:
+            st = {"dec": self._zeros_dec_state(r), "last": i32(r, self.spec.sos_id),
+                  **common}
+            if self._sample:
+                t0, k0, p0 = self._row_defaults
+                st["stemp"] = torch.full((r,), t0, dtype=torch.float32, device=dev)
+                st["stopk"] = i32(r, k0)
+                st["stopp"] = torch.full((r,), p0, dtype=torch.float32, device=dev)
+                st["gumbel"] = torch.zeros((r, l, self.spec.padded_vocab_size),
+                                           dtype=torch.float32, device=dev)
+            return st
+        rows = r * self.beam_size
+        # each slot owns K adjacent rows; "steps" is the harvest length the
+        # scheduler reads (the best beam's first-eos cut), "gstep" counts the
+        # decode steps
+        return {"dec": self._zeros_dec_state(rows), "last": i32(rows, self.spec.sos_id),
+                "scores": torch.zeros((rows,), dtype=torch.float32, device=dev),
+                "bfin": torch.zeros((rows,), dtype=torch.bool, device=dev),
+                "btoks": torch.zeros((rows, l), dtype=torch.int32, device=dev),
+                "gstep": i32(r), **common}
+
+    def _select_noise_for(self, admit: int, shape) -> torch.Tensor:
+        if self._select_noise is not None:
+            return torch.as_tensor(self._select_noise(admit), dtype=torch.float32,
+                                   device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(
+            _stream_seed(self.seed, "select", admit))
+        return sample_gumbel(shape, gen, self.device)
+
+    def _sample_noise_for(self, admit: int, row: int) -> torch.Tensor:
+        if self._sample_noise is not None:
+            return torch.as_tensor(self._sample_noise(admit, row), dtype=torch.float32,
+                                   device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(
+            _stream_seed(self.seed, "sample", admit, row))
+        return sample_gumbel((self.spec.max_len, self.spec.padded_vocab_size), gen,
+                             self.device)
+
+    def _encode_chunk(self, feats: torch.Tensor, admit: int):
+        """(A, N, Dv) float32 (SpatialNet: (A, N, F, K, K)) -> the A rows of
+        decode state: one fixed-shape encoder forward per chunk. Features
+        enter as the batch decodes take them: at the compute dtype, except
+        SpatialNet's."""
+        spec, params, cd = self.spec, self.params, self.spec.cdtype
+        arch = spec.arch
+        if arch == "rationale":
+            vf = feats.to(cd)
+            noise = self._select_noise_for(admit, (*vf.shape[:2], 2))
+            feats, _ = rationale.generator(params["gen"], spec, vf, gumbel_noise=noise,
+                                           train=False)
+            params, arch = params["caption_net"], spec.base_arch
+        elif arch == "spatial":
+            outs, state, _, _ = spatial.encode_for_base(params, spec, feats, train=False)
+            cap = params["caption_net"]
+            if spec.base_arch == "s2vt":
+                return {"s1": state, "s2": s2vt._prime_state2(cap, spec, outs)}
+            return {"h": state, "eo": outs.to(cd),
+                    "pk": bahdanau_project_keys(cap["decoder"]["attention"], outs, cd)}
+        elif arch == "transformer":
+            vf = feats.to(cd)
+            e_out = tr.encode(params, spec, vf, tr.create_masks_inp(vf))
+            # the self caches ride along as zeros, so admission also resets
+            # the slot's caches
+            return {**self._init_self(feats.shape[0]), **self._cross_state(e_out)}
+        else:
+            feats = feats.to(cd)
+        if arch == "s2vt":
+            enc_outs, s1 = s2vt.encode(params, spec, feats)
+            return {"s1": s1, "s2": s2vt._prime_state2(params, spec, enc_outs)}
+        eo, h = s2vt_att.encode(params, spec, feats)
+        return {"h": h, "eo": eo.to(cd),
+                "pk": bahdanau_project_keys(params["decoder"]["attention"], eo, cd)}
+
+    def _admit(self, new_dec, slot_ids: np.ndarray, valid: np.ndarray,
+               row_opts=None, row_noise=None) -> None:
+        """Copy the valid rows of ``new_dec`` into their slots and reset the
+        slots' bookkeeping. Sampling also installs each request's filters
+        ``row_opts`` (temp, top_k, top_p) and Gumbel block ``row_noise``."""
+        st, dev, k = self.state, self.device, self.beam_size
+        sel = np.flatnonzero(valid)
+        rows_t = torch.as_tensor(sel, dtype=torch.long, device=dev)
+        ids = torch.as_tensor(slot_ids[sel], dtype=torch.long, device=dev)
+        new_rows = _tree_map(lambda x: x.index_select(0, rows_t), new_dec)
+        if k == 1:
+            _tree_map(lambda leaf, new: leaf.index_copy_(0, ids, new.to(leaf.dtype)),
+                      st["dec"], new_rows)
+            st["last"][ids] = self.spec.sos_id
+            if self._sample:
+                temp, topk, topp = row_opts
+                st["stemp"][ids] = torch.as_tensor(temp[sel], device=dev)
+                st["stopk"][ids] = torch.as_tensor(topk[sel], device=dev)
+                st["stopp"][ids] = torch.as_tensor(topp[sel], device=dev)
+                st["gumbel"].index_copy_(0, ids, row_noise)
+        else:
+            row_ids = (ids[:, None] * k + torch.arange(k, device=dev)[None]).reshape(-1)
+            tiled = _tree_map(lambda x: x.repeat_interleave(k, dim=0), new_rows)
+            _tree_map(lambda leaf, new: leaf.index_copy_(0, row_ids, new.to(leaf.dtype)),
+                      st["dec"], tiled)
+            if "anc" in st["dec"]:
+                # the lineage Transformer: re-arm each fresh group's ancestry
+                # to the local identity (the tiled rows copied beam 0's)
+                st["dec"]["anc"][row_ids] = (row_ids % k).to(torch.int32)[:, None]
+            # only beam 0 is live at step 0 (the K rows start as copies)
+            scores0 = torch.full((k,), NEG_INF, dtype=torch.float32, device=dev)
+            scores0[0] = 0.0
+            st["last"][row_ids] = self.spec.sos_id
+            st["scores"][row_ids] = scores0.repeat(len(sel))
+            st["bfin"][row_ids] = False
+            st["btoks"][row_ids] = 0
+            st["gstep"][ids] = 0
+        st["steps"][ids] = 0
+        st["active"][ids] = True
+        st["toks"][ids] = 0
+
+    def _cell(self, dec, words):
+        """One decode step of every row -> (new decode state, logits)."""
+        if self._base == "transformer":
+            steps = self.state["gstep"].repeat_interleave(self.beam_size) \
+                if self.beam_size > 1 else self.state["steps"]
+            return self._slot_step(dec, words, steps.clamp(max=self.spec.max_len - 1))
+        if self._base == "s2vt":
+            return self._s2vt_step(dec, words, 0)
+        step = _s2vt_att_stepper(self._dec_params, self.spec, dec["pk"], dec["eo"])
+        new_inner, logits = step({"h": dec["h"]}, words, 0)
+        return dict(dec, **new_inner), logits
+
+    def _step_once(self) -> None:
+        """Advance every slot one greedy or sampled token."""
+        st, l = self.state, self.spec.max_len
+        active = st["active"]
+        rows = torch.arange(self.slots, device=self.device)
+        # dead rows free-run unmasked; only the bookkeeping is masked
+        st["dec"], logits = self._cell(st["dec"], st["last"])
+        pos = st["steps"].clamp(max=l - 1).long()
+        if self._sample:
+            # each slot filters by its request's (temperature, top_k, top_p)
+            # and adds its own stream's noise for this step
+            filt = _row_sampling_filters(logits, st["stemp"], st["stopk"], st["stopp"])
+            nxt = (filt + st["gumbel"][rows, pos]).argmax(dim=-1).to(torch.int32)
+        else:
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+        st["toks"][rows, pos] = torch.where(active, nxt, st["toks"][rows, pos])
+        st["steps"] = st["steps"] + active.to(torch.int32)
+        st["active"] = active & (nxt != self.eos_id) & (st["steps"] < l)
+        st["last"] = torch.where(active, nxt, st["last"])
+
+    def _step_once_beam(self) -> None:
+        """One beam-search step of every slot's K rows (``decode.beam_search``'s
+        body), then the harvest view (toks/steps: the best beam cut at its
+        first eos) of the active slots. A slot finishes when all K beams
+        emitted eos."""
+        st, g, k, l = self.state, self.slots, self.beam_size, self.spec.max_len
+        dev, active = self.device, st["active"]
+        rows_idx = torch.arange(g * k, device=dev)
+        dec, logits = self._cell(st["dec"], st["last"])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        eos_only = torch.full((1, logp.shape[-1]), NEG_INF, device=dev)
+        eos_only[0, self.eos_id] = 0.0
+        cont = torch.where(st["bfin"][:, None], eos_only, logp)
+        s1, i1 = _top_k(st["scores"][:, None] + cont, k)
+        top_scores, top_idx = _top_k(s1.reshape(g, k * k), k)        # (G, K)
+        beam_idx = torch.div(top_idx, k, rounding_mode="floor")
+        word_idx = i1.reshape(g, k * k).gather(1, top_idx).to(torch.int32)
+        flat_src = (torch.arange(g, device=dev)[:, None] * k + beam_idx).reshape(-1)
+        if self._base == "transformer":
+            # lineage: only the ancestry moves, never the caches
+            dec = dict(dec, anc=dec["anc"][flat_src])
+        elif self._base == "s2vt":
+            dec = {name: x[flat_src] for name, x in dec.items()}
+        else:
+            # pk/eo are the video's, the same in a slot's K rows: only h moves
+            dec = dict(dec, h=dec["h"][flat_src])
+        st["dec"] = dec
+        btoks, bfin = st["btoks"][flat_src], st["bfin"][flat_src]
+        words = word_idx.reshape(-1)
+        btoks[rows_idx, st["gstep"].clamp(max=l - 1).long().repeat_interleave(k)] = words
+        bfin = bfin | (words == self.eos_id)
+        # dead slots: every bookkeeping leaf stays as it was
+        act_r = active.repeat_interleave(k)
+        st["btoks"] = torch.where(act_r[:, None], btoks, st["btoks"])
+        st["bfin"] = torch.where(act_r, bfin, st["bfin"])
+        st["scores"] = torch.where(act_r, top_scores.reshape(-1), st["scores"])
+        st["last"] = torch.where(act_r, words, st["last"])
+        gstep = st["gstep"] + active.to(torch.int32)
+        st["gstep"] = gstep
+        st["active"] = active & ~st["bfin"].reshape(g, k).all(dim=1) & (gstep < l)
+        b0 = st["btoks"].reshape(g, k, l)[:, 0]
+        iseos = b0 == self.eos_id
+        hsteps = torch.where(iseos.any(dim=1), iseos.to(torch.int32).argmax(dim=1) + 1,
+                             gstep).to(torch.int32)
+        st["toks"] = torch.where(active[:, None], b0, st["toks"])
+        st["steps"] = torch.where(active, hsteps, st["steps"])
+
+    # ----------------------------------------------- scheduler ops protocol
+
+    def encode_admit(self, feats: np.ndarray, ids: np.ndarray, valid: np.ndarray,
+                     opts=None) -> None:
+        self._admit_count += 1
+        admit = self._admit_count
+        with torch.inference_mode():
+            # only the valid rows cross to the card; the chunk's other rows
+            # are zeros there, as on the host
+            sel = np.flatnonzero(valid)
+            x = torch.zeros(feats.shape, dtype=torch.float32, device=self.device)
+            x[torch.as_tensor(sel, device=self.device)] = torch.as_tensor(
+                feats[sel], device=self.device)
+            new_dec = self._encode_chunk(x, admit)
+            if not self._sample:
+                return self._admit(new_dec, ids, valid)
+            a = ids.shape[0]
+            t0, k0, p0 = self._row_defaults
+            temp = np.full((a,), t0, np.float32)
+            topk = np.full((a,), k0, np.int32)
+            topp = np.full((a,), p0, np.float32)
+            # a request that carries opts starts from the pool's sampling
+            # config, or neutral (T=1, no top_k/top_p) when the pool is
+            # greedy by default: not from the argmax trick (1, 1, 0), which
+            # would keep ?temperature=5 greedy
+            bt, bk, bp = ((self.sample_temperature, self.sample_top_k, self.sample_top_p)
+                          if self.sample_temperature > 0 else (1.0, 0, 0.0))
+            for j, o in enumerate(opts or []):
+                if not o:
+                    continue
+                # sanitized here too: an exception on the scheduler thread
+                # ends the daemon. top_k clamped into int32; a non-finite or
+                # non-positive temperature (NaN fails every comparison) is
+                # greedy
+                t = float(o.get("temperature", bt))
+                topk[j] = min(max(int(o.get("top_k", bk)), 0), 2**31 - 1)
+                p = float(o.get("top_p", bp))
+                temp[j] = t if np.isfinite(t) else 0.0
+                topp[j] = p if 0.0 <= p <= 1.0 else 0.0
+                if not (temp[j] > 0):  # "temperature 0" = greedy
+                    temp[j], topk[j], topp[j] = 1.0, 1, 0.0
+            noise = torch.stack([self._sample_noise_for(admit, int(j))
+                                 for j in np.flatnonzero(valid)])
+            self._admit(new_dec, ids, valid, (temp, topk, topp), noise)
+
+    def tick(self) -> None:
+        step = self._step_once if self.beam_size == 1 else self._step_once_beam
+        with torch.inference_mode():
+            for _ in range(self.step_chunk):
+                step()
+
+    def poll_active(self) -> np.ndarray:
+        return self.state["active"].cpu().numpy()
+
+    def read_tokens(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.state["toks"].cpu().numpy(), self.state["steps"].cpu().numpy()
+
+    def check_feat_shape(self, shape) -> Optional[str]:
+        """None if a request of this feature shape is admissible, else the
+        reason. The HTTP front end refuses other shapes with a 400 before
+        they reach the scheduler thread."""
+        spec = self.spec
+        if spec.arch == "spatial":
+            if (len(shape) == 4 and shape[0] == spec.num_frames
+                    and shape[1] == spec.vid_feat_size
+                    and shape[2] == shape[3] and shape[2] >= 1):
+                return None
+            return (f"expected ({spec.num_frames}, {spec.vid_feat_size}, K, K) spatial "
+                    f"grid features, got {tuple(shape)}")
+        if tuple(shape) == (spec.num_frames, spec.vid_feat_size):
+            return None
+        return (f"expected ({spec.num_frames}, {spec.vid_feat_size}) features, "
+                f"got {tuple(shape)}")
+
+    def release_slots(self, ids: np.ndarray) -> None:
+        """Deactivate the slots of cancelled requests: their rows become dead
+        weight until the next admission instead of decoding to max_len."""
+        with torch.inference_mode():
+            self.state["active"][torch.as_tensor(np.asarray(ids, np.int64),
+                                                 device=self.device)] = False
+
+    # ------------------------------------------------------------ host loop
+
+    def caption_stream(self, requests: Iterable[Tuple[object, np.ndarray]],
+                       poll_cancelled=None) -> Iterator[Tuple[object, np.ndarray]]:
+        """Drive the pool over a request stream (:func:`run_slot_scheduler`:
+        poll markers, completion order, cancellation). ``self.stats``
+        accumulates across calls; useful_steps / slot_steps is the share of
+        slot-steps that produced a kept token."""
+        return run_slot_scheduler(self, requests, poll_cancelled=poll_cancelled)
+
+    def caption_all(self, feats_by_key: Dict[object, np.ndarray]
+                    ) -> Dict[object, np.ndarray]:
+        """Run a whole dict of requests to completion."""
+        return dict(self.caption_stream(feats_by_key.items()))

@@ -1,11 +1,12 @@
-"""Inference over a corpus split and the reference's checkpoint format: the
-counterpart of ``load_inference_state``, ``decode_corpus``,
-``greedy_captions``, ``verify_parity`` and ``export_reference_checkpoint`` in
+"""Inference over a corpus split, the serving daemon and the reference's
+checkpoint format: the counterpart of ``load_inference_state``,
+``decode_corpus``, ``greedy_captions``, ``serve_captions``,
+``verify_parity`` and ``export_reference_checkpoint`` in
 ``vcr_tpu/tools.py``.
 
-The JAX package's other tools are not ported yet: ``serve`` needs the
-continuous-batching daemon (ROADMAP A14), and the two ``export_*`` artifacts
-A16; their modes raise in :mod:`vcr_tpu_torch.cli`.
+The JAX package's two ``export_*`` artifacts are not ported yet (ROADMAP
+A16): their modes raise in :mod:`vcr_tpu_torch.cli`, and ``--mode serve``
+refuses a frozen continuous artifact.
 """
 
 from __future__ import annotations
@@ -142,6 +143,104 @@ def _write_json(results, out_file: Optional[str]) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
         with open(out_file, "w") as f:
             json.dump(results, f, indent=2)
+
+
+def _build_serving_pool(cfg: Config, checkpoint_path: str = "", device=None):
+    """(cfg, path) -> (continuous pool, vocab, arch). ``checkpoint_path`` is
+    a checkpoint or a save_path directory holding ``model_best`` (as
+    ``--serve_models`` entries give it); empty: ``cfg.save_path``'s best.
+    Shared by the single- and multi-model daemons."""
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
+    meta_path = os.path.join(checkpoint_path or "", "meta.json")
+    if checkpoint_path and os.path.isfile(meta_path):
+        with open(meta_path) as f:
+            if json.load(f).get("kind") == "continuous":
+                raise NotImplementedError(
+                    f"{checkpoint_path} is a frozen continuous-serving artifact; "
+                    "serving one is not ported yet: ROADMAP A16 (deployable artifacts)")
+    if checkpoint_path and os.path.isdir(os.path.join(checkpoint_path, "model_best")):
+        cfg = cfg.replace(save_path=checkpoint_path)
+        checkpoint_path = ""
+    if cfg.mesh_dp > 1:
+        raise NotImplementedError("--mesh_dp > 1: a mesh-sharded slot pool is not "
+                                  "ported yet: ROADMAP A15 (multi-device)")
+    cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
+    cc = ContinuousCaptioner(params, spec, slots=cfg.serve_slots,
+                             admit_chunk=cfg.serve_admit_chunk, vocab=vocab,
+                             beam_size=max(cfg.beam_size, 1),
+                             sample_temperature=cfg.sample_temperature,
+                             sample_top_k=cfg.sample_top_k,
+                             sample_top_p=cfg.sample_top_p,
+                             # opt-in: it swaps argmax for the sorting
+                             # filters on every token
+                             request_sampling=cfg.serve_request_sampling,
+                             kv_cache=cfg.serve_kv_cache,
+                             decode_weights=cfg.serve_decode_weights,
+                             rng=cfg.seed, device=device)
+    return cc, vocab, spec.arch
+
+
+def serve_captions(cfg: Config, checkpoint_path: str = "", block: bool = True,
+                   device=None):
+    """``--mode serve``: load a checkpoint and run the HTTP caption daemon
+    (:mod:`vcr_tpu_torch.server`) over a continuous-batching slot pool
+    (:mod:`vcr_tpu_torch.serving_continuous`) on ``device`` (the card by
+    default). ``--serve_port/--serve_slots/--serve_admit_chunk`` size it;
+    ``--serve_models name1=path1,name2=path2`` serves several checkpoints
+    from one port (:mod:`vcr_tpu_torch.multiserver`: POST
+    /caption/<name>, GET /models). Serves until SIGINT or SIGTERM; returns
+    the started server when ``block=False``."""
+    from vcr_tpu_torch.server import CaptionServer
+
+    max_pending = None if cfg.serve_max_pending < 0 else cfg.serve_max_pending
+    bounds = dict(request_timeout_s=cfg.serve_timeout_s, max_pending=max_pending,
+                  profile_dir=cfg.serve_profile_dir or None,
+                  auth_token=cfg.serve_auth_token or None,
+                  max_body_mb=cfg.serve_max_body_mb)
+    if cfg.serve_models:
+        from vcr_tpu_torch.multiserver import MultiCaptionServer
+
+        backends = {}
+        for entry in cfg.serve_models.split(","):
+            name, _, path = entry.partition("=")
+            name, path = name.strip(), path.strip()
+            if not name or not path:
+                raise ValueError(f"--serve_models entry {entry!r} is not name=path")
+            if name in backends:
+                # an overwrite would route one name's traffic to the other
+                # checkpoint and strand the first pool's memory
+                raise ValueError(f"duplicate model name {name!r} in --serve_models")
+            cc, vocab, _ = _build_serving_pool(cfg, path, device)
+            backends[name] = (cc, vocab)
+        server = MultiCaptionServer(backends, port=cfg.serve_port, **bounds).start()
+        print(f"serving {len(backends)} models ({', '.join(sorted(backends))}) on "
+              f"http://127.0.0.1:{server.port}: POST /caption/<model>, GET /models, "
+              "GET /healthz; Ctrl-C to stop", flush=True)
+    else:
+        cc, vocab, arch = _build_serving_pool(cfg, checkpoint_path, device)
+        server = CaptionServer(cc, vocab=vocab, port=cfg.serve_port, **bounds).start()
+        print(f"serving {arch} captions on http://127.0.0.1:{server.port} "
+              f"(R={cc.slots}, A={cc.admit_chunk}): POST /caption, GET /healthz; "
+              "Ctrl-C to stop", flush=True)
+    if not block:
+        return server
+    import signal
+    import threading
+
+    # SIGTERM drains like Ctrl-C: close() stops accepting, lets the
+    # scheduler finish in-flight decodes and releases waiting clients
+    stop = threading.Event()
+    prev = signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        while not stop.wait(1.0):
+            pass
+        print("SIGTERM: shutting down")
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        server.close()
 
 
 def verify_parity(cfg: Config, checkpoint_path: str, out_file: Optional[str] = None,

@@ -65,8 +65,12 @@ exit code and no result line:
    per beam or greedy decode call, B2 twice per RationaleNet step and eval
    step, B3 and B4 never. Finite losses, both checkpoints, one caption per
    val video. Then the train step's ms (the loop's StepTimer: one interval
-   at this shape), the eval pass's seconds split into device decode and
-   host metrics, and decode_corpus's captions/s at beam 1 and beam 5.
+   at this shape; the loop's input route, printed by the loop, must be the
+   C++ loader's "native"), both input routes over one epoch of the train
+   split (a first and a warm pass each; the page cache is warm on both,
+   since this run wrote the files) with their batches equal bit for bit,
+   the eval pass's seconds split into device decode and host metrics, and
+   decode_corpus's captions/s at beam 1 and beam 5.
    Last, float32 on the card against the CPU on a tiny corpus (6 train and
    3 val videos, H=16, dropout 0, 2 epochs, beam 3, TF32 off): the same
    validation METEOR, BLEU-4 and CIDEr each epoch, the same captions, and
@@ -147,6 +151,26 @@ exit code and no result line:
    lineage beam 5 at R=128) launches no kernel; its tokens/s beside phase
    10's KV-cached greedy; float32 card = CPU at R=4. RationaleNet's pool
    (R=256, A=64): B2 and B1 twice per admission chunk.
+12. quantized_serving -- the quantized serving modes at full width. The
+   Transformer's KV-cached greedy at B=512 through serving.build_captioner
+   in five (kv_cache, decode_weights) pairs: bf16/bf16, int8/bf16,
+   int4/bf16, bf16/int8, int8/int8. For each: no kernel launch, best and
+   median of 3 (CUDA events), captions/s, the cache's bytes read off the
+   slot stepper's tensors (self and cross, codes and scales) and held to
+   the arithmetic (codes a half or a quarter of bf16's, one float32 scale
+   per vector), token agreement with the bf16 call. The lineage beam 5 at
+   B=128 under an int8 cache. Float32, TF32 off: the quantizers on
+   identical inputs (K/V codes and scales of both modes, ties and a zero
+   vector included; the decoder's int8 weights) equal the CPU's bit for
+   bit; then the stepper at B=4 in every mode: tokens on the card equal
+   the CPU's, the last layer's cache codes equal but for a few (at most
+   5%) one step apart where the float32 sums' last bits moved a value
+   across a rounding boundary, logits within 1e-3 while no code differs,
+   else within the JAX package's envelope of the mode (0.05 int8, 0.8
+   int4). Then the flagship S2VT's pool (R=512, A=64) and
+   RationaleNet's (R=256) in bf16 and int8 decode weights, all requests
+   at once: B1 twice (and B2 twice for RationaleNet) per admission chunk
+   in both, captions/s, tokens int8 against bf16.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -234,6 +258,18 @@ CONT_CHECK_SLOTS = 4         # float32 pool, card vs CPU
 TF_CONT_SLOTS = 512          # the Transformer's greedy pool
 TF_CONT_BEAM_SLOTS = 128     # its lineage beam-5 pool
 RATIONALE_CONT_SLOTS = 256   # RationaleNet's pool
+QUANT_MODES = (("bf16", "bf16"), ("int8", "bf16"), ("int4", "bf16"), ("bf16", "int8"),
+               ("int8", "int8"))   # phase 12's (kv_cache, decode_weights) pairs
+QUANT_CHECK_BATCH = 4        # float32 card vs CPU in each quantized mode
+QUANT_CODE_FLIPS = 0.05      # share of the last layer's cache codes that may sit
+                             # one step apart, card vs CPU in float32 after 6
+                             # layers and 20 steps: values ~1e-5 apart near a
+                             # rounding boundary, and each flip moves later
+                             # steps' values (read 0.47% int8, 0.01% int4, 1.2%
+                             # int8 with int8 weights; the quantizers on
+                             # identical inputs are equal bit for bit)
+QUANT_ENVELOPE = {"bf16": LOGIT_TOL, "int8": 0.05, "int4": 0.8}  # logits once codes
+                             # differ: the JAX package's bounds (tests/test_kv_quant.py:185)
 TF_LINEAGE_GAP = 0.5         # lineage vs gather stepper, the lockstep logit gap
                              # bound of tpu_checks.py:230: products of other
                              # shapes round apart by a few bf16 quanta, a fault
@@ -635,6 +671,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
     float32 card against CPU on a tiny corpus."""
     from vcr_tpu_torch import cli, tools
     from vcr_tpu_torch.config import Config
+    from vcr_tpu_torch.data.pipeline import BatchIterator
     from vcr_tpu_torch.train import checkpoint, loop, optim
 
     def run(argv):
@@ -678,10 +715,13 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         bsize = ["--bsize", str(CLI_BATCH)]
 
         t0 = time.perf_counter()
-        train, launches["train"], _ = run(
+        train, launches["train"], out = run(
             data + model + bsize + ["--mode", "train", "--save_path", s2vt_dir,
                                     "--epochs", "2", "--beam_size", str(CLI_BEAM)])
         train_s = time.perf_counter() - t0
+        loop_route = [line.split(": ")[1].split()[0] for line in out.splitlines()
+                      if line.startswith("====> Input route: ")]
+        check(loop_route == ["native"], f"the train loop's input route: {loop_route}")
         # per epoch: each step, then each val batch's greedy eval step and beam
         want = expected_counts(2 * (2 * steps + (2 + 2) * val_batches))
         check(launches["train"] == want,
@@ -774,9 +814,27 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
 
         pipe_cfg = Config(data_dir=data[1], glove_emb_file="glove.txt", bsize=CLI_BATCH)
         train_it, _ = loop.make_datasets(pipe_cfg, loop.load_vocab(pipe_cfg))
-        t0 = time.perf_counter()
-        host_batches = list(train_it)
-        pipeline_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+        routes = {"native": train_it, "numpy": BatchIterator(
+            train_it.ds, CLI_BATCH, shuffle=True, seed=pipe_cfg.seed,
+            num_threads=pipe_cfg.nworkers, use_native=False)}
+        check({r: it.route for r, it in routes.items()}
+              == {"native": "native", "numpy": "numpy"}, "the loader routes")
+        pipeline_ms, first_epoch = {r: {} for r in routes}, {}
+        for name in ("first_pass", "warm_pass"):
+            for route, it in routes.items():
+                it.epoch = 0
+                t0 = time.perf_counter()
+                epoch = list(it)
+                pipeline_ms[route][name] = (time.perf_counter() - t0) * 1e3 / len(epoch)
+                first_epoch.setdefault(route, epoch)
+        check(len(first_epoch["native"]) == len(first_epoch["numpy"]) == 2 and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k].view(np.uint8),
+                                                        b[k].view(np.uint8))
+            for a, b in zip(first_epoch["native"], first_epoch["numpy"])
+            for k in ("vid_feats", "sent", "sent_len", "valid", "sample_idx")),
+              "the native and numpy routes' batches differ")
+        host_batches = first_epoch["native"]
+        del first_epoch
         copy_ms = time_ms(lambda: train_step_mod.device_batch(host_batches[0], "cuda"))
         fspec, fparams = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
         fopt = optim.build_optimizer("adam", 2e-3, 4e-5, 1.0)
@@ -853,8 +911,18 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
     # 2 batches an epoch and the timer reset each epoch: the loop's StepTimer
     # holds one interval, so this is one reading, not a median
     emit("cli_train_step", batch=CLI_BATCH, step_ms_one_interval=train["perf/step_ms_p50"],
-         steps_timed=train["perf/steps"], input_pipeline_ms_per_batch=pipeline_ms,
+         steps_timed=train["perf/steps"], loop_input_route=loop_route[0],
+         input_pipeline_ms_per_batch=pipeline_ms["native"]["warm_pass"],
          copy_to_card_ms=copy_ms, train_step_alone_ms=step_ms,
+         nworkers=pipe_cfg.nworkers, nvidia_smi=smi)
+    # one epoch of the train split (2 batches of (256, 30, 4096) float32,
+    # 126 MB each) per route; the files were written by this run a minute
+    # before, so even the first pass reads them from the page cache
+    emit("cli_input_pipeline", batch=CLI_BATCH, videos=CLI_TRAIN_VIDEOS,
+         batch_bytes=CLI_BATCH * 30 * 4096 * 4, input_pipeline_ms_per_batch=pipeline_ms,
+         page_cache="warm on both passes: the files were written by this run",
+         batches_equal_bit_for_bit=True, loop_input_route=loop_route[0],
+         loop_step_ms_one_interval=train["perf/step_ms_p50"],
          nworkers=pipe_cfg.nworkers, nvidia_smi=smi)
     emit("cli_eval", batch=CLI_BATCH, beam=CLI_BEAM, videos=CLI_VAL_VIDEOS,
          decode_seconds=evaluation["eval_decode_s"],
@@ -1715,6 +1783,210 @@ def continuous_phase(cuda_gru, cuda_lstm, smi, tf_timing):
             "kernel_cases": cases, "kernel_timing": kernel_timing}
 
 
+def cache_bytes(state) -> dict:
+    """Bytes of a Transformer slot state's caches, read off its tensors:
+    the self ("c*") and cross ("x*") K/V, codes and scales apart."""
+    out = {"self_codes": 0, "self_scales": 0, "cross_codes": 0, "cross_scales": 0}
+    for name, leaves in state.items():
+        if name == "anc":
+            continue
+        side = "self" if name.startswith("c") else "cross"
+        for t in leaves:
+            kind = "scales" if t.dtype == torch.float32 else "codes"
+            out[f"{side}_{kind}"] += t.numel() * t.element_size()
+    return out
+
+
+def quantized_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 12: the quantized serving modes at full width: the
+    Transformer's KV-cached greedy in each mode, its lineage beam under an
+    int8 cache, the int8-weight pools of the flagship S2VT and of
+    RationaleNet, and float32 card against CPU in every mode; returns the
+    W8 pools' launch counts for the kernels line."""
+    from vcr_tpu_torch import decode, entry, serving
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.models import transformer as tr
+    from vcr_tpu_torch.ops import kvquant
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
+    t_phase = time.perf_counter()
+    spec, params = entry.make_spec_and_params(**entry.TRANSFORMER, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    feats = torch.randn((TF_FAST_BATCH, spec.num_frames, spec.vid_feat_size),
+                        generator=gen, device="cuda")
+    heads, d_k = spec.tf_heads, tr._attn_hidden(params["decoder"]["layers"]) // spec.tf_heads
+    with torch.inference_mode():
+        e_out = tr.encode(params, spec, feats.to(spec.cdtype),
+                          tr.create_masks_inp(feats))
+    runs, base = {}, None
+    for kv, dw in QUANT_MODES:
+        name = f"{kv}_kv_{dw}_weights"
+        cap = serving.build_captioner(params, spec, kv_cache=kv, decode_weights=dw)
+        tokens, counts = counted(cuda_gru, cuda_lstm, lambda: cap(feats))
+        check(counts == expected_counts(0) and tokens.shape == (TF_FAST_BATCH, spec.max_len),
+              f"the Transformer's {name} greedy launched {counts} or gave {tokens.shape}")
+        best, median = median_best_ms(lambda: cap(feats))
+        _, init_self, cross = tr.make_slot_stepper(params, spec, kv_cache=kv,
+                                                   decode_weights=dw)
+        with torch.inference_mode():
+            nbytes = cache_bytes({**init_self(TF_FAST_BATCH), **cross(e_out)})
+        base = tokens if base is None else base
+        runs[name] = {"kv_cache": kv, "decode_weights": dw, "best_ms": best,
+                      "median_ms": median, "captions_per_s": TF_FAST_BATCH / (best / 1e3),
+                      "cache_bytes": nbytes,
+                      "token_agreement_vs_bf16": (tokens == base).float().mean().item(),
+                      "launches": counts}
+        del cap
+    # the cache bytes against the arithmetic: codes a half (int8) or a
+    # quarter (int4) of bf16's, plus one float32 scale per vector
+    vectors = {"self": TF_FAST_BATCH * heads * spec.max_len * 2 * spec.tf_layers,
+               "cross": TF_FAST_BATCH * heads * spec.num_frames * 2 * spec.tf_layers}
+    bf16 = runs["bf16_kv_bf16_weights"]["cache_bytes"]
+    for name, run in runs.items():
+        got, divide = run["cache_bytes"], {"bf16": 1, "int8": 2, "int4": 4}[run["kv_cache"]]
+        for side in ("self", "cross"):
+            check(got[f"{side}_codes"] * divide == bf16[f"{side}_codes"]
+                  == vectors[side] * d_k * 2
+                  and got[f"{side}_scales"] == (0 if divide == 1 else vectors[side] * 4),
+                  f"{name}: {side} cache bytes {got} against bf16's {bf16}")
+        run["cache_bytes_ratio_vs_bf16"] = sum(got.values()) / sum(bf16.values())
+
+    # the lineage beam 5 under an int8 cache
+    beam_feats = feats[:TF_BEAM_BATCH].to(spec.cdtype)
+
+    def lineage():
+        with torch.inference_mode():
+            return decode.transformer_beam_decode_fast(params, spec, beam_feats, TF_BEAM,
+                                                       spec.sos_id + 1, lineage=True,
+                                                       kv_cache="int8")
+    (btok, bscores), bcounts = counted(cuda_gru, cuda_lstm, lineage)
+    check(bcounts == expected_counts(0) and btok.shape == (TF_BEAM_BATCH, TF_BEAM,
+                                                           spec.max_len)
+          and all_finite(bscores), f"the int8 lineage beam launched {bcounts}")
+    bbest, bmedian = median_best_ms(lineage)
+    runs["lineage_beam5_int8_kv"] = {"batch": TF_BEAM_BATCH, "beam": TF_BEAM,
+                                     "best_ms": bbest, "median_ms": bmedian,
+                                     "captions_per_s": TF_BEAM_BATCH / (bbest / 1e3),
+                                     "launches": bcounts}
+
+    # float32 card against CPU in every mode, at a small batch: codes,
+    # tokens and logits
+    # the quantizers themselves on identical inputs, card against CPU: the
+    # K/V codes and scales of every mode (a zero vector and exact ties
+    # included) and the decoder's int8 weights, bit for bit
+    qgen = torch.Generator().manual_seed(15)
+    vecs = torch.randn((64, 8, 20, d_k), generator=qgen) * 3
+    vecs[0, 0, 0] = 0.0
+    halves = (torch.arange(d_k) % 7 + 0.5) * (1 - 2 * (torch.arange(d_k) % 2))
+    vecs[1, 0, 0], vecs[1, 0, 1] = halves, halves              # amax 7: ties under
+    vecs[1, 0, 0, 0], vecs[1, 0, 1, 0] = 7.0, 127.0          # int4; 127: under int8
+    for mode in ("int8", "int4"):
+        got = kvquant.quantize_store(vecs.cuda(), mode)
+        want = kvquant.quantize_store(vecs, mode)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"{mode} K/V codes or scales of identical inputs differ, card vs CPU")
+    wq_card = tr.quantize_decoder_params(params)["decoder"]
+    wq_cpu = tr.quantize_decoder_params(params_to(params, "cpu"))["decoder"]
+    check(all(torch.equal(wq_card[k]["wq"].cpu(), wq_cpu[k]["wq"])
+              and torch.equal(wq_card[k]["ws"].cpu(), wq_cpu[k]["ws"])
+              for k in ("pred_linear",))
+          and torch.equal(wq_card["layers"]["ff"]["linear_1"]["wq"].cpu(),
+                          wq_cpu["layers"]["ff"]["linear_1"]["wq"]),
+          "int8 decode weights of identical weights differ, card vs CPU")
+    del wq_card, wq_cpu
+
+    spec32 = spec.with_(compute_dtype="float32")
+    encoded = []
+    for device in ("cuda", "cpu"):
+        p = params_to(params, device)
+        x = feats[:QUANT_CHECK_BATCH].to(device)
+        with torch.inference_mode():
+            encoded.append((device, p, tr.encode(p, spec32, x, tr.create_masks_inp(x))))
+    last = f"c{spec.tf_layers - 1}"
+    f32_gap = {}
+    for kv, dw in QUANT_MODES:
+        per_device = []
+        for device, p, eo in encoded:
+            with torch.inference_mode():
+                step, st = tr.make_cached_stepper(p, spec32, eo, kv_cache=kv,
+                                                  decode_weights=dw)
+                words = torch.full((QUANT_CHECK_BATCH,), spec.sos_id, dtype=torch.int32,
+                                   device=device)
+                logits, toks = [], []
+                for i in range(spec.max_len):
+                    st, lg = step(st, words, i)
+                    words = lg.argmax(-1).to(torch.int32)
+                    logits.append(lg.cpu())
+                    toks.append(words.cpu())
+            per_device.append((torch.stack(logits), torch.stack(toks),
+                               [t.cpu() for t in st[last] if t.dtype != torch.float32]))
+        (cl, ct, cc), (pl, pt, pc) = per_device
+        # the card's float32 sums differ from the CPU's in their last bits,
+        # and 6 layers and 20 steps carry that on: a code whose value sits
+        # near a rounding boundary moves by one step, and then the logits by
+        # up to the JAX package's envelope of the mode
+        # (tests/test_kv_quant.py:185); codes 2 or more apart are a fault
+        code_gap = [(kvquant.unpack(a).int() - kvquant.unpack(b).int()).abs()
+                    for a, b in zip(cc, pc)]
+        flipped = sum(int((g > 0).sum()) for g in code_gap)
+        n_codes = sum(g.numel() for g in code_gap)
+        bound = LOGIT_TOL if flipped == 0 else QUANT_ENVELOPE[kv]
+        f32_gap[f"{kv}_kv_{dw}_weights"] = {"logits": max_err(cl, pl), "logit_bound": bound,
+                                             "codes_one_step_apart": flipped,
+                                             "codes": n_codes}
+        check(torch.equal(ct, pt) and max_err(cl, pl) <= bound
+              and all(int(g.max()) <= 1 for g in code_gap if g.numel())
+              and flipped <= QUANT_CODE_FLIPS * n_codes,
+              f"float32 {kv}/{dw} card vs CPU: tokens, codes ({flipped} of {n_codes}) "
+              f"or logits ({max_err(cl, pl)}) differ")
+    emit("quantized_transformer", batch=TF_FAST_BATCH, runs=runs,
+         f32_check_batch=QUANT_CHECK_BATCH, f32_logit_gap=f32_gap,
+         f32_tokens_card_eq_cpu=True, f32_code_flip_bound=QUANT_CODE_FLIPS,
+         quantizers_card_eq_cpu_bit_for_bit=True,
+         nvidia_smi=smi)
+    del params, e_out, encoded
+
+    # the int8-weight pools: the flagship S2VT's (B1 twice per admission
+    # chunk) against its bf16 pool, RationaleNet's (B2 and B1 twice)
+    pools = {}
+    np_feats = np.random.default_rng(14).standard_normal(
+        (CONT_SLOTS, spec.num_frames, spec.vid_feat_size), dtype=np.float32)
+    for name, cfg, slots in (("s2vt", entry.FLAGSHIP, CONT_SLOTS),
+                             ("rationale", entry.RATIONALE, RATIONALE_CONT_SLOTS)):
+        pspec, pparams = entry.make_spec_and_params(**cfg, device="cuda")
+        requests = dict(enumerate(np_feats[:slots]))
+        out = {}
+        for dw in ("bf16", "int8"):
+            pool = ContinuousCaptioner(pparams, pspec, slots=slots, admit_chunk=CONT_ADMIT,
+                                       decode_weights=dw)
+            pool.caption_all(dict(enumerate(np_feats[:CONT_ADMIT])))        # first use
+            chunks = pool.stats["admit_chunks"]
+            t0 = time.perf_counter()
+            got, counts = counted(cuda_gru, cuda_lstm, lambda: pool.caption_all(requests))
+            dt = time.perf_counter() - t0
+            chunks = pool.stats["admit_chunks"] - chunks
+            want = expected_counts(b1=2 * chunks, b2=2 * chunks if name == "rationale" else 0)
+            check(counts == want and len(got) == slots,
+                  f"the {name} {dw}-weight pool launched {counts} in {chunks} chunks, "
+                  f"not {want}, or lost requests")
+            out[dw] = {"tokens": got, "seconds": dt, "captions_per_s": slots / dt,
+                       "admit_chunks": chunks, "launches": counts}
+            del pool
+        agreement = token_agreement([out["int8"]["tokens"][k] for k in requests],
+                                    [out["bf16"]["tokens"][k] for k in requests])
+        pools[name] = {"slots": slots, "admit_chunk": CONT_ADMIT,
+                       "token_agreement_int8_vs_bf16": agreement,
+                       **{dw: {k: v for k, v in o.items() if k != "tokens"}
+                          for dw, o in out.items()}}
+        del pparams
+    emit("quantized_pools", pools=pools, phase_seconds=time.perf_counter() - t_phase,
+         nvidia_smi=smi)
+    return {"s2vt_w8": pools["s2vt"]["int8"]["launches"],
+            "s2vt_w8_admit_chunks": pools["s2vt"]["int8"]["admit_chunks"],
+            "rationale_w8": pools["rationale"]["int8"]["launches"],
+            "rationale_w8_admit_chunks": pools["rationale"]["int8"]["admit_chunks"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1722,6 +1994,7 @@ def main() -> int:
         return 2
 
     from vcr_tpu_torch import entry, serving
+    from vcr_tpu_torch.data import native
     from vcr_tpu_torch.device import params_to
     from vcr_tpu_torch.models import rationale, s2vt
     from vcr_tpu_torch.nn.layers import vdot
@@ -1743,10 +2016,10 @@ def main() -> int:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for built in [pool.submit(lib) for lib in
-                      (cuda_gru._lib, cuda_gru._dma_lib, cuda_lstm._lib)]:
+                      (cuda_gru._lib, cuda_gru._dma_lib, cuda_lstm._lib, native.get_lib)]:
             built.result()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
-         kernels=["gru_seq", "gru_seq_dma", "lstm_seq"])
+         kernels=["gru_seq", "gru_seq_dma", "lstm_seq"], host_libraries=["npy_loader"])
 
     # 3. kernels against their plain versions on the card
     spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
@@ -2251,6 +2524,9 @@ def main() -> int:
 
     # 11. continuous batching: the slot pools and the HTTP daemon
     cont = continuous_phase(cuda_gru, cuda_lstm, smi, tf["timing"])
+
+    # 12. the quantized serving modes
+    quant = quantized_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -2274,6 +2550,9 @@ def main() -> int:
         "launches_continuous_daemon": cont["daemon"]["gru_seq"],
         "continuous_daemon_admit_chunks": cont["daemon_admit_chunks"],
         "launches_continuous_rationale": cont["rationale"]["gru_seq"],
+        "launches_w8_pool": quant["s2vt_w8"]["gru_seq"],
+        "w8_pool_admit_chunks": quant["s2vt_w8_admit_chunks"],
+        "launches_w8_rationale_pool": quant["rationale_w8"]["gru_seq"],
         "at_admission_batch": cont["kernel_timing"]["gru_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
                                                 "gru_seq"),
@@ -2327,6 +2606,8 @@ def main() -> int:
         "launches_transformer": tf["greedy"]["lstm_seq"],
         "launches_continuous_rationale": cont["rationale"]["lstm_seq"],
         "continuous_rationale_admit_chunks": cont["rationale_admit_chunks"],
+        "launches_w8_rationale_pool": quant["rationale_w8"]["lstm_seq"],
+        "w8_rationale_pool_admit_chunks": quant["rationale_w8_admit_chunks"],
         "at_admission_batch": cont["kernel_timing"]["lstm_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
                                                 "lstm_seq"),

@@ -2,8 +2,9 @@
 line's dispatch and flags (port 0, the pool's size from --serve_*), the
 caption a client gets against --mode decode's greedy caption of the same
 checkpoint, --serve_models, ``python -m vcr_tpu_torch.cli --mode serve`` as a
-process that stops on SIGTERM, and the refusals: a frozen continuous
-artifact (A16), the quantized modes (A13), --mesh_dp (A15)."""
+process that stops on SIGTERM, int8 decode weights, and the refusals: a
+frozen continuous artifact (A16), a quantized KV cache on a family that has
+no attention cache, --mesh_dp (A15)."""
 
 import json
 import os
@@ -13,11 +14,13 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from vcr_tpu_torch import cli
 from vcr_tpu_torch import tools as ttools
 from vcr_tpu_torch.client import CaptionClient
 from vcr_tpu_torch.config import get_config
+from vcr_tpu_torch.decode import decode_tokens
 
 sys.path.insert(0, os.path.dirname(__file__))
 from util_corpus import build_corpus  # noqa: E402
@@ -122,10 +125,28 @@ def test_serve_refusals(trained, tmp_path):
         ttools.serve_captions(cfg, str(art), block=False, device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         ttools.serve_captions(cfg.replace(mesh_dp=2), block=False, device="cpu")
-    for flags in ({"serve_kv_cache": "int8"}, {"serve_kv_cache": "int4"},
-                  {"serve_decode_weights": "int8"}):
-        with pytest.raises(NotImplementedError, match="A13"):
-            get_config(_argv(trained, mode="serve", **flags))
+    # the quantized modes are ported (A13): S2VT has no attention cache to
+    # quantize (ValueError), and its int8 decode weights serve: the client
+    # gets the int8-weight beam 1's caption
+    for flags in ({"serve_kv_cache": "int8"}, {"serve_kv_cache": "int4"}):
+        cfg_q, _ = get_config(_argv(trained, mode="serve", serve_port=0, **flags))
+        with pytest.raises(ValueError, match="has none"):
+            ttools.serve_captions(cfg_q, block=False, device="cpu")
+    cfg_q, _ = get_config(_argv(trained, mode="serve", serve_port=0, serve_slots=2,
+                                serve_admit_chunk=1, serve_decode_weights="int8"))
+    feats = np.random.default_rng(1).standard_normal((4, 12)).astype(np.float32)
+    _, params, spec, vocab = ttools.load_inference_state(cfg_q, device="cpu")
+    row = decode_tokens(params, spec, torch.from_numpy(feats[None]), vocab.eos_id, 1,
+                        decode_weights="int8")[0][0, 0].tolist()
+    server = ttools.serve_captions(cfg_q, block=False, device="cpu")
+    try:
+        assert server.captioner.decode_weights == "int8"
+        tokens, _ = CaptionClient(f"http://127.0.0.1:{server.port}", timeout_s=TIMEOUT,
+                                  retries=0).caption(feats)
+        assert tokens == (row[: row.index(vocab.eos_id) + 1] if vocab.eos_id in row
+                          else row)
+    finally:
+        server.close()
     with pytest.raises(NotImplementedError, match="A15"):
         get_config(_argv(trained, mode="serve", mesh_dp=2))
     save = os.path.join(trained, "models")

@@ -280,18 +280,19 @@ def test_captioner_refuses_conflicting_decode_options(s2vt, kwargs):
 def test_decode_refusals(s2vt):
     _, _, tspec, tparams, feats = s2vt
     x = torch.from_numpy(feats)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdecode.decode_tokens(tparams, tspec, x, 1, 2, decode_weights="int8")
+    # int8 decode weights are ported (A13): an unknown mode still raises
+    with pytest.raises(ValueError, match="decode_weights"):
+        tdecode.decode_tokens(tparams, tspec, x, 1, 2, decode_weights="int4")
     # S2VT-att decodes since A9, SpatialNet since A11 and the Transformer
     # since A12; an unknown architecture takes the first's place, and the
-    # Transformer's case holds its quantized modes (A13), refused before its
-    # encoder runs
+    # Transformer's case holds what its modes still refuse, before its
+    # encoder runs: int8 weights on the parity beam, an unknown cache mode
     with pytest.raises(NotImplementedError, match="Unknown"):
         tdecode.decode_tokens(tparams, tspec.with_(arch="lstm-lm"), x, 1, 2)
     with pytest.raises(NotImplementedError, match="Unknown"):
         tdecode.sample_tokens(tparams, tspec.with_(arch="lstm-lm"), x, 1)
     tf = tspec.with_(arch="transformer")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="parity beam"):
         tdecode.decode_tokens(tparams, tf, x, 1, 2, decode_weights="int8")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdecode.transformer_beam_decode_fast(tparams, tf, x, 2, 1, kv_cache="int8")
+    with pytest.raises(ValueError, match="kv_cache"):
+        tdecode.transformer_beam_decode_fast(tparams, tf, x, 2, 1, kv_cache="int2")

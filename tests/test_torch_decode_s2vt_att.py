@@ -156,10 +156,19 @@ def test_bf16_beam_decode_matches_jax():
 
 
 def test_int8_decode_weights_raise(att):
-    _, _, tspec, tparams, feats = att
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdecode.decode_tokens(tparams, tspec, torch.from_numpy(feats), 1, 2,
-                              decode_weights="int8")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tserving.build_captioner(tparams, tspec, beam_size=2, decode_weights="int8",
-                                 device="cpu")
+    """int8 decode weights (A13) are ported: the beam runs them, with JAX's
+    tokens, and build_captioner's beam forwards them; its greedy batch
+    decode has no int8-weight form and still raises (ValueError, naming the
+    slot pool, which serves it)."""
+    jspec, jparams, tspec, tparams, feats = att
+    eos = jspec.sos_id + 1
+    jtok, _ = jdecode.decode_tokens(jparams, jspec, jnp.asarray(feats), eos, 2,
+                                    decode_weights="int8")
+    ttok, _ = tdecode.decode_tokens(tparams, tspec, torch.from_numpy(feats), eos, 2,
+                                    decode_weights="int8")
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    cap = tserving.build_captioner(tparams, tspec, beam_size=2, decode_weights="int8",
+                                   device="cpu")
+    assert torch.equal(cap(feats), ttok[:, 0])
+    with pytest.raises(ValueError, match="slot pool"):
+        tserving.build_captioner(tparams, tspec, decode_weights="int8", device="cpu")

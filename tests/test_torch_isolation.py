@@ -19,7 +19,7 @@ from vcr_tpu_torch.device import params_to
 from vcr_tpu_torch import decode
 from vcr_tpu_torch.models import s2vt_att, spatial, transformer
 from vcr_tpu_torch.nn import attention, layers, rnn
-from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+from vcr_tpu_torch.ops import cuda_gru, cuda_lstm, kvquant
 from vcr_tpu_torch.train import optim, step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler",
                  "nn.attention", "models.s2vt_att", "convert", "models.spatial",
                  "models.transformer", "serving_continuous", "server", "multiserver",
-                 "client"):
+                 "client", "ops.kvquant", "ops.wquant", "data.native"):
         assert f"vcr_tpu_torch.{name}" in mods
     assert "chip_smoke" in mods
     # nor what the JAX package's counterparts of the command line need:
@@ -58,6 +58,17 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
            if m.split(".")[0] in ("jax", "jaxlib", "vcr_tpu", "nltk", "orbax", "optax",
                                   "flax")]
     assert bad == []
+
+
+def test_native_code_reads_no_environment_variable():
+    """The kernels' and the loader's Python read no environment variable:
+    the modes and routes are arguments."""
+    pkg = os.path.join(ROOT, "vcr_tpu_torch")
+    paths = [os.path.join(pkg, "ops", f) for f in os.listdir(os.path.join(pkg, "ops"))
+             if f.endswith(".py")] + [os.path.join(pkg, "data", "native.py")]
+    for path in paths:
+        with open(path) as f:
+            assert "os.environ" not in f.read(), path
 
 
 def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
@@ -526,3 +537,40 @@ def test_conv2d_float32_on_the_card_ignores_cudnn_tf32(cuda, monkeypatch):
         out.append([y.detach().cpu()] + [t.cpu() for t in grads])
     assert torch.backends.cudnn.allow_tf32
     _assert_grads_close(out[1], out[0], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_quantized_stepper_on_the_card_equals_cpu(cuda, monkeypatch, kv):
+    """The Transformer's KV-cached stepper under a quantized cache and int8
+    weights, in float32 (TF32 off), the lineage form: the card's logits
+    agree with the CPU's to 1e-4 and its cache codes equal theirs but for
+    rare codes one step apart."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dims = dict(vocab_size=40, embed_size=16, hidden=32, vid_feat=64, max_len=6,
+                num_frames=5)
+    spec, params = entry.make_spec_and_params(**dims, arch="transformer", tf_layers=2,
+                                              tf_heads=4, compute_dtype="float32",
+                                              device="cpu")
+    feats = torch.randn((3, 5, 64), generator=torch.Generator().manual_seed(3))
+    words = torch.randint(0, 40, (6, 6), generator=torch.Generator().manual_seed(4),
+                          dtype=torch.int32)
+    runs = []
+    for device in ("cpu", cuda):
+        p = params_to(params, device)
+        x = feats.to(device)
+        eo = transformer.encode(p, spec, x, transformer.create_masks_inp(x))
+        step, st, _ = transformer.make_cached_stepper(
+            p, spec, eo, beam_tile=2, lineage=True, kv_cache=kv, decode_weights="int8")
+        logits = []
+        for i in range(spec.max_len):
+            st, lg = step(st, words[i].to(device), i)
+            logits.append(lg.cpu())
+        runs.append((logits, [t.cpu() for t in st["c1"]]))
+    for got, want in zip(runs[1][0], runs[0][0]):
+        assert (got - want).abs().max().item() <= 1e-4
+    # a code on a rounding tie may move by one where the card's float32 sums
+    # differ from the CPU's in the last bit: rare, never more than one step
+    for j in (0, 2):                                      # k and v codes
+        gap = (kvquant.unpack(runs[1][1][j]).int() - kvquant.unpack(runs[0][1][j]).int())
+        assert gap.abs().max().item() <= 1 and (gap != 0).float().mean().item() <= 0.02

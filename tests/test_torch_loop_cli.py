@@ -311,38 +311,43 @@ def test_preemption_signal_saves_and_resumes(tmp_path):
 
 
 # verify_parity and export_reference run since A8, train_spatial since A11,
-# the Transformer in each since A12 and serve since A14; their cases keep
-# their ids and hold what those modes still refuse: the quantized serving
-# modes (A13), and SpatialNet over a Transformer
+# the Transformer in each since A12, serve since A14 and the quantized
+# serving modes since A13; their cases keep their ids and hold what still
+# stands with those modes given: serving a frozen continuous artifact and
+# exporting one (A16), and SpatialNet over a Transformer
 @pytest.mark.parametrize("mode, extra, item", [
     *(pytest.param(m, [], cli.NOT_PORTED_MODES[m].split(" (")[0], id=m)
       for m in sorted(cli.NOT_PORTED_MODES)),
-    pytest.param("serve", ["--serve_kv_cache", "int8"], "A13", id="serve"),
-    pytest.param("export_reference", ["--arch", "transformer", "--serve_kv_cache", "int8"],
-                 "A13", id="export_reference"),
-    pytest.param("verify_parity", ["--arch", "transformer", "--serve_decode_weights",
-                                   "int8"], "A13", id="verify_parity"),
+    pytest.param("serve", ["--pretrained_base", "{artifact}", "--serve_kv_cache", "int8"],
+                 "A16", id="serve"),
+    pytest.param("export_serving", ["--arch", "transformer", "--serve_kv_cache", "int8"],
+                 "A16", id="export_reference"),
+    pytest.param("export_continuous", ["--arch", "transformer", "--serve_decode_weights",
+                                       "int8"], "A16", id="verify_parity"),
     pytest.param("train_spatial", ["--arch", "transformer"], "wraps S2VT or S2VT-att",
                  id="train_spatial")])
-def test_unported_modes_raise(mode, extra, item):
+def test_unported_modes_raise(mode, extra, item, tmp_path):
+    (tmp_path / "meta.json").write_text(json.dumps({"kind": "continuous"}))
+    extra = [str(tmp_path) if x == "{artifact}" else x for x in extra]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--mode", mode, "--device", "cpu", *extra])
 
 
-@pytest.mark.parametrize("argv, item", [
+@pytest.mark.parametrize("argv, exc, item", [
     # --arch s2vt-att trains since A9 and --mode train_spatial since A11; the
     # case keeps its id: a mesh axis of model parallelism
-    pytest.param(["--mesh_mp", "2"], "A15", id="argv0-A9"),
+    pytest.param(["--mesh_mp", "2"], NotImplementedError, "A15", id="argv0-A9"),
     # --arch transformer trains since A12; the case keeps its id and holds
     # RationaleNet over a Transformer, which neither package has
     pytest.param(["--arch", "transformer", "--mode", "train_rationale"],
-                 "wraps S2VT or S2VT-att", id="argv1-A12"),
-    (["--mesh_dp", "2"], "A15"),
-    # the serving daemon's fields parse since A14; the case keeps its id and
-    # holds a quantized serving mode (A13)
-    pytest.param(["--serve_kv_cache", "int4"], "A13", id="argv3-A14")])
-def test_unported_options_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+                 NotImplementedError, "wraps S2VT or S2VT-att", id="argv1-A12"),
+    (["--mesh_dp", "2"], NotImplementedError, "A15"),
+    # the serving daemon's fields parse since A14 and its quantized modes
+    # since A13; the case keeps its id and holds an unknown mode, refused
+    # before any data is read
+    pytest.param(["--serve_kv_cache", "int3"], ValueError, "kv_cache", id="argv3-A14")])
+def test_unported_options_raise(argv, exc, item):
+    with pytest.raises(exc, match=item):
         cli.main(["--mode", "train", "--device", "cpu", *argv])
 
 

@@ -78,24 +78,39 @@ def test_config_has_every_field_with_its_default():
         tconfig.get_config(["--device", "tpu"])
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--mesh_dp", "2"], "A15"), (["--mesh_mp", "2"], "A15"),
-    # the serving daemon's fields parse since A14; these cases keep their
-    # ids and hold the quantized serving modes (A13)
-    pytest.param(["--serve_kv_cache", "int4"], "A13", id="argv2-A14"),
-    pytest.param(["--serve_kv_cache", "int8"], "A13", id="argv3-A14"),
-    pytest.param(["--serve_decode_weights", "int8"], "A13", id="argv4-A14"),
+@pytest.mark.parametrize("argv, exc, item", [
+    (["--mesh_dp", "2"], NotImplementedError, "A15"),
+    (["--mesh_mp", "2"], NotImplementedError, "A15"),
+    # the serving daemon's fields parse since A14 and its quantized modes
+    # since A13 (test_config_takes_the_quantized_serving_modes); these cases
+    # keep their ids and hold what the modes still refuse: an unknown mode
+    pytest.param(["--serve_kv_cache", "int2"], ValueError, "kv_cache", id="argv2-A14"),
+    pytest.param(["--serve_kv_cache", "fp8"], ValueError, "kv_cache", id="argv3-A14"),
+    pytest.param(["--serve_decode_weights", "int4"], ValueError, "decode_weights",
+                 id="argv4-A14"),
     # --arch s2vt-att parses since A9; the case keeps its id, an unknown arch
-    pytest.param(["--arch", "lstm-lm"], "Unknown", id="argv5-A9"),
-    # --arch transformer parses since A12; the case keeps its id and holds what
-    # the Transformer still refuses on the command line: a quantized serving
-    # KV cache (A13)
-    pytest.param(["--arch", "transformer", "--serve_kv_cache", "int4"], "A13",
-                 id="argv6-A12"),
+    pytest.param(["--arch", "lstm-lm"], NotImplementedError, "Unknown", id="argv5-A9"),
+    # --arch transformer parses since A12 and its quantized serving modes
+    # since A13; the case keeps its id and holds what the Transformer still
+    # refuses on the command line: RationaleNet over it, which neither
+    # package has
+    pytest.param(["--arch", "transformer", "--mode", "train_rationale"],
+                 NotImplementedError, "wraps S2VT or S2VT-att", id="argv6-A12"),
 ])
-def test_config_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_config_refuses_what_is_not_ported(argv, exc, item):
+    with pytest.raises(exc, match=item):
         tconfig.get_config(argv)
+
+
+@pytest.mark.parametrize("kv, dw", [("int8", "bf16"), ("int4", "int8"), ("bf16", "int8")])
+def test_config_takes_the_quantized_serving_modes(kv, dw):
+    """The quantized serving modes parse and validate as the JAX package's
+    config takes them; --mode serve hands them to the slot pool."""
+    argv = ["--mode", "serve", "--arch", "transformer", "--serve_kv_cache", kv,
+            "--serve_decode_weights", dw]
+    cfg, _ = tconfig.get_config(argv)
+    assert (cfg.serve_kv_cache, cfg.serve_decode_weights) == (kv, dw)
+    assert cfg.to_dict() == jconfig.get_config(argv).to_dict()
 
 
 # ---------------------------------------------------------- vocab, captions

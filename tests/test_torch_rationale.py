@@ -194,7 +194,10 @@ def test_unported_rationale_options_raise(models):
         trationale.apply(tparams, other, torch.from_numpy(feats))
     with pytest.raises(NotImplementedError, match=unknown):
         tserving.build_captioner(tparams, other, device="cpu")
-    # beam search is ported (A6); its quantized decode weights are not (A13)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tserving.build_captioner(tparams, tspec, beam_size=3, decode_weights="int8",
-                                 device="cpu")
+    # beam search (A6) and its int8 decode weights (A13) are ported; the
+    # greedy batch decode has no int8-weight form (the slot pool serves it)
+    with pytest.raises(ValueError, match="slot pool"):
+        tserving.build_captioner(tparams, tspec, decode_weights="int8", device="cpu")
+    beam = tserving.build_captioner(tparams, tspec, beam_size=3, decode_weights="int8",
+                                    device="cpu")(feats)
+    assert beam.shape == (B, DIMS["max_len"])

@@ -11,6 +11,7 @@ import __graft_entry__ as graft
 from vcr_tpu import serving as jserving
 from vcr_tpu.models import s2vt as js2vt
 from vcr_tpu_torch import bridge, entry
+from vcr_tpu_torch import decode as tdecode
 from vcr_tpu_torch import serving as tserving
 from vcr_tpu_torch.models import base as tbase
 from vcr_tpu_torch.models import s2vt as ts2vt
@@ -113,20 +114,24 @@ def test_bf16_s2vt_matches_jax():
     assert (got_tok == want_tok).mean() >= BF16_TOKEN_AGREEMENT
 
 
-# Beam search and sampling (A6) are ported; the cases that named A6 now hold
-# the options still not ported (the quantized modes, A13) and keep their ids.
-@pytest.mark.parametrize("kwargs, item", [
-    ({"featurizer": "vgg16"}, "A17"),
-    pytest.param({"decode_weights": "int8"}, "A13", id="kwargs1-A6"),
-    pytest.param({"kv_cache": "int8"}, "A13", id="kwargs2-A6"),
-    pytest.param({"beam_size": 3, "decode_weights": "int8"}, "A13", id="kwargs3-A6"),
-    pytest.param({"sample_temperature": 0.7, "kv_cache": "int4"}, "A13",
+# Beam search and sampling (A6) are ported; the cases that named A6 then held
+# the quantized modes (A13), which are ported too. They keep their ids and
+# hold what still stands: S2VT's greedy batch decode has no int8-weight form
+# (the pool, the beam and sampling serve it), and a GRU family has no
+# attention cache to quantize (ValueError).
+@pytest.mark.parametrize("kwargs, exc, item", [
+    ({"featurizer": "vgg16"}, NotImplementedError, "A17"),
+    pytest.param({"decode_weights": "int8"}, ValueError, "slot pool", id="kwargs1-A6"),
+    pytest.param({"kv_cache": "int8"}, ValueError, "has none", id="kwargs2-A6"),
+    pytest.param({"beam_size": 3, "kv_cache": "int8"}, ValueError, "has none",
+                 id="kwargs3-A6"),
+    pytest.param({"sample_temperature": 0.7, "kv_cache": "int4"}, ValueError, "has none",
                  id="kwargs4-A6"),
-    ({"featurizer": "resnet"}, "A17"),
+    ({"featurizer": "resnet"}, NotImplementedError, "A17"),
 ])
-def test_unported_serving_options_raise(models, kwargs, item):
+def test_unported_serving_options_raise(models, kwargs, exc, item):
     _, _, tspec, tparams, _ = models
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         tserving.build_captioner(tparams, tspec, device="cpu", **kwargs)
 
 
@@ -134,12 +139,13 @@ def test_unported_serving_options_raise(models, kwargs, item):
 # and the Transformer (A12), are ported; their cases keep their ids and now
 # hold what is still refused: an unknown architecture, RationaleNet or
 # SpatialNet over a base that is no video captioner (a Transformer among
-# them), and the Transformer's quantized serving modes (A13).
+# them), and int8 weights on the Transformer's parity beam, which has no
+# stepper (its quantized serving modes, A13, are ported).
 @pytest.mark.parametrize("arch, item", [
     pytest.param("lstm-lm", "Unknown", id="s2vt-att-A9"),
     pytest.param("rationale", "unknown video captioning arch", id="rationale-A10"),
     pytest.param("spatial", "unknown video captioning arch", id="spatial-A11"),
-    pytest.param("transformer", "A13", id="transformer-A12")])
+    pytest.param("transformer", "parity beam", id="transformer-A12")])
 def test_unported_families_raise(models, arch, item):
     """What is still refused raises, naming its ROADMAP item where it has one."""
     _, _, tspec, tparams, feats = models
@@ -163,9 +169,9 @@ def test_unported_families_raise(models, arch, item):
         tf_spec, tf_params = entry.make_spec_and_params(
             **DIMS, arch=arch, tf_layers=1, tf_heads=2, compute_dtype="float32",
             device="cpu")
-        for kw in ({"kv_cache": "int8"}, {"decode_weights": "int8"}):
-            with pytest.raises(NotImplementedError, match=item):
-                tserving.build_captioner(tf_params, tf_spec, device="cpu", **kw)
+        x = torch.zeros((B, DIMS["num_frames"], DIMS["vid_feat"]))
+        with pytest.raises(NotImplementedError, match=item):
+            tdecode.decode_tokens(tf_params, tf_spec, x, 1, 2, decode_weights="int8")
         return
     with pytest.raises(NotImplementedError, match=item):
         tbase.build_model(arch)

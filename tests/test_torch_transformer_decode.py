@@ -4,7 +4,8 @@ KV-cached beams with gathered caches and with lineage, sampling under the
 JAX package's own noise, serving; the cache machinery against the parity
 decode with the sqrt(i+1) scale neutralized; the lineage bookkeeping against
 a physical reorder, bit for bit; build_captioner's argument order; and the
-refusals of the quantized modes."""
+quantized modes against JAX's (test_torch_quant_serving.py holds them step
+by step)."""
 
 import os
 import sys
@@ -250,15 +251,23 @@ def test_build_captioner_takes_jax_argument_order(f32):
                                 {"decode_weights": "int8"},
                                 {"beam_size": K, "kv_cache": "int8"}])
 def test_quantized_modes_raise_naming_a13(f32, kw):
-    _, _, tspec, tparams, feats = f32
-    x = torch.from_numpy(feats)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tserving.build_captioner(tparams, tspec, device="cpu", **kw)
+    """The quantized modes are ported (A13); the cases keep their ids and
+    run each mode against JAX's: build_captioner's tokens, and the KV-cached
+    greedy and beam. What still raises: int8 weights on the parity beam,
+    which has no stepper."""
+    jspec, jparams, tspec, tparams, feats = f32
+    x, jx = torch.from_numpy(feats), jnp.asarray(feats)
+    want = jserving.build_captioner(jparams, jspec, featurizer="none", **kw)(jx)
+    got = tserving.build_captioner(tparams, tspec, device="cpu", **kw)(feats)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     step_kw = {k: v for k, v in kw.items() if k != "beam_size"}
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttr.decode_greedy_fast(tparams, tspec, ttr.encode(tparams, tspec, x, None), **step_kw)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdecode.transformer_beam_decode_fast(tparams, tspec, x, K, 1, **step_kw)
+    jeo, teo = _encoded(*f32)
+    np.testing.assert_array_equal(
+        ttr.decode_greedy_fast(tparams, tspec, teo, **step_kw).numpy(),
+        np.asarray(jtr.decode_greedy_fast(jparams, jspec, jeo, **step_kw)))
+    _assert_beam_equal(
+        tdecode.transformer_beam_decode_fast(tparams, tspec, x, K, _eos(tspec), **step_kw),
+        jdecode.transformer_beam_decode_fast(jparams, jspec, jx, K, _eos(jspec), **step_kw))
     if "decode_weights" in kw:
-        with pytest.raises(NotImplementedError, match="A13"):
+        with pytest.raises(NotImplementedError, match="parity beam"):
             tdecode.decode_tokens(tparams, tspec, x, 1, K, decode_weights="int8")

@@ -9,12 +9,12 @@ What the port does with each field:
 * :data:`INERT_FIELDS` are accepted and do nothing here (see there);
 * the values of features not ported yet raise ``NotImplementedError``
   naming their ROADMAP item (:meth:`Config.validate`): ``mesh_*`` away from
-  1 (multi-device, A15) and the quantized serving modes
-  ``serve_kv_cache`` int8/int4 and ``serve_decode_weights`` int8 (A13). An
-  unknown architecture raises there too, before any data is read, and so
-  does ``--mode train_rationale`` or ``train_spatial`` with an ``--arch``
-  other than S2VT or S2VT-att, which the JAX package would quietly replace
-  by S2VT.
+  1 (multi-device, A15). An unknown architecture raises there too, before
+  any data is read, and so does ``--mode train_rationale`` or
+  ``train_spatial`` with an ``--arch`` other than S2VT or S2VT-att, which
+  the JAX package would quietly replace by S2VT; an unknown serving mode
+  (``serve_kv_cache`` other than bf16/int8/int4, ``serve_decode_weights``
+  other than bf16/int8) raises ValueError.
 
 The device is not a field: the command line's ``--device`` (:func:`get_config`)
 chooses it, so it never lands in a checkpoint's embedded config.
@@ -127,8 +127,9 @@ class Config:
     # serve_slots = R decode slots, serve_admit_chunk = A videos encoded per
     # admission, serve_port 0 = OS-assigned; serve_max_pending -1 = 4 *
     # serve_slots; serve_models "name=path,..." serves several checkpoints
-    # from one port. The quantized serve_kv_cache / serve_decode_weights
-    # modes are ROADMAP A13 and raise.
+    # from one port. serve_kv_cache int8/int4 quantizes the Transformer's
+    # K/V caches, serve_decode_weights int8 every family's decode weights
+    # (serving_continuous.ContinuousCaptioner).
     serve_port: int = 8000
     serve_slots: int = 64
     serve_admit_chunk: int = 8

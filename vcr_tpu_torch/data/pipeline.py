@@ -11,10 +11,20 @@ counterpart of ``vcr_tpu/data/pipeline.py``.
   process; one process (1 and 0) until multi-device training is ported
   (ROADMAP A15).
 
-Features load through a thread pool with ``np.load``: .npy reads release the
-interpreter lock. The JAX package also has a C++ batch loader
-(``vcr_tpu/data/native.py``); this package has none yet (ROADMAP A20), and
-loads every batch this way.
+Features load by one of two routes, chosen once per iterator
+(``BatchIterator.route``):
+
+* ``"native"``: the C++ loader (:mod:`vcr_tpu_torch.data.native`) reads
+  each file once, straight into its row of the batch, on its own threads and
+  with the interpreter lock released;
+* ``"numpy"``: ``np.load`` per item in a thread pool, then the pad,
+  truncate and cast copies of :meth:`CaptionDataset.load_features`.
+
+Both give the same batches bit for bit. The route is ``"native"`` when the
+first file's header (read with ``np.lib.format``) has a layout the C++
+parser reads: .npy v1 or v2, little-endian float32 or float64, C order.
+Any other layout, and an empty dataset, takes ``"numpy"``. A later file that
+the parser refuses raises ``IOError``; nothing falls back in silence.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import Dict, Iterable, Iterator, List
 
 import numpy as np
 
+from vcr_tpu_torch.data import native
 from vcr_tpu_torch.data.captions import read_caption_file
 from vcr_tpu_torch.vocab import Vocab
 
@@ -108,11 +119,13 @@ class CaptionDataset:
     def __len__(self) -> int:
         return len(self.captions)
 
+    def feature_path(self, idx: int) -> str:
+        return os.path.join(self.vid_feat_dir, self.captions[idx][self.key_field] + ".npy")
+
     def load_features(self, idx: int) -> np.ndarray:
         """One video's features, (N, V) or (N, F, K, K), zero-padded or
         truncated to num_frames."""
-        key = self.captions[idx][self.key_field]
-        feats = np.load(os.path.join(self.vid_feat_dir, key + ".npy"))
+        feats = np.load(self.feature_path(idx))
         return np.concatenate(
             [feats, np.zeros((max(0, self.num_frames - feats.shape[0]),
                               *feats.shape[1:]), dtype=feats.dtype)],
@@ -150,11 +163,15 @@ class BatchIterator:
     epoch))``, which also draws each row's caption choice, even for the
     batches that ``skip_next`` (a mid-epoch resume) skips, so every later
     batch is the one an unskipped epoch gives.
+
+    ``use_native``: load features through the C++ loader where the first
+    file's layout allows (``route`` says which route was taken; see the
+    module docstring). ``num_threads`` sizes either route's fan-out.
     """
 
     def __init__(self, dataset: CaptionDataset, batch_size: int, shuffle: bool,
                  seed: int = 0, num_shards: int = 1, shard_index: int = 0,
-                 num_threads: int = 8):
+                 num_threads: int = 8, use_native: bool = True):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -166,7 +183,10 @@ class BatchIterator:
         # num_threads <= 0: load synchronously, through one thread
         self.num_threads = max(1, num_threads)
         self._pool = ThreadPoolExecutor(max_workers=self.num_threads)
-        self._pad_shape = None
+        # the per-frame feature shape; known up front on the native route
+        self._pad_shape = (native.native_layout(dataset.feature_path(0))
+                           if use_native and len(dataset) else None)
+        self.route = "numpy" if self._pad_shape is None else "native"
 
     def __iter__(self) -> Iterator[Dict]:
         rng = np.random.default_rng((self.seed, self.epoch))
@@ -197,7 +217,8 @@ class BatchIterator:
             if skip > 0:
                 skip -= 1
                 continue  # no feature IO for a skipped batch
-            yield self._python_batch(idxs, cap_choices, b)
+            yield (self._native_batch(idxs, cap_choices, b) if self.route == "native"
+                   else self._python_batch(idxs, cap_choices, b))
             emitted += 1
         if target is not None:
             while emitted < target:
@@ -228,6 +249,19 @@ class BatchIterator:
         for j, idx in enumerate(idxs):
             batch["sample_idx"][j] = int(idx)
         return batch
+
+    def _native_batch(self, idxs, cap_choices, b):
+        """Features through the C++ loader, text fields on this thread."""
+        feats = native.load_feature_batch(
+            [self.ds.feature_path(int(i)) for i in idxs], self.ds.num_frames,
+            self._pad_shape, self.num_threads)
+        if len(idxs) < b:
+            pad = np.zeros((b - len(idxs), *feats.shape[1:]), np.float32)
+            feats = np.concatenate([feats, pad], axis=0)
+        texts = [self.ds.text_fields(int(i), int(c)) for i, c in zip(idxs, cap_choices)]
+        return self._assemble(b, feats, *(
+            [t[name] for t in texts]
+            for name in ("sent", "sent_len", "sent_raw", "refs", "vid_key")), idxs)
 
     def _python_batch(self, idxs, cap_choices, b):
         items = list(self._pool.map(

@@ -29,9 +29,15 @@ Sampling draws ``argmax(logits + g)`` with Gumbel noise g, which is
 seeded with an int, or is injected. Masked logits are ``NEG_INF``, a finite
 number, so no noise draw makes a masked token win.
 
-An unknown family raises; decode weights other than bf16 (the int8
-stepper) and quantized KV caches raise naming A13. Nothing here reads an
-environment variable.
+Quantized serving modes: ``decode_weights="int8"`` streams each stepper's
+per-step dense weights as int8 codes with per-column scales
+(``ops/wquant.py``; the GRU dicts are augmented, so the encoders keep
+reading the float32 originals and run B1 and B2 as before), in the beam and
+sampling decodes of every family; the Transformer's KV-cached decodes also
+take ``kv_cache="int8"|"int4"`` (``ops/kvquant.py``). Both are
+bounded-error modes: their tokens are not the bf16 decodes'. The
+Transformer's parity beam has no stepper, and refuses int8 weights. An
+unknown family raises. Nothing here reads an environment variable.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_project_keys
 from vcr_tpu_torch.nn.gumbel import sample_gumbel
 from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, torch_norm, vdot
 from vcr_tpu_torch.nn.rnn import gru_gates
+from vcr_tpu_torch.ops import wquant
 
 NEG_INF = -1e9
 
@@ -201,24 +208,46 @@ def sample_search(step_fn: Callable, init_state, rows: int, max_len: int,
 
 # ---------------------------------------------------------------- S2VT
 
+def _x_gates(rnn, x: torch.Tensor, cd: torch.dtype, w8: bool) -> torch.Tensor:
+    """x @ w_ih + b_ih, through the int8 codes under W8."""
+    return wquant.gru_x_gates(rnn, x, cd) if w8 else vdot(x, rnn["w_ih"], cd) + rnn["b_ih"]
+
+
+def _gru_step(xg: torch.Tensor, h: torch.Tensor, rnn, cd: torch.dtype,
+              w8: bool) -> torch.Tensor:
+    """One GRU step from its input gates, h @ w_hh through the codes under W8."""
+    return gru_gates(xg, h, rnn, cd, h_gates=wquant.gru_h_gates(rnn, h, cd) if w8 else None)
+
+
+def _vocab_logits(p, h: torch.Tensor, spec: model_base.ModelSpec, w8: bool) -> torch.Tensor:
+    y = wquant.dense_aug(p, h, spec.cdtype) if w8 else dense(p, h, spec.cdtype)
+    return mask_vocab_pad(y, spec.vocab_size)
+
+
 def _s2vt_stepper(params, spec: model_base.ModelSpec, rows: int,
                   decode_weights: Optional[str] = None) -> Callable:
     """The S2VT decode cell as a (state, words, i) step over ``rows`` rows
     (B*K for beam search, B for sampling): the cell of the greedy decode
-    (``s2vt.decode_from_states``). bf16 decode weights only."""
-    model_base.check_serving_modes(decode_weights=decode_weights)
+    (``s2vt.decode_from_states``).
+
+    ``decode_weights="int8"``: GRU1's w_hh (its decode input is a zero
+    frame, so w_ih is never read), GRU2's w_ih and w_hh and the vocabulary
+    projection go through their int8 codes (:func:`augment_decode_weights`'s
+    dicts; augmented here unless already)."""
+    w8 = model_base.check_serving_modes(decode_weights=decode_weights)[1] == "int8"
+    if w8:
+        params = _augment_base(params, "s2vt")
     cd = spec.cdtype
     rnn1, rnn2 = params["rnn1"], params["rnn2"]
     # GRU1's decode-phase input is a zero frame: its input gates are b_ih
     xg1 = rnn1["b_ih"].expand(rows, 3 * spec.hidden_size)
 
     def step_fn(state, words, i):
-        out1 = gru_gates(xg1, state["s1"], rnn1, cd)
+        out1 = _gru_step(xg1, state["s1"], rnn1, cd, w8)
         emb = embed(params["embedding"], words)
-        xg2 = vdot(torch.cat([out1, emb], dim=-1), rnn2["w_ih"], cd) + rnn2["b_ih"]
-        out2 = gru_gates(xg2, state["s2"], rnn2, cd)
-        logits = mask_vocab_pad(dense(params["linear"], out2, cd), spec.vocab_size)
-        return {"s1": out1, "s2": out2}, logits
+        xg2 = _x_gates(rnn2, torch.cat([out1, emb], dim=-1), cd, w8)
+        out2 = _gru_step(xg2, state["s2"], rnn2, cd, w8)
+        return {"s1": out1, "s2": out2}, _vocab_logits(params["linear"], out2, spec, w8)
 
     return step_fn
 
@@ -229,11 +258,11 @@ def s2vt_beam_from_states(params, spec: model_base.ModelSpec, enc_outs: torch.Te
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode from S2VT's encoder states: the prime through B1 at B
     rows, then the stepper at B*K rows."""
-    model_base.check_serving_modes(decode_weights=decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
     state2 = s2vt._prime_state2(params, spec, enc_outs)
     b = enc_outs.shape[1]
     init_state = _tile_beam({"s1": state1, "s2": state2}, beam_size)
-    step_fn = _s2vt_stepper(params, spec, b * beam_size)
+    step_fn = _s2vt_stepper(params, spec, b * beam_size, decode_weights)
     return beam_search(step_fn, init_state, b, beam_size, spec.max_len,
                        spec.sos_id, eos_id)
 
@@ -242,11 +271,13 @@ def s2vt_sample_from_states(params, spec: model_base.ModelSpec, enc_outs: torch.
                             state1: torch.Tensor, rng, eos_id: int,
                             temperature: float = 1.0, top_k: int = 0,
                             top_p: float = 0.0,
-                            gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            gumbel: Optional[torch.Tensor] = None,
+                            decode_weights: Optional[str] = None) -> torch.Tensor:
     """Sampling decode from S2VT's encoder states."""
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
     state2 = s2vt._prime_state2(params, spec, enc_outs)
     b = enc_outs.shape[1]
-    step_fn = _s2vt_stepper(params, spec, b)
+    step_fn = _s2vt_stepper(params, spec, b, decode_weights)
     return sample_search(step_fn, {"s1": state1, "s2": state2}, b, spec.max_len,
                          spec.sos_id, eos_id, rng, temperature, top_k, top_p,
                          gumbel=gumbel)
@@ -254,12 +285,14 @@ def s2vt_sample_from_states(params, spec: model_base.ModelSpec, enc_outs: torch.
 
 def s2vt_sample_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                        rng, eos_id: int, temperature: float = 1.0, top_k: int = 0,
-                       top_p: float = 0.0,
-                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       top_p: float = 0.0, gumbel: Optional[torch.Tensor] = None,
+                       decode_weights: Optional[str] = None) -> torch.Tensor:
     """Temperature/top-k/top-p sampling decode for S2VT -> tokens (B, L)."""
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
     enc_outs, state1 = s2vt.encode(params, spec, vid_feats.to(spec.cdtype))
     return s2vt_sample_from_states(params, spec, enc_outs, state1, rng, eos_id,
-                                   temperature, top_k, top_p, gumbel=gumbel)
+                                   temperature, top_k, top_p, gumbel=gumbel,
+                                   decode_weights=decode_weights)
 
 
 def s2vt_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
@@ -267,6 +300,7 @@ def s2vt_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor
                      decode_weights: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode for S2VT: the greedy decode's cell, B*K rows."""
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
     enc_outs, state1 = s2vt.encode(params, spec, vid_feats.to(spec.cdtype))
     return s2vt_beam_from_states(params, spec, enc_outs, state1, beam_size, eos_id,
                                  decode_weights=decode_weights)
@@ -278,17 +312,25 @@ def _s2vt_att_stepper(params, spec: model_base.ModelSpec, pk: torch.Tensor,
                       eo: torch.Tensor, decode_weights: Optional[str] = None) -> Callable:
     """The S2VT-att decode cell of the greedy decode (``s2vt_att.decode``)
     as a (state, words, i) step, closed over the (possibly beam-tiled)
-    projected keys ``pk`` and encoder outputs ``eo``. bf16 decode weights
-    only."""
-    model_base.check_serving_modes(decode_weights=decode_weights)
+    projected keys ``pk`` and encoder outputs ``eo``.
+
+    ``decode_weights="int8"``: the GRU's w_ih and w_hh and the vocabulary
+    projection go through their int8 codes; the attention's small denses
+    stay float32 (the keys were projected at admission or encode)."""
+    w8 = model_base.check_serving_modes(decode_weights=decode_weights)[1] == "int8"
+    if w8:
+        params = _augment_base(params, "s2vt-att")
     dec, cd = params["decoder"], spec.cdtype
 
     def step_fn(state, words, i):
         context, _ = bahdanau_attend(dec["attention"], state["h"], pk, eo, cd)
-        h = s2vt_att._gru_in(dec["rnn"], context, embed(dec["embedding"], words),
-                             state["h"], cd)
-        logits = mask_vocab_pad(dense(dec["pred_linear"], h, cd), spec.vocab_size)
-        return {"h": h}, logits
+        emb = embed(dec["embedding"], words)
+        if w8:
+            xg = wquant.gru_x_gates(dec["rnn"], torch.cat([context, emb], dim=-1), cd)
+            h = _gru_step(xg, state["h"], dec["rnn"], cd, w8)
+        else:
+            h = s2vt_att._gru_in(dec["rnn"], context, emb, state["h"], cd)
+        return {"h": h}, _vocab_logits(dec["pred_linear"], h, spec, w8)
 
     return step_fn
 
@@ -307,7 +349,7 @@ def s2vt_att_beam_from_states(params, spec: model_base.ModelSpec,
                                      spec.cdtype)
     tiled = _tile_beam({"h": encoder_final, "pk": proj_key,
                         "eo": encoder_outs.to(spec.cdtype)}, beam_size)
-    step_fn = _s2vt_att_stepper(params, spec, tiled["pk"], tiled["eo"])
+    step_fn = _s2vt_att_stepper(params, spec, tiled["pk"], tiled["eo"], decode_weights)
     return beam_search(step_fn, {"h": tiled["h"]}, encoder_outs.shape[0], beam_size,
                        spec.max_len, spec.sos_id, eos_id)
 
@@ -316,11 +358,13 @@ def s2vt_att_sample_from_states(params, spec: model_base.ModelSpec,
                                 encoder_outs: torch.Tensor, encoder_final: torch.Tensor,
                                 rng, eos_id: int, temperature: float = 1.0,
                                 top_k: int = 0, top_p: float = 0.0,
-                                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                gumbel: Optional[torch.Tensor] = None,
+                                decode_weights: Optional[str] = None) -> torch.Tensor:
     """Sampling decode from S2VT-att's encoder states."""
     proj_key = bahdanau_project_keys(params["decoder"]["attention"], encoder_outs,
                                      spec.cdtype)
-    step_fn = _s2vt_att_stepper(params, spec, proj_key, encoder_outs.to(spec.cdtype))
+    step_fn = _s2vt_att_stepper(params, spec, proj_key, encoder_outs.to(spec.cdtype),
+                                decode_weights)
     return sample_search(step_fn, {"h": encoder_final}, encoder_outs.shape[0],
                          spec.max_len, spec.sos_id, eos_id, rng, temperature, top_k,
                          top_p, gumbel=gumbel)
@@ -331,6 +375,7 @@ def s2vt_att_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Te
                          decode_weights: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode for S2VT-att: the greedy decode's cell, B*K rows."""
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
     encoder_outs, encoder_final = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
     return s2vt_att_beam_from_states(params, spec, encoder_outs, encoder_final, beam_size,
                                      eos_id, decode_weights=decode_weights)
@@ -362,11 +407,11 @@ def rationale_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.T
     over the selected features. The selection's noise is drawn from a generator
     seeded with ``rng`` (None: 0), as the greedy ``rationale.apply`` draws it
     for that seed, or is ``gumbel_noise``."""
-    model_base.check_serving_modes(decode_weights=decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before B2 runs
     gen = s2vt.generator_for(rng, vid_feats.device)
     sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
     return decode_tokens(params["caption_net"], spec.with_(arch=spec.base_arch), sel,
-                         eos_id, beam_size)
+                         eos_id, beam_size, decode_weights=decode_weights)
 
 
 # ------------------------------------------------------------ SpatialNet
@@ -377,10 +422,11 @@ def spatial_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Ten
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spatial-attention encode at B rows, then beam search on the wrapped
     captioner's decoder (S2VT's prime through B1 at B rows)."""
-    model_base.check_serving_modes(decode_weights=decode_weights)
+    model_base.check_serving_modes(decode_weights=decode_weights)  # before the encoder
     outs, state, _, _ = spatial.encode_for_base(params, spec, vid_feats, train=False)
     beam = s2vt_beam_from_states if spec.base_arch == "s2vt" else s2vt_att_beam_from_states
-    return beam(params["caption_net"], spec, outs, state, beam_size, eos_id)
+    return beam(params["caption_net"], spec, outs, state, beam_size, eos_id,
+                decode_weights=decode_weights)
 
 
 # ------------------------------------------------------------ Transformer
@@ -451,13 +497,16 @@ def transformer_beam_decode_fast(params, spec: model_base.ModelSpec,
 
 def transformer_sample_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                               rng, eos_id: int, temperature: float = 1.0, top_k: int = 0,
-                              top_p: float = 0.0,
-                              gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              top_p: float = 0.0, gumbel: Optional[torch.Tensor] = None,
+                              kv_cache: Optional[str] = None,
+                              decode_weights: Optional[str] = None) -> torch.Tensor:
     """Sampling through the KV-cached stepper (sampling is not a parity
-    decode); ``top_k=1`` gives ``decode_greedy_fast``'s tokens up to the
-    first eos."""
+    decode), in its ``kv_cache`` and ``decode_weights`` modes; ``top_k=1``
+    gives ``decode_greedy_fast``'s tokens up to the first eos."""
+    model_base.check_serving_modes(kv_cache, decode_weights)  # before the encoder runs
     _, e_outputs = _transformer_encode(params, spec, vid_feats)
-    step_fn, init_state = tr.make_cached_stepper(params, spec, e_outputs)
+    step_fn, init_state = tr.make_cached_stepper(params, spec, e_outputs, kv_cache=kv_cache,
+                                                 decode_weights=decode_weights)
     return sample_search(step_fn, init_state, vid_feats.shape[0], spec.max_len,
                          spec.sos_id, eos_id, rng, temperature, top_k, top_p,
                          gumbel=gumbel)
@@ -466,36 +515,79 @@ def transformer_sample_decode(params, spec: model_base.ModelSpec, vid_feats: tor
 def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
                   eos_id: int, rng=0, temperature: float = 1.0, top_k: int = 0,
                   top_p: float = 0.0, gumbel: Optional[torch.Tensor] = None,
-                  gumbel_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  gumbel_noise: Optional[torch.Tensor] = None,
+                  kv_cache: Optional[str] = None,
+                  decode_weights: Optional[str] = None) -> torch.Tensor:
     """Stochastic decoding for S2VT, S2VT-att, the Transformer, RationaleNet
     and SpatialNet -> tokens (B, L).
     ``top_k=1`` is argmax: the greedy decode up to the first eos.
+    ``decode_weights="int8"`` runs every family's stepper on int8 weights;
+    a quantized ``kv_cache`` is the Transformer's only (the GRU families
+    have no attention cache: it raises ValueError for them).
 
     One generator seeded with ``rng`` draws everything, in order:
     RationaleNet's frame-selection noise (unless ``gumbel_noise`` is given),
     then each step's sampling noise (unless ``gumbel`` is given)."""
+    kv_cache, decode_weights = model_base.check_serving_modes(kv_cache, decode_weights)
+    if spec.arch == "transformer":
+        return transformer_sample_decode(params, spec, vid_feats, rng, eos_id, temperature,
+                                         top_k, top_p, gumbel=gumbel, kv_cache=kv_cache,
+                                         decode_weights=decode_weights)
+    check_gru_kv_cache(spec, kv_cache)
     if spec.arch == "s2vt":
         return s2vt_sample_decode(params, spec, vid_feats, rng, eos_id, temperature,
-                                  top_k, top_p, gumbel=gumbel)
+                                  top_k, top_p, gumbel=gumbel, decode_weights=decode_weights)
     if spec.arch == "s2vt-att":
         eo, ef = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
         return s2vt_att_sample_from_states(params, spec, eo, ef, rng, eos_id, temperature,
-                                           top_k, top_p, gumbel=gumbel)
-    if spec.arch == "transformer":
-        return transformer_sample_decode(params, spec, vid_feats, rng, eos_id, temperature,
-                                         top_k, top_p, gumbel=gumbel)
+                                           top_k, top_p, gumbel=gumbel,
+                                           decode_weights=decode_weights)
     if spec.arch == "rationale":
         gen = s2vt.generator_for(rng, vid_feats.device)
         sel = _rationale_select(params, spec, vid_feats, gen, gumbel_noise)
         return sample_tokens(params["caption_net"], spec.with_(arch=spec.base_arch),
-                             sel, eos_id, gen, temperature, top_k, top_p, gumbel=gumbel)
+                             sel, eos_id, gen, temperature, top_k, top_p, gumbel=gumbel,
+                             decode_weights=decode_weights)
     if spec.arch == "spatial":
         outs, state, _, _ = spatial.encode_for_base(params, spec, vid_feats, train=False)
         sample = (s2vt_sample_from_states if spec.base_arch == "s2vt"
                   else s2vt_att_sample_from_states)
         return sample(params["caption_net"], spec, outs, state, rng, eos_id, temperature,
-                      top_k, top_p, gumbel=gumbel)
+                      top_k, top_p, gumbel=gumbel, decode_weights=decode_weights)
     _unknown(spec.arch)
+
+
+def check_gru_kv_cache(spec: model_base.ModelSpec, kv_cache: Optional[str]) -> None:
+    """A quantized KV cache is the Transformer's: raise ValueError for a
+    family with no attention cache, as the JAX package's slot pool does."""
+    if (kv_cache or "bf16") != "bf16" and spec.arch != "transformer":
+        raise ValueError(f"kv_cache={kv_cache!r} quantizes the Transformer's attention "
+                         f"caches; arch {spec.arch!r} has none")
+
+
+def _augment_base(p, arch: str):
+    """A GRU captioner's tree with its per-step decode dicts augmented by
+    their int8 codes (``ops.wquant``): S2VT's two GRUs and projection,
+    S2VT-att's decoder GRU and projection."""
+    if arch == "s2vt":
+        return dict(p, rnn1=wquant.augment_gru(p["rnn1"]), rnn2=wquant.augment_gru(p["rnn2"]),
+                    linear=wquant.augment_dense(p["linear"]))
+    dec = p["decoder"]
+    return dict(p, decoder=dict(dec, rnn=wquant.augment_gru(dec["rnn"]),
+                                pred_linear=wquant.augment_dense(dec["pred_linear"])))
+
+
+def augment_decode_weights(params, spec: model_base.ModelSpec):
+    """W8 decode weights, quantized once (the slot pool's form): the GRU
+    families' per-step dicts augmented by their int8 codes beside the
+    float32 originals, so one tree serves the encoders (B1, B2) and the
+    stepper; the Transformer's decoder denses replaced
+    (``transformer.quantize_decoder_params``). Idempotent."""
+    if spec.arch == "transformer":
+        return tr.quantize_decoder_params(params)
+    if spec.arch in ("spatial", "rationale"):
+        return dict(params, caption_net=_augment_base(params["caption_net"], spec.base_arch))
+    return _augment_base(params, spec.arch)
 
 
 def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
@@ -505,9 +597,11 @@ def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
     """Beam decode for S2VT, S2VT-att, the Transformer (its parity beam),
     RationaleNet and SpatialNet -> (tokens (B, K, L), scores (B, K)). Beam
     width 1's best row equals the greedy rollout up to the first eos.
-    ``rng`` seeds RationaleNet's frame selection. The Transformer's parity
-    beam has no stepper to quantize: its decode weights other than bf16
-    raise (``transformer_beam_decode_fast`` is the serving beam)."""
+    ``rng`` seeds RationaleNet's frame selection. ``decode_weights="int8"``
+    runs the GRU families' beam on int8 weights. The Transformer's parity
+    beam has no stepper to quantize: its int8 weights raise
+    NotImplementedError, as in the JAX package
+    (``transformer_beam_decode_fast`` is the serving beam)."""
     if spec.arch == "s2vt":
         return s2vt_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                 decode_weights=decode_weights)
@@ -515,7 +609,11 @@ def decode_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
         return s2vt_att_beam_decode(params, spec, vid_feats, beam_size, eos_id,
                                     decode_weights=decode_weights)
     if spec.arch == "transformer":
-        model_base.check_serving_modes(decode_weights=decode_weights)
+        if model_base.check_serving_modes(decode_weights=decode_weights)[1] != "bf16":
+            raise NotImplementedError(
+                "decode_tokens runs the Transformer's reference-parity beam (the whole "
+                "stack each step, no stepper); use "
+                "transformer_beam_decode_fast(decode_weights=...) for int8 weights")
         return transformer_beam_decode(params, spec, vid_feats, beam_size, eos_id)
     if spec.arch == "rationale":
         return rationale_beam_decode(params, spec, vid_feats, beam_size, eos_id,

@@ -92,20 +92,18 @@ def base_module(spec: ModelSpec):
 
 
 def check_serving_modes(kv_cache: Optional[str] = None,
-                        decode_weights: Optional[str] = None) -> None:
-    """bf16 KV caches and decode weights only: the quantized modes (int8 or
-    int4 caches, int8 weights) raise naming ROADMAP A13, other values
-    ValueError."""
-    item = "ROADMAP A13 (quantized serving modes)"
-    if kv_cache in ("int8", "int4"):
-        raise NotImplementedError(f"kv_cache={kv_cache!r} is not ported yet: {item}")
-    if kv_cache not in (None, "bf16"):
+                        decode_weights: Optional[str] = None) -> Tuple[str, str]:
+    """The one resolver of the serving modes -> (kv_cache, decode_weights):
+    K/V caches ``"bf16"``, ``"int8"`` or ``"int4"`` (``ops/kvquant.py``),
+    decode weights ``"bf16"`` or ``"int8"`` (``ops/wquant.py``). None is
+    ``"bf16"``; any other value raises ValueError. No environment variable
+    is read."""
+    from vcr_tpu_torch.ops import wquant
+
+    kv = kv_cache or "bf16"
+    if kv not in ("bf16", "int8", "int4"):
         raise ValueError(f"kv_cache must be 'bf16', 'int8' or 'int4', got {kv_cache!r}")
-    if decode_weights == "int8":
-        raise NotImplementedError(
-            f"decode_weights={decode_weights!r} is not ported yet: {item}")
-    if decode_weights not in (None, "bf16"):
-        raise ValueError(f"decode_weights must be 'bf16' or 'int8', got {decode_weights!r}")
+    return kv, wquant.resolve_mode(decode_weights)
 
 
 def register(name: str, init_fn: Callable, apply_fn: Callable) -> None:

@@ -26,6 +26,11 @@ Three decodes, which differ on purpose:
   written once and never reordered: an ancestry matrix says which row holds
   each beam's history, and both reads through it are true gathers.
 
+The KV-cached steppers also serve the quantized modes: int8 or int4 K/V
+caches (``ops/kvquant.py``) and int8 decoder weights (``ops/wquant.py``,
+:func:`quantize_decoder_params`), bounded-error modes whose tokens are not
+the bf16 stepper's.
+
 Training keeps the residual stream in the compute dtype when that is bf16
 (:func:`_stream_cast`), and recomputes each norm of such a stream in the
 backward (:func:`_norm`, ``torch.utils.checkpoint``). The JAX package's
@@ -58,6 +63,7 @@ from vcr_tpu_torch.nn.attention import mha_apply, mha_init
 from vcr_tpu_torch.nn.layers import (apply_keep_mask, bmm_f32, dense, dense_init, embed,
                                      embedding_init, keep_mask, mask_vocab_pad, norm_init,
                                      torch_norm)
+from vcr_tpu_torch.ops import kvquant, wquant
 
 INTERNAL_DROPOUT = 0.1  # the reference hard-codes 0.1 for every internal dropout
 D_FF = 2048
@@ -94,8 +100,8 @@ def _drop(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.T
 
 def _ff_apply(params, x: torch.Tensor, cdtype: torch.dtype,
               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = torch.relu(dense(params["linear_1"], x, cdtype))
-    return dense(params["linear_2"], _drop(h, keep, INTERNAL_DROPOUT), cdtype)
+    h = torch.relu(_dn(params["linear_1"], x, cdtype))
+    return _dn(params["linear_2"], _drop(h, keep, INTERNAL_DROPOUT), cdtype)
 
 
 def _stream_cast(x: torch.Tensor, train: bool, cdtype: torch.dtype) -> torch.Tensor:
@@ -342,62 +348,150 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(x.shape[0], -1, heads, x.shape[-1] // heads).transpose(1, 2)
 
 
-def _cross_kv(attn_p, e_outputs: torch.Tensor, heads: int, cd: torch.dtype):
-    """The cross-attention's K and V of the encoder outputs, (rows, h, S, d_k)
-    in the compute dtype."""
-    return (_split_heads(dense(attn_p["k"], e_outputs, cd), heads).to(cd),
-            _split_heads(dense(attn_p["v"], e_outputs, cd), heads).to(cd))
+def _dn(p, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """A dense dict's product: through its int8 codes where it holds them
+    (``ops.wquant.dense_q``, the decoder under ``decode_weights="int8"``),
+    else ``nn.layers.dense``."""
+    return wquant.dense_q(p, x, cd) if "wq" in p else dense(p, x, cd)
+
+
+def quantize_decoder_params(params: dict) -> dict:
+    """W8 decode weights: the decoder's dense dicts (both attentions' q, k,
+    v and out, the feed-forward, pred_linear) replaced by int8 codes and
+    per-column scales (``ops.wquant.quantize_dense``; the stacked layers
+    quantize per layer). The encoder, embedding, PE and norms are untouched.
+    Idempotent: the slot pool quantizes once, and its steppers find the
+    codes."""
+    dec = params["decoder"]
+    if "wq" in dec["pred_linear"]:
+        return params
+    layers = dict(dec["layers"])
+    for name in ("attn_1", "attn_2", "ff"):
+        layers[name] = {k: wquant.quantize_dense(v) for k, v in layers[name].items()}
+    return dict(params, decoder=dict(dec, layers=layers,
+                                     pred_linear=wquant.quantize_dense(dec["pred_linear"])))
+
+
+def _maybe_quantize_decoder(params: dict, decode_weights: str) -> dict:
+    """The parameters a stepper decodes with: the decoder quantized under
+    ``decode_weights="int8"``, else as given."""
+    return quantize_decoder_params(params) if decode_weights == "int8" else params
+
+
+def _attn_hidden(layers: dict) -> int:
+    """The attention's hidden width, read off a float or quantized tree."""
+    q = layers["attn_1"]["q"]
+    return (q["w"] if "w" in q else q["wq"]).shape[-1]
+
+
+def _zero_kv(rows: int, heads: int, length: int, d_k: int, cd: torch.dtype,
+             kv_cache: str, device) -> tuple:
+    """An empty K/V cache of (rows, h, length) vectors, each leaf a tensor
+    of its own: (k, v) in the compute dtype, or quantized (k codes, k
+    scales, v codes, v scales) with float32 scales (rows, h, length)."""
+    if kv_cache == "bf16":
+        return tuple(torch.zeros((rows, heads, length, d_k), dtype=cd, device=device)
+                     for _ in range(2))
+    _, code_dtype = kvquant.mode_params(kv_cache)
+    width = kvquant.code_width(kv_cache, d_k)
+    return tuple(torch.zeros((rows, heads, length, width), dtype=code_dtype, device=device)
+                 if j % 2 == 0 else
+                 torch.zeros((rows, heads, length), dtype=torch.float32, device=device)
+                 for j in range(4))
+
+
+def _cross_kv(attn_p, e_outputs: torch.Tensor, heads: int, cd: torch.dtype,
+              kv_cache: str = "bf16") -> tuple:
+    """The cross-attention's K and V of the encoder outputs, (rows, h, S,
+    d_k) in the compute dtype, or under a quantized ``kv_cache`` their codes
+    and scales (``ops.kvquant.quantize_store`` of the compute-dtype
+    vectors)."""
+    k = _split_heads(_dn(attn_p["k"], e_outputs, cd), heads).to(cd)
+    v = _split_heads(_dn(attn_p["v"], e_outputs, cd), heads).to(cd)
+    if kv_cache == "bf16":
+        return k, v
+    return (*kvquant.quantize_store(k, kv_cache), *kvquant.quantize_store(v, kv_cache))
 
 
 def _attend_cross(attn_p, x2: torch.Tensor, kv, heads: int, cd: torch.dtype) -> torch.Tensor:
-    """One token's cross-attention over the video's K and V."""
-    q = _split_heads(dense(attn_p["q"], x2, cd), heads)
-    k, v = kv
-    w = torch.softmax(bmm_f32(q, k.transpose(-1, -2), cd) / q.shape[-1] ** 0.5, dim=-1)
-    out = bmm_f32(w, v, cd).transpose(1, 2).reshape(x2.shape[0], 1, -1)
-    return dense(attn_p["out"], out, cd)
+    """One token's cross-attention over the video's K and V (a quantized
+    ``kv``: K's scales fold into the scores, V's into the weights)."""
+    q = _split_heads(_dn(attn_p["q"], x2, cd), heads)
+    if len(kv) == 2:
+        k, v = kv
+        w = torch.softmax(bmm_f32(q, k.transpose(-1, -2), cd) / q.shape[-1] ** 0.5, dim=-1)
+        ctx = bmm_f32(w, v, cd)
+    else:
+        kq, ks, vq, vs = kv
+        scores = bmm_f32(q, kvquant.unpack(kq).transpose(-1, -2), cd) / q.shape[-1] ** 0.5
+        w = torch.softmax(kvquant.fold_k(scores, ks[:, :, None, :]), dim=-1)
+        ctx = bmm_f32(kvquant.fold_v(w, vs[:, :, None, :]), kvquant.unpack(vq), cd)
+    out = ctx.transpose(1, 2).reshape(x2.shape[0], 1, -1)
+    return _dn(attn_p["out"], out, cd)
 
 
-def _attend_self(attn_p, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                 masked: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """One token's self-attention against its row's cache, itself included;
+def _attend_self(attn_p, q: torch.Tensor, cache, masked: torch.Tensor,
+                 cd: torch.dtype) -> torch.Tensor:
+    """One token's self-attention against its row's cache (k, v) or
+    quantized (k codes, k scales, v codes, v scales), itself included;
     ``masked`` (broadcast to (rows, h, 1, L)) is True at positions not yet
     written."""
-    scores = bmm_f32(q, ck.transpose(-1, -2), cd) / q.shape[-1] ** 0.5   # (rows, h, 1, L)
-    w = torch.softmax(scores.masked_fill(masked, -1e9), dim=-1)
-    ctx = bmm_f32(w, cv, cd)                                              # (rows, h, 1, d)
-    return dense(attn_p["out"], ctx.transpose(1, 2).reshape(q.shape[0], 1, -1), cd)
+    if len(cache) == 2:
+        ck, cv = cache
+        scores = bmm_f32(q, ck.transpose(-1, -2), cd) / q.shape[-1] ** 0.5   # (rows, h, 1, L)
+        w = torch.softmax(scores.masked_fill(masked, -1e9), dim=-1)
+        ctx = bmm_f32(w, cv, cd)                                              # (rows, h, 1, d)
+    else:
+        ck, ks, cv, vs = cache
+        scores = bmm_f32(q, kvquant.unpack(ck).transpose(-1, -2), cd) / q.shape[-1] ** 0.5
+        scores = kvquant.fold_k(scores, ks[:, :, None, :])
+        w = torch.softmax(scores.masked_fill(masked, -1e9), dim=-1)
+        ctx = bmm_f32(kvquant.fold_v(w, vs[:, :, None, :]), kvquant.unpack(cv), cd)
+    return _dn(attn_p["out"], ctx.transpose(1, 2).reshape(q.shape[0], 1, -1), cd)
 
 
-def _attend_lineage(attn_p, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                    anc: torch.Tensor, masked: torch.Tensor, beam_tile: int,
-                    cd: torch.dtype) -> torch.Tensor:
+def _attend_lineage(attn_p, q: torch.Tensor, cache, anc: torch.Tensor,
+                    masked: torch.Tensor, beam_tile: int, cd: torch.dtype) -> torch.Tensor:
     """The lineage form of :func:`_attend_self`: each item's beam_tile rows
     are scored against every source row of the item, and the scores and the
     context's V rows are selected through the ancestry ``anc`` (rows, L),
-    both true gathers; ``masked`` broadcasts to (items, beam_tile, h, L)."""
+    both true gathers; ``masked`` broadcasts to (items, beam_tile, h, L).
+    A quantized cache folds K's scales into the scores of every source row
+    before the select, and gathers V's scales beside its codes."""
     rows, heads, _, d_k = q.shape
+    quant = len(cache) == 4
+    ck, cv = (cache[0], cache[2]) if quant else cache
     length, k_b = ck.shape[2], beam_tile
     items = rows // k_b
     qb = q.reshape(items, k_b, heads, d_k).transpose(1, 2)                 # (B, h, t, d)
-    kb = ck.reshape(items, k_b, heads, length, d_k).transpose(1, 2).reshape(
+    kb = (kvquant.unpack(ck) if quant else ck).reshape(
+        items, k_b, heads, length, d_k).transpose(1, 2).reshape(
         items, heads, k_b * length, d_k)                                    # (B, h, s*j, d)
     # every target beam against every source row: (B, t, h, j, s)
     scores_all = (bmm_f32(qb, kb.transpose(-1, -2), cd) / d_k ** 0.5).reshape(
         items, heads, k_b, k_b, length).permute(0, 2, 1, 4, 3)
+    if quant:
+        scores_all = kvquant.fold_k(
+            scores_all, cache[1].reshape(items, k_b, heads, length).permute(0, 2, 3, 1)[:, None])
     anc_b = anc.reshape(items, k_b, length)
     scores = _lineage_select(scores_all, anc_b)                            # (B, t, h, L)
     w = torch.softmax(scores.masked_fill(masked, -1e9), dim=-1)
-    vsel = _lineage_gather_rows(cv.reshape(items, k_b, heads, length, d_k), anc_b)
-    ctx = (w.to(cd).float()[..., None] * vsel.float()).sum(dim=3)          # (B, t, h, d)
-    return dense(attn_p["out"], ctx.reshape(rows, 1, heads * d_k), cd)
+    vsel = _lineage_gather_rows(cv.reshape(items, k_b, heads, length, -1), anc_b)
+    if quant:
+        vs = _lineage_gather_rows(cache[3].reshape(items, k_b, heads, length, 1),
+                                  anc_b)[..., 0]
+        ctx = ((w.to(cd).float() * vs)[..., None]
+               * kvquant.unpack(vsel).float()).sum(dim=3)                  # (B, t, h, d)
+    else:
+        ctx = (w.to(cd).float()[..., None] * vsel.float()).sum(dim=3)      # (B, t, h, d)
+    return _dn(attn_p["out"], ctx.reshape(rows, 1, heads * d_k), cd)
 
 
 def _decoder_step(dec, per_layer, spec: base.ModelSpec, x: torch.Tensor, state: dict,
                   cross, attend_self):
     """The decoder stack on one token per row: ``attend_self(attn_p, x2,
     cache) -> (out, cache)`` is a layer's self-attention against its cache
-    ``state["c{li}"]``, ``cross[li]`` layer li's (K, V). -> (the layers' new
+    ``state["c{li}"]``, ``cross[li]`` layer li's K and V. -> (the layers' new
     caches, logits (rows, V))."""
     caches = {}
     for li, lp in enumerate(per_layer):
@@ -408,7 +502,19 @@ def _decoder_step(dec, per_layer, spec: base.ModelSpec, x: torch.Tensor, state: 
                               spec.tf_heads, spec.cdtype)
         x = x + _ff_apply(lp["ff"], torch_norm(lp["norm_3"], x), spec.cdtype)
     h = torch_norm(dec["norm_out"], x)[:, 0]
-    return caches, mask_vocab_pad(dense(dec["pred_linear"], h, spec.cdtype), spec.vocab_size)
+    return caches, mask_vocab_pad(_dn(dec["pred_linear"], h, spec.cdtype), spec.vocab_size)
+
+
+def _new_kv(attn_p, x2: torch.Tensor, heads: int, cd: torch.dtype, kv_cache: str):
+    """This token's query and the K and V to write: in the compute dtype,
+    or (codes, scales) pairs of the float32 products under a quantized
+    cache."""
+    q = _split_heads(_dn(attn_p["q"], x2, cd), heads)
+    k = _split_heads(_dn(attn_p["k"], x2, cd), heads)
+    v = _split_heads(_dn(attn_p["v"], x2, cd), heads)
+    if kv_cache == "bf16":
+        return q, ((k,), (v,))
+    return q, (kvquant.quantize_store(k, kv_cache), kvquant.quantize_store(v, kv_cache))
 
 
 def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
@@ -439,23 +545,31 @@ def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
     the item and selected through the ancestry, the context from the
     ancestry's V rows reduced over positions: both true gathers.
 
-    bf16 caches and weights only (``base.check_serving_modes``)."""
-    base.check_serving_modes(kv_cache, decode_weights)
-    dec = params["decoder"]
+    ``kv_cache="int8"|"int4"`` stores the self and cross K/V quantized
+    (``ops.kvquant``): each layer's state is (k codes, k scales, v codes, v
+    scales), the scales float32 (rows, h, L), int4 codes packed two to a
+    byte. ``decode_weights="int8"`` streams every decoder dense as int8
+    codes (:func:`quantize_decoder_params`). Both are bounded-error modes:
+    their tokens are not the bf16 stepper's. None means ``"bf16"``
+    (``base.check_serving_modes``)."""
+    kv_cache, decode_weights = base.check_serving_modes(kv_cache, decode_weights)
+    dec = _maybe_quantize_decoder(params, decode_weights)["decoder"]
     rows = e_outputs.shape[0] * beam_tile
     length, heads, cd = spec.max_len, spec.tf_heads, spec.cdtype
-    d_k = dec["layers"]["attn_1"]["q"]["w"].shape[-1] // heads
+    d_k = _attn_hidden(dec["layers"]) // heads
     device = e_outputs.device
     per_layer = [layer_params(dec["layers"], i) for i in range(spec.tf_layers)]
     cross = []
     for lp in per_layer:
-        k, v = _cross_kv(lp["attn_2"], e_outputs, heads, cd)
+        kv = _cross_kv(lp["attn_2"], e_outputs, heads, cd, kv_cache)
         if beam_tile > 1:
-            k, v = k.repeat_interleave(beam_tile, 0), v.repeat_interleave(beam_tile, 0)
-        cross.append((k, v))
+            # per-vector codes and scales: repeating them equals quantizing
+            # the repeated vectors
+            kv = tuple(t.repeat_interleave(beam_tile, 0) for t in kv)
+        cross.append(kv)
 
-    zeros = torch.zeros((rows, heads, length, d_k), dtype=cd, device=device)
-    init_state = {f"c{i}": (zeros, zeros) for i in range(spec.tf_layers)}
+    init_state = {f"c{i}": _zero_kv(rows, heads, length, d_k, cd, kv_cache, device)
+                  for i in range(spec.tf_layers)}
     pos = torch.arange(length, device=device)
     row_local = (torch.arange(rows, device=device) % beam_tile).to(torch.int32)
 
@@ -470,15 +584,13 @@ def make_cached_stepper(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
         masked = pos > i
 
         def attend(attn_p, x2, cache):
-            q = _split_heads(dense(attn_p["q"], x2, cd), heads)
-            ck, cv = cache
-            ck = ck.slice_scatter(
-                _split_heads(dense(attn_p["k"], x2, cd), heads).to(ck.dtype), 2, i, i + 1)
-            cv = cv.slice_scatter(
-                _split_heads(dense(attn_p["v"], x2, cd), heads).to(cv.dtype), 2, i, i + 1)
+            q, (new_k, new_v) = _new_kv(attn_p, x2, heads, cd, kv_cache)
+            new = (*new_k, *new_v)
+            cache = tuple(c.slice_scatter(n.to(c.dtype), 2, i, i + 1)
+                          for c, n in zip(cache, new))
             if lineage:
-                return _attend_lineage(attn_p, q, ck, cv, anc, masked, beam_tile, cd), (ck, cv)
-            return _attend_self(attn_p, q, ck, cv, masked, cd), (ck, cv)
+                return _attend_lineage(attn_p, q, cache, anc, masked, beam_tile, cd), cache
+            return _attend_self(attn_p, q, cache, masked, cd), cache
 
         new_state, logits = _decoder_step(dec, per_layer, spec, x, state, cross, attend)
         if lineage:
@@ -529,22 +641,24 @@ def make_slot_stepper(params, spec: base.ModelSpec, beam_tile: int = 1,
     After admission each fresh group's ancestry must be re-armed to its
     local identity (row % K in every column).
 
-    bf16 caches and weights only (``base.check_serving_modes``)."""
-    base.check_serving_modes(kv_cache, decode_weights)
-    dec = params["decoder"]
+    ``kv_cache`` and ``decode_weights``: :func:`make_cached_stepper`'s
+    modes; under a quantized cache every (k, v) above is (k codes, k
+    scales, v codes, v scales). Pass parameters already quantized by
+    :func:`quantize_decoder_params` to quantize once."""
+    kv_cache, decode_weights = base.check_serving_modes(kv_cache, decode_weights)
+    dec = _maybe_quantize_decoder(params, decode_weights)["decoder"]
     length, heads, cd = spec.max_len, spec.tf_heads, spec.cdtype
-    d_k = dec["layers"]["attn_1"]["q"]["w"].shape[-1] // heads
+    d_k = _attn_hidden(dec["layers"]) // heads
     device = dec["pe"].device
     per_layer = [layer_params(dec["layers"], i) for i in range(spec.tf_layers)]
     pos = torch.arange(length, device=device)
 
     def cross_state(e_outputs):
-        return {f"x{li}": _cross_kv(lp["attn_2"], e_outputs, heads, cd)
+        return {f"x{li}": _cross_kv(lp["attn_2"], e_outputs, heads, cd, kv_cache)
                 for li, lp in enumerate(per_layer)}
 
     def init_self_state(rows: int):
-        out = {f"c{li}": tuple(torch.zeros((rows, heads, length, d_k), dtype=cd,
-                                           device=device) for _ in range(2))
+        out = {f"c{li}": _zero_kv(rows, heads, length, d_k, cd, kv_cache, device)
                for li in range(spec.tf_layers)}
         if lineage:
             row_local = (torch.arange(rows, device=device) % beam_tile).to(torch.int32)
@@ -569,17 +683,17 @@ def make_slot_stepper(params, spec: base.ModelSpec, beam_tile: int = 1,
             masked = masked[:, None, None, :]
 
         def write(c, new):
+            """new (rows, h, 1, ...) at (row, :, i_vec[row])."""
             c = c.clone()
             c[rows_idx, :, i_long] = new[:, :, 0].to(c.dtype)
             return c
 
         def attend(attn_p, x2, cache):
-            q = _split_heads(dense(attn_p["q"], x2, cd), heads)
-            ck = write(cache[0], _split_heads(dense(attn_p["k"], x2, cd), heads))
-            cv = write(cache[1], _split_heads(dense(attn_p["v"], x2, cd), heads))
+            q, (new_k, new_v) = _new_kv(attn_p, x2, heads, cd, kv_cache)
+            cache = tuple(write(c, n) for c, n in zip(cache, (*new_k, *new_v)))
             if lineage:
-                return _attend_lineage(attn_p, q, ck, cv, anc, masked, beam_tile, cd), (ck, cv)
-            return _attend_self(attn_p, q, ck, cv, masked, cd), (ck, cv)
+                return _attend_lineage(attn_p, q, cache, anc, masked, beam_tile, cd), cache
+            return _attend_self(attn_p, q, cache, masked, cd), cache
 
         cross = [state[f"x{li}"] for li in range(spec.tf_layers)]
         caches, logits = _decoder_step(dec, per_layer, spec, x, state, cross, attend)

@@ -65,7 +65,11 @@ def gate_remat_default(enabled: bool) -> Iterator[None]:
 
 def _gru_gates(x_gates: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor,
                b_hh: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    h_gates = vdot(h, w_hh, compute_dtype) + b_hh
+    return _gru_update(x_gates, vdot(h, w_hh, compute_dtype) + b_hh, h)
+
+
+def _gru_update(x_gates: torch.Tensor, h_gates: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
     xr, xz, xn = x_gates.chunk(3, dim=-1)
     hr, hz, hn = h_gates.chunk(3, dim=-1)
     r = torch.sigmoid(xr + hr)
@@ -75,13 +79,18 @@ def _gru_gates(x_gates: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor,
 
 
 def gru_gates(x_gates: torch.Tensor, h: torch.Tensor, params,
-              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              compute_dtype: torch.dtype = torch.bfloat16,
+              h_gates: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One GRU step given precomputed input gates x_gates = x @ w_ih + b_ih.
 
     r = σ(xr + hr); z = σ(xz + hz); n = tanh(xn + r∘hn); h' = (1-z)∘n + z∘h.
     Checkpointed inside a :func:`gate_remat_default` scope that is on; the
     step draws no random numbers, so the RNG state is not stashed.
+    ``h_gates``: a precomputed h @ w_hh + b_hh (the int8-weight decode
+    steppers' ``ops.wquant.gru_h_gates``), used as given (decode only).
     """
+    if h_gates is not None:
+        return _gru_update(x_gates, h_gates, h)
     if _GATE_REMAT.get():
         return torch.utils.checkpoint.checkpoint(
             _gru_gates, x_gates, h, params["w_hh"], params["b_hh"], compute_dtype,

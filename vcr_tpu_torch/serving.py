@@ -5,9 +5,11 @@ precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, by the
 Transformer (its KV-cached serving decodes), by RationaleNet over S2VT or
 S2VT-att (hard-Gumbel frame selection, then its captioner) and by SpatialNet
 over either (on (B, N, F, K, K) grid features), greedy, by beam search or by
-sampling (``decode``). Every other featurizer (YOLOv3's among them) and
-quantized mode raises ``NotImplementedError`` naming its ROADMAP item, so no
-option is ever silently ignored.
+sampling (``decode``), and in the quantized serving modes: int8 or int4
+K/V caches (the Transformer's) and int8 decode weights. Every other
+featurizer (YOLOv3's among them) raises ``NotImplementedError`` naming its
+ROADMAP item, and a mode a decode has no form for raises ``ValueError``, so
+no option is ever silently ignored.
 """
 
 from __future__ import annotations
@@ -76,8 +78,15 @@ def build_captioner(params, spec: model_base.ModelSpec,
     ``sample_temperature > 0`` samples instead, optionally top-k and/or top-p
     restricted (``decode.sample_tokens``). The two together raise
     ValueError, and so do the sampling filters without sampling. ``eos_id``
-    comes from ``vocab`` or is given (:func:`resolve_eos_id`). ``kv_cache``
-    and ``decode_weights`` other than bf16 raise naming ROADMAP A13.
+    comes from ``vocab`` or is given (:func:`resolve_eos_id`).
+
+    Quantized modes (bounded-error: tokens differ from bf16's): the
+    Transformer's greedy, beam and sampling take ``kv_cache="int8"|"int4"``
+    and ``decode_weights="int8"``. The GRU families take
+    ``decode_weights="int8"`` on the beam and sampling paths (the JAX
+    package drops it there); their greedy decode has no int8-weight form
+    and raises ValueError (the slot pool serves it), and a quantized
+    ``kv_cache`` raises ValueError (they have no attention cache).
 
     Every random draw of a call (RationaleNet's Gumbel noise, the sampling
     noise) comes from a generator seeded with ``rng`` (an int; None: 0), so
@@ -94,6 +103,9 @@ def build_captioner(params, spec: model_base.ModelSpec,
                               sample_top_k, sample_top_p, 0 if rng is None else rng,
                               kv_cache=kv_cache, decode_weights=decode_weights)
     params = params_to(params, device)
+    if model_base.check_serving_modes(kv_cache, decode_weights)[1] == "int8":
+        # quantized once here; the steppers find the codes
+        params = decode.augment_decode_weights(params, spec)
 
     def run(feats) -> torch.Tensor:
         with torch.inference_mode():
@@ -118,8 +130,16 @@ def make_caption_fn(spec: model_base.ModelSpec,
         raise NotImplementedError(
             f"featurizer {featurizer!r} is not ported yet: ROADMAP A17 "
             "(featurizers); pass precomputed features with featurizer='none'")
-    model_base.check_serving_modes(kv_cache, decode_weights)
+    kv_cache, decode_weights = model_base.check_serving_modes(kv_cache, decode_weights)
     decode.check_decode_mode(beam_size, sample_temperature, sample_top_k, sample_top_p)
+    decode.check_gru_kv_cache(spec, kv_cache)
+    if (decode_weights == "int8" and spec.arch != "transformer" and beam_size <= 1
+            and sample_temperature <= 0):
+        raise ValueError(
+            f"decode_weights='int8': the {spec.arch} greedy batch decode has no "
+            "int8-weight form; int8 decode weights are served by the slot pool "
+            "(serving_continuous.ContinuousCaptioner, --mode serve) and by the beam "
+            "(beam_size > 1) and sampling paths")
     if eos_id is None:
         eos_id = spec.sos_id + 1
     _, apply_fn = model_base.build_model(spec.arch)  # raises for an unknown family
@@ -128,15 +148,17 @@ def make_caption_fn(spec: model_base.ModelSpec,
 
     if spec.arch == "transformer":
         return _transformer_caption_fn(spec, beam_size, eos_id, sample_temperature,
-                                       sample_top_k, sample_top_p, rng)
+                                       sample_top_k, sample_top_p, rng, kv_cache,
+                                       decode_weights)
     if sample_temperature > 0:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
             return decode.sample_tokens(params, spec, feats, eos_id, rng,
-                                        sample_temperature, sample_top_k, sample_top_p)
+                                        sample_temperature, sample_top_k, sample_top_p,
+                                        decode_weights=decode_weights)
     elif beam_size > 1:
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
             tokens, _ = decode.decode_tokens(params, spec, feats, eos_id, beam_size,
-                                             rng=rng)
+                                             rng=rng, decode_weights=decode_weights)
             return tokens[:, 0]                       # best beam per item
     elif spec.arch == "rationale":
         def caption(params, feats: torch.Tensor) -> torch.Tensor:
@@ -153,19 +175,23 @@ def make_caption_fn(spec: model_base.ModelSpec,
 
 def _transformer_caption_fn(spec: model_base.ModelSpec, beam_size: int, eos_id: int,
                             sample_temperature: float, sample_top_k: int,
-                            sample_top_p: float, rng: int) -> Callable:
+                            sample_top_p: float, rng: int, kv_cache: str,
+                            decode_weights: str) -> Callable:
     """The Transformer's serving decodes, all through the KV-cached stepper
-    on features cast to the compute dtype: greedy, the gathered-cache beam,
-    or sampling."""
+    in the given modes, on features cast to the compute dtype: greedy, the
+    gathered-cache beam, or sampling."""
+    modes = {"kv_cache": kv_cache, "decode_weights": decode_weights}
+
     def caption(params, feats: torch.Tensor) -> torch.Tensor:
         feats = feats.to(spec.cdtype)
         if sample_temperature > 0:
             return decode.sample_tokens(params, spec, feats, eos_id, rng,
-                                        sample_temperature, sample_top_k, sample_top_p)
+                                        sample_temperature, sample_top_k, sample_top_p,
+                                        **modes)
         if beam_size > 1:
             return decode.transformer_beam_decode_fast(params, spec, feats, beam_size,
-                                                       eos_id)[0][:, 0]
+                                                       eos_id, **modes)[0][:, 0]
         e_outputs = tr.encode(params, spec, feats, tr.create_masks_inp(feats))
-        return tr.decode_greedy_fast(params, spec, e_outputs)
+        return tr.decode_greedy_fast(params, spec, e_outputs, **modes)
 
     return caption

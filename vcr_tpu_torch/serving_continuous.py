@@ -44,8 +44,13 @@ comes from a generator seeded with (seed, admission index). Both can be
 injected (``select_noise``, ``sample_noise``), as the tests inject the JAX
 package's noise: JAX's random streams cannot be reproduced in torch.
 
-Not ported: ``mesh`` (ROADMAP A15) and the quantized ``kv_cache`` /
-``decode_weights`` modes (A13) raise.
+Quantized modes: ``decode_weights="int8"`` (all five families) quantizes
+the per-step dense weights once, at construction: the Transformer's decoder
+denses are replaced by int8 codes, the GRU families' step dicts augmented
+beside their float32 originals, which the encoders keep reading (B1 and B2
+launch as before). ``kv_cache="int8"|"int4"`` (the Transformer's) stores its
+self and cross K/V caches quantized. Not ported: ``mesh`` (ROADMAP A15)
+raises.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from vcr_tpu_torch.decode import NEG_INF, _s2vt_att_stepper, _s2vt_stepper, _top_k
+from vcr_tpu_torch.decode import (NEG_INF, _s2vt_att_stepper, _s2vt_stepper, _top_k,
+                                  augment_decode_weights, check_gru_kv_cache)
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
 from vcr_tpu_torch.models import rationale, s2vt, s2vt_att, spatial
@@ -254,8 +260,11 @@ class ContinuousCaptioner:
         "top_p"}, any subset), which override the pool's defaults for that
         slot. A request without opts decodes greedily unless the pool
         samples. Implied by sample_temperature > 0.
-      kv_cache / decode_weights: "bf16" (or None) only; the quantized modes
-        raise naming ROADMAP A13.
+      kv_cache: "bf16" (None), or the Transformer's quantized "int8" or
+        "int4" K/V caches; a GRU family raises ValueError for those.
+      decode_weights: "bf16" (None) or "int8", every family (see the
+        module docstring). Both modes are bounded-error: their tokens are
+        not the bf16 pool's.
       select_noise: (admission index) -> (A, N, 2) Gumbel noise of that
         chunk's frame selection (RationaleNet); None draws it.
       sample_noise: (admission index, chunk row) -> (max_len, padded vocab)
@@ -283,7 +292,8 @@ class ContinuousCaptioner:
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh-sharded slot pool is not ported yet: ROADMAP A15 (multi-device)")
-        model_base.check_serving_modes(kv_cache, decode_weights)
+        self.kv_cache, self.decode_weights = model_base.check_serving_modes(
+            kv_cache, decode_weights)
         self.device = resolve_device(device)
         self.spec = spec
         self.params = params_to(params, self.device)
@@ -313,20 +323,26 @@ class ContinuousCaptioner:
         self.in_flight = 0
 
         # the decode cell's parameters: spatial and rationale decode through
-        # their wrapped captioner
+        # their wrapped captioner. Under int8 decode weights they are
+        # quantized once, here: the Transformer's decoder denses replaced,
+        # the GRU families' step dicts augmented; self.params, which the
+        # encoders read, stays float32
+        self._base = spec.base_arch if spec.arch in ("spatial", "rationale") else spec.arch
         if spec.arch in ("spatial", "rationale"):
             model_base.base_module(spec)  # raises for an unknown base
-            self._dec_params = self.params["caption_net"]
-            self._base = spec.base_arch
-        else:
-            self._dec_params = self.params
-            self._base = spec.arch
+        check_gru_kv_cache(spec, self.kv_cache)
+        step_params = (augment_decode_weights(self.params, spec)
+                       if self.decode_weights == "int8" else self.params)
+        self._dec_params = (step_params["caption_net"]
+                            if spec.arch in ("spatial", "rationale") else step_params)
         rows = slots * beam_size
         if self._base == "transformer":
             self._slot_step, self._init_self, self._cross_state = tr.make_slot_stepper(
-                self._dec_params, spec, beam_tile=beam_size, lineage=beam_size > 1)
+                self._dec_params, spec, beam_tile=beam_size, lineage=beam_size > 1,
+                kv_cache=self.kv_cache, decode_weights=self.decode_weights)
         elif self._base == "s2vt":
-            self._s2vt_step = _s2vt_stepper(self._dec_params, spec, rows)
+            self._s2vt_step = _s2vt_stepper(self._dec_params, spec, rows,
+                                            self.decode_weights)
         with torch.inference_mode():
             self.state = self._init_state()
 
@@ -335,14 +351,11 @@ class ContinuousCaptioner:
     def _zeros_dec_state(self, rows: int):
         spec, dev = self.spec, self.device
         if self._base == "transformer":
-            d_k = self._dec_params["decoder"]["layers"]["attn_2"]["k"]["w"].shape[-1] \
-                // spec.tf_heads
-
-            def zx():
-                return torch.zeros((rows, spec.tf_heads, spec.num_frames, d_k),
-                                   dtype=spec.cdtype, device=dev)
+            d_k = tr._attn_hidden(self._dec_params["decoder"]["layers"]) // spec.tf_heads
             return {**self._init_self(rows),
-                    **{f"x{li}": (zx(), zx()) for li in range(spec.tf_layers)}}
+                    **{f"x{li}": tr._zero_kv(rows, spec.tf_heads, spec.num_frames, d_k,
+                                             spec.cdtype, self.kv_cache, dev)
+                       for li in range(spec.tf_layers)}}
 
         def h():
             return torch.zeros((rows, spec.hidden_size), dtype=torch.float32, device=dev)
@@ -488,7 +501,8 @@ class ContinuousCaptioner:
             return self._slot_step(dec, words, steps.clamp(max=self.spec.max_len - 1))
         if self._base == "s2vt":
             return self._s2vt_step(dec, words, 0)
-        step = _s2vt_att_stepper(self._dec_params, self.spec, dec["pk"], dec["eo"])
+        step = _s2vt_att_stepper(self._dec_params, self.spec, dec["pk"], dec["eo"],
+                                 self.decode_weights)
         new_inner, logits = step({"h": dec["h"]}, words, 0)
         return dict(dec, **new_inner), logits
 

@@ -234,6 +234,7 @@ def train(cfg: Config, device=None) -> Dict[str, float]:
     vocab = load_vocab(cfg)
     spec = model_base.spec_from_config(cfg, vocab)
     train_it, val_it = make_datasets(cfg, vocab)
+    print(f"====> Input route: {train_it.route} ({train_it.num_threads} threads)")
     params = init_params(cfg, spec, vocab, device)
 
     # RationaleNet's warm start from a captioner trained by this package

@@ -172,6 +172,30 @@ exit code and no result line:
    at once: B1 twice (and B2 twice for RationaleNet) per admission chunk
    in both, captions/s, tokens int8 against bf16.
 
+13. deployable_artifacts -- the artifacts of export_serving and
+   export_continuous, each exported on the CPU and run on the card. The
+   flagship S2VT (bf16, symbolic batch): export seconds and each file's
+   bytes; a child process that imports torch, numpy and the op library
+   only (its sys.modules is checked) loads it by the recipe of
+   export_serving's docstring and captions B=2048 features: B1 twice a call
+   on the tensor-core body and nothing else, counted in the child; tokens
+   equal to serving.build_captioner's on the same features bit for bit
+   (else the agreement and the first differing cell); best and median of
+   3 (CUDA events) of the artifact and the live call at B=2048 and B=1, the
+   load and first-call seconds. RationaleNet at B=1024 (its selection noise
+   drawn by the loader: B2 twice and B1 twice a call), S2VT beam 5 at
+   B=256 and the Transformer's KV-cached greedy at B=512 (no launch):
+   tokens equal to the live call's, times beside it. The frozen flagship
+   pool (R=512, A=64) against the live pool over 1,024 requests, each
+   twice in turns: tokens equal, B1 twice per admission chunk, captions/s;
+   then `python -m vcr_tpu_torch.cli --mode serve --pretrained_base <the
+   artifact> --serve_port 0` answers 8 POST /caption with the live pool's
+   tokens and exits 0 on SIGTERM. Last, float32 SpatialNet over S2VT at
+   B=4, loaded on the card (cuDNN's TF32 left on by the caller, which the
+   loader turns off around the call) and on the CPU: tokens equal.
+   Phase 5 also times B1 through its custom op against its launcher, and
+   the host time of one call of each.
+
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
 imports only the port.
@@ -186,6 +210,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -260,6 +285,8 @@ TF_CONT_BEAM_SLOTS = 128     # its lineage beam-5 pool
 RATIONALE_CONT_SLOTS = 256   # RationaleNet's pool
 QUANT_MODES = (("bf16", "bf16"), ("int8", "bf16"), ("int4", "bf16"), ("bf16", "int8"),
                ("int8", "int8"))   # phase 12's (kv_cache, decode_weights) pairs
+ART_BEAM_BATCH = 256         # phase 13: the S2VT beam-5 artifact's batch
+ART_F32_BATCH = 4            # and the float32 SpatialNet artifact's
 QUANT_CHECK_BATCH = 4        # float32 card vs CPU in each quantized mode
 QUANT_CODE_FLIPS = 0.05      # share of the last layer's cache codes that may sit
                              # one step apart, card vs CPU in float32 after 6
@@ -1987,6 +2014,306 @@ def quantized_phase(cuda_gru, cuda_lstm, smi):
             "rationale_w8_admit_chunks": pools["rationale"]["int8"]["admit_chunks"]}
 
 
+# the serving host of phase 13: a child process that imports torch, numpy and
+# the op library only, loads the flagship's artifact by the recipe of
+# export_serving's docstring, and captions on the card
+ARTIFACT_HOST = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import vcr_tpu_torch.ops.library  # registers the ops
+from torch.export.passes import move_to_device_pass
+from vcr_tpu_torch.ops import _build, cuda_gru, cuda_lstm
+
+art, feats_path, out_path = sys.argv[1:4]
+t0 = time.perf_counter()
+with open(os.path.join(art, "meta.json")) as f:
+    meta = json.load(f)
+for name, digest in meta["kernel_sources"].items():
+    assert _build.source_digest(_build.CSRC / f"{name}.cu") == digest, name
+program = move_to_device_pass(torch.export.load(os.path.join(art, "serving_fn.pt2")),
+                              torch.device("cuda")).module()
+with np.load(os.path.join(art, "weights.npz")) as w:
+    leaves = [torch.from_numpy(w[k]).to("cuda", getattr(torch, dt))
+              for k, dt in zip(sorted(w.files), meta["leaf_dtypes"])]
+assert meta["draws"]["plan"] == [] and not meta["float32_conv"]
+feats = torch.from_numpy(np.load(feats_path)).cuda()
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+
+
+def caption(x):
+    with torch.no_grad():
+        return program(leaves, x, [])
+
+
+def counts():
+    return {"gru_seq": cuda_gru.launches, "gru_seq_bt": cuda_gru.launches_bt,
+            "gru_seq_dma": cuda_gru.launches_dma, "gru_seq_tc": cuda_gru.launches_tc,
+            "lstm_seq": cuda_lstm.launches}
+
+
+def best_median(fn):
+    fn()
+    runs = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b))
+    runs.sort()
+    return runs[0], runs[1]
+
+
+first_s = time.perf_counter()
+tokens = caption(feats)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - first_s
+before = counts()
+tokens = caption(feats)
+torch.cuda.synchronize()
+launches = {k: v - before[k] for k, v in counts().items()}
+one = feats[:1].contiguous()
+np.save(out_path, tokens.cpu().numpy())
+mods = sorted(m for m in sys.modules if m.startswith("vcr_tpu_torch"))
+print(json.dumps({"load_s": load_s, "first_call_s": first_s, "launches": launches,
+                  "ms": best_median(lambda: caption(feats)),
+                  "ms_b1": best_median(lambda: caption(one)), "modules": mods}))
+"""
+# the package's modules a serving host of an exported program imports
+HOST_MODULES = {"vcr_tpu_torch", "vcr_tpu_torch.ops", "vcr_tpu_torch.ops._build",
+                "vcr_tpu_torch.ops.cuda_gru", "vcr_tpu_torch.ops.cuda_lstm",
+                "vcr_tpu_torch.ops.library", "vcr_tpu_torch.nn", "vcr_tpu_torch.nn.init",
+                "vcr_tpu_torch.nn.layers", "vcr_tpu_torch.nn.rnn"}
+
+
+def dir_bytes(path) -> dict:
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+
+
+def first_difference(got, want) -> dict:
+    """Agreement of two token tensors and their first differing cell."""
+    same = got == want
+    where = (~same).nonzero()
+    first = None
+    if len(where):
+        r, c = where[0].tolist()
+        first = {"row": r, "col": c, "got": int(got[r, c]), "want": int(want[r, c])}
+    return {"agreement": same.float().mean().item(), "first_difference": first}
+
+
+def artifact_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 13: the deployable artifacts, exported on the CPU and run on the
+    card; returns what the kernels line reports of it."""
+    from vcr_tpu_torch import entry, export_continuous, export_serving, serving
+    from vcr_tpu_torch.client import CaptionClient
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vcr_artifacts_")
+    out = {}
+    try:
+        # 1. the flagship, served from a child process that loads no model code
+        spec, params_cpu = entry.make_spec_and_params(**entry.FLAGSHIP, device="cpu")
+        params = params_to(params_cpu, "cuda")
+        art = os.path.join(root, "flagship")
+        t0 = time.perf_counter()
+        export_serving.export_captioner(params_cpu, spec, art, device="cpu")
+        export_s = time.perf_counter() - t0
+        feats = np.random.default_rng(13).standard_normal(
+            (TIMING_BATCH, spec.num_frames, spec.vid_feat_size), dtype=np.float32)
+        feats_path, tokens_path = os.path.join(root, "feats.npy"), os.path.join(root,
+                                                                                 "tok.npy")
+        np.save(feats_path, feats)
+        host = subprocess.run([sys.executable, "-c", ARTIFACT_HOST, art, feats_path,
+                               tokens_path],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        check(host.returncode == 0, f"the artifact host failed: {host.stderr[-3000:]}")
+        host = json.loads(host.stdout.strip().splitlines()[-1])
+        extra = sorted(set(host["modules"]) - HOST_MODULES)
+        check(not extra, f"the artifact host imported model code: {extra}")
+        live = serving.build_captioner(params, spec)
+        fc = torch.from_numpy(feats).cuda()
+        want = live(fc).cpu()
+        got = torch.from_numpy(np.load(tokens_path))
+        diff = first_difference(got, want)
+        emit("artifact_flagship_tokens", batch=TIMING_BATCH, **diff)
+        check(torch.equal(got, want), f"the flagship artifact's tokens differ from the "
+                                      f"live call's: {diff}")
+        want_launches = {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": 2,
+                         "lstm_seq": 0}
+        check(host["launches"] == want_launches,
+              f"the flagship artifact launched {host['launches']} in a call")
+        live_ms = median_best_ms(lambda: live(fc))
+        live_b1_ms = median_best_ms(lambda: live(fc[:1]))
+        out["flagship"] = host["launches"]
+        emit("artifact_flagship", batch=TIMING_BATCH, export_s=export_s,
+             files_bytes=dir_bytes(art), exported_on="cpu", host_modules=host["modules"],
+             load_s=host["load_s"], first_call_s=host["first_call_s"],
+             launches_per_call=host["launches"],
+             artifact_ms_best_median=host["ms"], live_ms_best_median=live_ms,
+             artifact_b1_ms_best_median=host["ms_b1"], live_b1_ms_best_median=live_b1_ms,
+             captions_per_s=TIMING_BATCH / (host["ms"][0] / 1e3),
+             live_captions_per_s=TIMING_BATCH / (live_ms[0] / 1e3), nvidia_smi=smi)
+
+        # 2.-3. RationaleNet (its selection noise an input, drawn by the
+        # loader), S2VT beam 5 and the Transformer's KV-cached greedy
+        cases = (("rationale", entry.RATIONALE, RATIONALE_BATCH, {}, {"gru_seq": 2,
+                                                                      "lstm_seq": 2}),
+                 ("s2vt_beam5", entry.FLAGSHIP, ART_BEAM_BATCH, {"beam_size": 5},
+                  {"gru_seq": 2, "lstm_seq": 0}),
+                 ("transformer", entry.TRANSFORMER, TF_FAST_BATCH, {},
+                  {"gru_seq": 0, "lstm_seq": 0}))
+        for name, dims, batch, kw, launches_want in cases:
+            cspec, cparams_cpu = entry.make_spec_and_params(**dims, device="cpu")
+            cparams = params_to(cparams_cpu, "cuda")
+            cart = os.path.join(root, name)
+            t0 = time.perf_counter()
+            export_serving.export_captioner(cparams_cpu, cspec, cart, device="cpu", **kw)
+            export_s = time.perf_counter() - t0
+            del cparams_cpu
+            t0 = time.perf_counter()
+            loaded = export_serving.load_artifact(cart, device="cuda")
+            load_s = time.perf_counter() - t0
+            x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
+                (batch, cspec.num_frames, cspec.vid_feat_size), dtype=np.float32)).cuda()
+            clive = serving.build_captioner(cparams, cspec, **kw)
+            want = clive(x)
+            reset_counts(cuda_gru, cuda_lstm)
+            got = loaded(x)
+            torch.cuda.synchronize()
+            counts = launch_counts(cuda_gru, cuda_lstm)
+            diff = first_difference(got.cpu(), want.cpu())
+            emit(f"artifact_{name}_tokens", batch=batch, **diff)
+            check(torch.equal(got, want), f"the {name} artifact's tokens differ from the "
+                                          f"live call's: {diff}")
+            check({k: counts[k] for k in launches_want} == launches_want
+                  and counts["gru_seq_bt"] == counts["gru_seq_dma"] == 0,
+                  f"the {name} artifact launched {counts} in a call")
+            out[name] = counts
+            emit(f"artifact_{name}", batch=batch, export_s=export_s, load_s=load_s,
+                 files_bytes=dir_bytes(cart), draws=loaded.meta["draws"],
+                 launches_per_call=counts,
+                 artifact_ms_best_median=median_best_ms(lambda: loaded(x)),
+                 live_ms_best_median=median_best_ms(lambda: clive(x)), nvidia_smi=smi)
+            del loaded, clive, cparams
+
+        # 4. the frozen flagship pool against the live pool, then --mode serve
+        # on the artifact directory
+        pool_dir = os.path.join(root, "pool")
+        t0 = time.perf_counter()
+        export_continuous.export_continuous(params_cpu, spec, pool_dir, slots=CONT_SLOTS,
+                                            admit_chunk=CONT_ADMIT, device="cpu")
+        pool_export_s = time.perf_counter() - t0
+        frozen = export_continuous.load_continuous(pool_dir, device="cuda")
+        livepool = ContinuousCaptioner(params, spec, slots=CONT_SLOTS,
+                                       admit_chunk=CONT_ADMIT)
+        reqs = {i: f for i, f in enumerate(np.random.default_rng(14).standard_normal(
+            (CONT_REQUESTS, spec.num_frames, spec.vid_feat_size), dtype=np.float32))}
+        frozen.caption_all({0: reqs[0]})                      # first use
+        livepool.caption_all({0: reqs[0]})
+        pools = {}
+        for label, pool in (("frozen", frozen), ("live", livepool), ("frozen", frozen),
+                            ("live", livepool)):
+            chunks = pool.stats["admit_chunks"]
+            reset_counts(cuda_gru, cuda_lstm)
+            t0 = time.perf_counter()
+            result = pool.caption_all(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts(cuda_gru, cuda_lstm)
+            chunks = pool.stats["admit_chunks"] - chunks
+            best = pools.get(label)
+            if best is None or wall < best["seconds"]:
+                pools[label] = {"seconds": wall, "captions_per_s": len(reqs) / wall,
+                                "admit_chunks": chunks, "launches": counts,
+                                "result": result}
+        fr, lv = pools["frozen"], pools["live"]
+        differing = [k for k in reqs if not np.array_equal(fr["result"][k],
+                                                           lv["result"][k])]
+        check(not differing, f"the frozen pool's tokens differ from the live pool's for "
+                             f"{len(differing)} requests, e.g. {differing[:5]}")
+        per_chunk = {k: v / fr["admit_chunks"] for k, v in fr["launches"].items()}
+        check(fr["launches"]["gru_seq"] == 2 * fr["admit_chunks"]
+              and fr["launches"]["gru_seq_tc"] == 2 * fr["admit_chunks"]
+              and fr["launches"]["lstm_seq"] == fr["launches"]["gru_seq_bt"]
+              == fr["launches"]["gru_seq_dma"] == 0,
+              f"the frozen pool launched {fr['launches']} over {fr['admit_chunks']} "
+              "admission chunks")
+        out["pool_per_chunk"] = per_chunk
+        emit("artifact_frozen_pool", slots=CONT_SLOTS, admit_chunk=CONT_ADMIT,
+             requests=len(reqs), export_s=pool_export_s, files_bytes=dir_bytes(pool_dir),
+             tokens_equal_live=True, launches_per_admit_chunk=per_chunk,
+             frozen={k: v for k, v in fr.items() if k != "result"},
+             live={k: v for k, v in lv.items() if k != "result"}, nvidia_smi=smi)
+        del frozen, livepool
+
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "vcr_tpu_torch.cli", "--mode", "serve",
+             "--pretrained_base", pool_dir, "--serve_port", "0"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            line = ""
+            for line in serve.stdout:
+                if line.startswith("serving"):
+                    break
+            check(line.startswith("serving"), f"--mode serve on the artifact: {line}")
+            url = line.split(" on ")[1].split()[0]
+            client = CaptionClient(url, timeout_s=600, retries=0)
+            answers = [client.caption(reqs[i]) for i in range(8)]
+            check(all(list(t) == list(lv["result"][i])
+                      for i, (t, _) in enumerate(answers)),
+                  "--mode serve on the artifact answered other tokens than the live pool")
+            serve.send_signal(signal.SIGTERM)
+            serve_rc = serve.wait(120)
+        finally:
+            serve.kill()
+            serve.wait(120)
+            serve.stdout.close()
+        check(serve_rc == 0, f"--mode serve on the artifact exited {serve_rc}")
+        emit("artifact_serve", answered=len(answers), arch=line.split()[1],
+             captions=[c for _, c in answers[:2]], exit_code=serve_rc)
+
+        # 5. float32 SpatialNet over S2VT, exported on the CPU, run on the card
+        # with cuDNN's TF32 left on by the caller: the loader turns it off
+        sspec, sparams = entry.make_spec_and_params(**entry.SPATIAL, device="cpu",
+                                                    compute_dtype="float32")
+        sart = os.path.join(root, "spatial_f32")
+        export_serving.export_captioner(sparams, sspec, sart, device="cpu")
+        sx = np.random.default_rng(15).standard_normal(
+            (ART_F32_BATCH, sspec.num_frames, sspec.vid_feat_size, sspec.grid_size,
+             sspec.grid_size), dtype=np.float32)
+        on_cpu = export_serving.load_artifact(sart, device="cpu")(sx)
+        on_card_art = export_serving.load_artifact(sart, device="cuda")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            on_card = on_card_art(sx).cpu()
+            flag_after = torch.backends.cudnn.allow_tf32
+            # the same program without the loader's scope: informational
+            with torch.no_grad():
+                tf32_tokens = on_card_art._module(
+                    on_card_art.leaves, torch.from_numpy(sx).cuda(), []).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        diff = first_difference(on_card, on_cpu)
+        check(on_card_art.meta["float32_conv"] and flag_after,
+              "the float32 SpatialNet artifact: meta or the caller's TF32 flag")
+        check(torch.equal(on_card, on_cpu), f"the float32 SpatialNet artifact, card "
+                                            f"against CPU: {diff}")
+        emit("artifact_spatial_f32", batch=ART_F32_BATCH, float32_conv=True,
+             tokens_equal_cpu=True, caller_cudnn_tf32=True, caller_flag_restored=flag_after,
+             without_loader_scope=first_difference(tf32_tokens, on_cpu))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("artifact_phase", seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2369,6 +2696,30 @@ def main() -> int:
             for name in order:
                 gru_ms[name] = min(gru_ms[name], time_ms(gru_runs[name], iters=5))
         kernel_ms, bt_ms, dma_ms = gru_ms.values()
+        # the dispatcher: B1 through its custom op (the path every caller
+        # takes) against the launcher called directly, in turns; then the
+        # host time of one call of each at T=1, B=16, where the host sets
+        # the pace
+        op_ms = float("inf")
+        for _ in range(2):
+            op_ms = min(op_ms, time_ms(lambda: cuda_gru.gru_recurrence(*gru_args),
+                                       iters=5))
+            kernel_ms = min(kernel_ms, time_ms(gru_runs["gru_seq"], iters=5))
+        small = (x_gates[:1, :16].contiguous(),) + gru_args[1:3] + (
+            torch.zeros((16, hidden), device="cuda"), cd)
+        host_us = {}
+        for name, fn in (("launcher", cuda_gru.gru_recurrence_cuda),
+                         ("op", cuda_gru.gru_recurrence)) * 2:
+            fn(*small)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn(*small)
+            took = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            host_us[name] = min(host_us.get(name, float("inf")), took)
+        dispatcher = {"launcher_ms": kernel_ms, "op_ms": op_ms,
+                      "host_us_per_call": host_us, "host_batch": 16, "host_steps": 1}
         # B4's plain version is B1's
         plain_ms = time_ms(lambda: cuda_gru.gru_recurrence_plain(*gru_args))
         bt_plain_ms = time_ms(lambda: cuda_gru.gru_recurrence_bt_plain(*bt_args))
@@ -2445,7 +2796,7 @@ def main() -> int:
                       "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": dma_err,
                       "vs_b1_max_abs_err": max_err(dma_out, b1_out), **dma_body,
                       "at_rationale_batch": dma_half},
-         encoder=encoder, nvidia_smi=smi)
+         encoder=encoder, dispatcher=dispatcher, nvidia_smi=smi)
 
     # 5b. RationaleNet timing at its serving batch
     rfeats = torch.from_numpy(rng.standard_normal(
@@ -2527,6 +2878,9 @@ def main() -> int:
 
     # 12. the quantized serving modes
     quant = quantized_phase(cuda_gru, cuda_lstm, smi)
+
+    # 13. the deployable artifacts
+    art = artifact_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -2553,6 +2907,9 @@ def main() -> int:
         "launches_w8_pool": quant["s2vt_w8"]["gru_seq"],
         "w8_pool_admit_chunks": quant["s2vt_w8_admit_chunks"],
         "launches_w8_rationale_pool": quant["rationale_w8"]["gru_seq"],
+        "launches_per_artifact_call": {name: art[name]["gru_seq"] for name in (
+            "flagship", "rationale", "s2vt_beam5", "transformer")},
+        "launches_per_frozen_pool_admit_chunk": art["pool_per_chunk"]["gru_seq"],
         "at_admission_batch": cont["kernel_timing"]["gru_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
                                                 "gru_seq"),
@@ -2561,6 +2918,7 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
         "projection_ms": projection_ms, "at_rationale_batch": b1_half,
+        "dispatcher": dispatcher,
         "train_launches_per_step": {
             "s2vt": train_s2vt["launches_per_step"]["gru_seq"],
             "s2vt_remat": train_s2vt["remat_launches_per_step"]["gru_seq"],
@@ -2608,6 +2966,8 @@ def main() -> int:
         "continuous_rationale_admit_chunks": cont["rationale_admit_chunks"],
         "launches_w8_rationale_pool": quant["rationale_w8"]["lstm_seq"],
         "w8_rationale_pool_admit_chunks": quant["rationale_w8_admit_chunks"],
+        "launches_per_artifact_call": {name: art[name]["lstm_seq"] for name in (
+            "flagship", "rationale", "s2vt_beam5", "transformer")},
         "at_admission_batch": cont["kernel_timing"]["lstm_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
                                                 "lstm_seq"),

@@ -3,8 +3,9 @@ line's dispatch and flags (port 0, the pool's size from --serve_*), the
 caption a client gets against --mode decode's greedy caption of the same
 checkpoint, --serve_models, ``python -m vcr_tpu_torch.cli --mode serve`` as a
 process that stops on SIGTERM, int8 decode weights, and the refusals: a
-frozen continuous artifact (A16), a quantized KV cache on a family that has
-no attention cache, --mesh_dp (A15)."""
+frozen continuous artifact the JAX package made (this package serves its
+own since A16), a quantized KV cache on a family that has no attention
+cache, --mesh_dp (A15)."""
 
 import json
 import os
@@ -119,9 +120,11 @@ def test_serve_mode_as_a_process(trained):
 def test_serve_refusals(trained, tmp_path):
     art = tmp_path / "continuous_artifact"
     art.mkdir()
+    # a JAX-made frozen pool: its meta names no torch runtime (A16 serves
+    # this package's own, tests/test_torch_export_continuous.py)
     (art / "meta.json").write_text(json.dumps({"kind": "continuous"}))
     cfg, _ = get_config(_argv(trained, mode="serve", serve_port=0))
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="JAX package"):
         ttools.serve_captions(cfg, str(art), block=False, device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         ttools.serve_captions(cfg.replace(mesh_dp=2), block=False, device="cpu")

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "data.pipeline", "utils.logging", "utils.profiling", "utils.sampler",
                  "nn.attention", "models.s2vt_att", "convert", "models.spatial",
                  "models.transformer", "serving_continuous", "server", "multiserver",
-                 "client", "ops.kvquant", "ops.wquant", "data.native"):
+                 "client", "ops.kvquant", "ops.wquant", "data.native", "ops.library",
+                 "export_serving", "export_continuous", "scheduler"):
         assert f"vcr_tpu_torch.{name}" in mods
     assert "chip_smoke" in mods
     # nor what the JAX package's counterparts of the command line need:
@@ -61,11 +63,13 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
 
 
 def test_native_code_reads_no_environment_variable():
-    """The kernels' and the loader's Python read no environment variable:
-    the modes and routes are arguments."""
+    """The kernels', the op library's, the loader's and the artifacts' Python
+    read no environment variable: the modes and routes are arguments."""
     pkg = os.path.join(ROOT, "vcr_tpu_torch")
     paths = [os.path.join(pkg, "ops", f) for f in os.listdir(os.path.join(pkg, "ops"))
-             if f.endswith(".py")] + [os.path.join(pkg, "data", "native.py")]
+             if f.endswith(".py")] + [os.path.join(pkg, "data", "native.py"),
+                                      os.path.join(pkg, "export_serving.py"),
+                                      os.path.join(pkg, "export_continuous.py")]
     for path in paths:
         with open(path) as f:
             assert "os.environ" not in f.read(), path
@@ -574,3 +578,49 @@ def test_quantized_stepper_on_the_card_equals_cpu(cuda, monkeypatch, kv):
     for j in (0, 2):                                      # k and v codes
         gap = (kvquant.unpack(runs[1][1][j]).int() - kvquant.unpack(runs[0][1][j]).int())
         assert gap.abs().max().item() <= 1 and (gap != 0).float().mean().item() <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["s2vt", "rationale"])
+def test_artifact_exported_on_the_cpu_runs_the_kernels_on_the_card(cuda, monkeypatch,
+                                                                   tmp_path, arch):
+    """An artifact exported on the CPU and loaded on the card launches B1
+    (and B2) there, and its float32 tokens (TF32 off) equal the CPU's; the
+    frozen pool likewise, with B1 twice per admission chunk."""
+    from vcr_tpu_torch import export_continuous, export_serving
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dims = dict(vocab_size=40, embed_size=16, hidden=32, vid_feat=64, max_len=7,
+                num_frames=6)
+    spec, params = entry.make_spec_and_params(**dims, arch=arch, compute_dtype="float32",
+                                              device="cpu")
+    feats = torch.randn((5, 6, 64), generator=torch.Generator().manual_seed(6))
+    out = export_serving.export_captioner(params, spec, str(tmp_path / "a"), device="cpu")
+    want = export_serving.load_artifact(out, device="cpu")(feats)
+    art = export_serving.load_artifact(out, device=cuda)
+    before = (cuda_gru.launches, cuda_lstm.launches)
+    got = art(feats)
+    torch.cuda.synchronize()
+    assert (cuda_gru.launches - before[0], cuda_lstm.launches - before[1]) == (
+        2, 2 if arch == "rationale" else 0)
+    # RationaleNet's noise is drawn on each device from its own generator:
+    # the card's stream is not the CPU's, so the CPU's noise is fed to both
+    if arch == "rationale":
+        noise = art.noise(5)
+        cpu_art = export_serving.load_artifact(out, device="cpu")
+        with torch.no_grad():
+            want = cpu_art._module(cpu_art.leaves, feats, [noise[0].cpu()])
+            got = art._module(art.leaves, feats.to(cuda), noise)
+    assert torch.equal(got.cpu(), want)
+    if arch == "s2vt":
+        pool_dir = export_continuous.export_continuous(params, spec, str(tmp_path / "p"),
+                                                       slots=4, admit_chunk=2,
+                                                       device="cpu")
+        reqs = dict(enumerate(feats.numpy()))
+        on_cpu = export_continuous.load_continuous(pool_dir, device="cpu").caption_all(reqs)
+        pool = export_continuous.load_continuous(pool_dir, device=cuda)
+        before = cuda_gru.launches
+        on_card = pool.caption_all(reqs)
+        torch.cuda.synchronize()
+        assert cuda_gru.launches - before == 2 * pool.stats["admit_chunks"]
+        assert all(np.array_equal(on_card[k], on_cpu[k]) for k in reqs)

@@ -311,26 +311,57 @@ def test_preemption_signal_saves_and_resumes(tmp_path):
 
 
 # verify_parity and export_reference run since A8, train_spatial since A11,
-# the Transformer in each since A12, serve since A14 and the quantized
-# serving modes since A13; their cases keep their ids and hold what still
-# stands with those modes given: serving a frozen continuous artifact and
-# exporting one (A16), and SpatialNet over a Transformer
-@pytest.mark.parametrize("mode, extra, item", [
-    *(pytest.param(m, [], cli.NOT_PORTED_MODES[m].split(" (")[0], id=m)
+# the Transformer in each since A12, serve since A14, the quantized serving
+# modes since A13, and export_serving, export_continuous and serve on a
+# frozen artifact since A16; their cases keep their ids and hold what still
+# stands: a multi-device artifact (A15), a sampling pool frozen (live-pool
+# only, as in the JAX package), a JAX-made artifact, a quantized KV cache on
+# S2VT, which has none; the int8-weight pool is exported and served; and
+# SpatialNet over a Transformer
+@pytest.mark.parametrize("mode, extra, exc, item", [
+    *(pytest.param(m, [], NotImplementedError, cli.NOT_PORTED_MODES[m].split(" (")[0],
+                   id=m)
       for m in sorted(cli.NOT_PORTED_MODES)),
+    pytest.param("export_serving", ["--mesh_dp", "2"], NotImplementedError, "A15",
+                 id="export_serving"),
+    pytest.param("export_continuous", ["--sample_temperature", "0.7"],
+                 NotImplementedError, "live-pool only", id="export_continuous"),
     pytest.param("serve", ["--pretrained_base", "{artifact}", "--serve_kv_cache", "int8"],
-                 "A16", id="serve"),
-    pytest.param("export_serving", ["--arch", "transformer", "--serve_kv_cache", "int8"],
-                 "A16", id="export_reference"),
-    pytest.param("export_continuous", ["--arch", "transformer", "--serve_decode_weights",
-                                       "int8"], "A16", id="verify_parity"),
-    pytest.param("train_spatial", ["--arch", "transformer"], "wraps S2VT or S2VT-att",
-                 id="train_spatial")])
-def test_unported_modes_raise(mode, extra, item, tmp_path):
+                 ValueError, "JAX package", id="serve"),
+    pytest.param("export_serving", ["{trained}", "--serve_kv_cache", "int8"],
+                 ValueError, "has none", id="export_reference"),
+    pytest.param("export_continuous", ["{trained}", "--serve_decode_weights", "int8"],
+                 None, "", id="verify_parity"),
+    pytest.param("train_spatial", ["--arch", "transformer"], NotImplementedError,
+                 "wraps S2VT or S2VT-att", id="train_spatial")])
+def test_unported_modes_raise(mode, extra, exc, item, tmp_path, request):
     (tmp_path / "meta.json").write_text(json.dumps({"kind": "continuous"}))
+    if "{trained}" in extra:
+        flags = request.getfixturevalue("trained")["flags"]
+        io = [x for k in ("data_dir", "corpus", "glove_emb_file", "save_path")
+              for x in (f"--{k}", str(flags[k]))]
+        extra = io + ["--save_path", str(tmp_path / "export"), "--pretrained_base",
+                      tckpt.best_path(flags["save_path"])] + extra[1:]
     extra = [str(tmp_path) if x == "{artifact}" else x for x in extra]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["--mode", mode, "--device", "cpu", *extra])
+    argv = ["--mode", mode, "--device", "cpu", *extra]
+    if exc is not None:
+        with pytest.raises(exc, match=item):
+            cli.main(argv)
+        return
+    from vcr_tpu_torch.export_continuous import load_continuous
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
+    frozen = load_continuous(cli.main(argv), device="cpu")
+    assert frozen.meta["decode_weights"] == "int8"
+    cfg, _ = tconfig.get_config(["--mode", "decode", *extra])
+    _, params, spec, _ = ttools.load_inference_state(cfg, cfg.pretrained_base, "cpu")
+    feats = {i: np.random.default_rng(i).standard_normal((4, 12)).astype(np.float32)
+             for i in range(3)}
+    want = ContinuousCaptioner(params, spec, slots=frozen.slots,
+                               admit_chunk=frozen.admit_chunk, decode_weights="int8",
+                               rng=cfg.seed, device="cpu").caption_all(feats)
+    got = frozen.caption_all(feats)
+    assert all(np.array_equal(got[k], want[k]) for k in feats)
 
 
 @pytest.mark.parametrize("argv, exc, item", [

@@ -1,6 +1,7 @@
 """Command line: ``python -m vcr_tpu_torch.cli --mode train | train_rationale
 | train_spatial | eval | decode | serve | verify_parity | export_reference
-[--flags]``, the counterpart of ``vcr_tpu/cli.py``.
+| export_serving | export_continuous [--flags]``, the counterpart of
+``vcr_tpu/cli.py``.
 
 Every flag of the JAX package's command line parses to the same Config;
 ``--device cuda`` (the default, which raises without a card) or ``--device
@@ -25,8 +26,6 @@ NOT_PORTED_MODES = {
     "extract_bbox_feats": "ROADMAP A17 (featurizers and prep)",
     "extract_glove": "ROADMAP A17 (featurizers and prep)",
     "eval_attention": "ROADMAP A17 (featurizers and prep)",
-    "export_serving": "ROADMAP A16 (deployable artifacts)",
-    "export_continuous": "ROADMAP A16 (deployable artifacts)",
     "bench": "ROADMAP A4 (the port's benchmark)",
 }
 
@@ -81,6 +80,18 @@ def dispatch(cfg: Config, device=None):
 
         out = export_reference_checkpoint(cfg, cfg.pretrained_base or "")
         print(f"reference-format checkpoint written to {out}")
+        return out
+    if cfg.mode == "export_serving":
+        from vcr_tpu_torch.tools import export_serving_artifact
+
+        out = export_serving_artifact(cfg, cfg.pretrained_base or "", device=device)
+        print(f"serving artifact written to {out}")
+        return out
+    if cfg.mode == "export_continuous":
+        from vcr_tpu_torch.tools import export_continuous_artifact
+
+        out = export_continuous_artifact(cfg, cfg.pretrained_base or "", device=device)
+        print(f"continuous-serving artifact written to {out}")
         return out
     if cfg.mode == "verify_parity":
         from vcr_tpu_torch.tools import verify_parity

@@ -168,7 +168,10 @@ class MultiCaptionServer:
     @staticmethod
     def _arch(s: CaptionServer) -> str:
         spec = getattr(s.captioner, "spec", None)
-        return spec.arch if spec is not None else "unknown"
+        if spec is not None:
+            return spec.arch
+        meta = getattr(s.captioner, "meta", None)  # a frozen artifact
+        return meta["spec"]["arch"] if meta else "unknown"
 
     def _capture_profile(self, seconds: float):
         """One process-global capture guard across every model route."""

@@ -51,11 +51,17 @@ def vdot(x: torch.Tensor, w: torch.Tensor,
     the card the product asks cuBLAS for a float32 output
     (:class:`_MatmulF32`); on the CPU, which has no such kernel, the
     bf16-rounded operands are up-cast to float32, which gives the same exact
-    products.
+    products. While ``torch.export`` traces, the product is the op
+    ``vcr_tpu_torch::mm_f32`` (``ops/library.py``), whose implementation on
+    each device is that device's form here, so a program exported on one
+    device runs the other's form on the other.
     """
     xc, wc = x.to(compute_dtype), w.to(compute_dtype)
     if compute_dtype == torch.float32:
         return xc @ wc
+    if torch.compiler.is_exporting():
+        # the device is chosen when the exported program runs, not here
+        return torch.ops.vcr_tpu_torch.mm_f32(xc, wc)
     if xc.is_cuda:
         y = _MatmulF32.apply(xc.reshape(-1, xc.shape[-1]), wc)
         return y.reshape(*xc.shape[:-1], wc.shape[-1])
@@ -93,10 +99,13 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor,
     A bf16 ``torch.matmul`` would round its result to bf16. On the card the
     product asks cuBLAS for a float32 output (:class:`_BmmF32`); on the
     CPU the bf16-rounded operands are up-cast to float32, which gives the
-    same exact products, as :func:`vdot` does."""
+    same exact products, as :func:`vdot` does (and, as there, an exported
+    program holds the op ``vcr_tpu_torch::bmm_f32``)."""
     ac, bc = a.to(compute_dtype), b.to(compute_dtype)
     if compute_dtype == torch.float32:
         return ac @ bc
+    if torch.compiler.is_exporting():
+        return torch.ops.vcr_tpu_torch.bmm_f32(ac, bc)
     if not ac.is_cuda:
         return ac.float() @ bc.float()
     lead = ac.shape[:-2]
@@ -211,7 +220,7 @@ def _same(w: torch.Tensor) -> Tuple[int, int]:
 
 
 @contextlib.contextmanager
-def _cudnn_tf32_off():
+def cudnn_tf32_off():
     """cuDNN's TF32 off for the scope; its other flags stay the caller's
     (``torch.backends.cudnn.flags`` would reset them to its defaults)."""
     old = torch.backends.cudnn.allow_tf32
@@ -231,13 +240,13 @@ class _Conv2dF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        with _cudnn_tf32_off():
+        with cudnn_tf32_off():
             return F.conv2d(x, w, padding=_same(w))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x, w = ctx.saved_tensors
-        with _cudnn_tf32_off():
+        with cudnn_tf32_off():
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, [1, 1], list(_same(w)), [1, 1], False, [0, 0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
@@ -255,12 +264,16 @@ def conv2d(params, x: torch.Tensor,
     operands (float32 accumulation, bf16 output), and a float32 conv is a
     cuDNN call with TF32 off, whatever ``torch.backends.cudnn.allow_tf32``
     says; on the CPU both operands are rounded to the compute dtype,
-    convolved in float32 and the result rounded to the compute dtype.
+    convolved in float32 and the result rounded to the compute dtype (an
+    exported program holds the bf16 conv as the op
+    ``vcr_tpu_torch::conv2d_same``, which picks its form when it runs).
     Autograd gives JAX's gradient on both: the output's cotangent rounded
     to the compute dtype, each operand's gradient rounded to its dtype."""
     xc, wc = x.to(compute_dtype), params["w"].to(compute_dtype)
     if compute_dtype == torch.float32:
         y = _Conv2dF32.apply(xc, wc)
+    elif torch.compiler.is_exporting():
+        y = torch.ops.vcr_tpu_torch.conv2d_same(xc, wc)
     elif xc.is_cuda:
         y = F.conv2d(xc, wc, padding=_same(wc))
     else:

@@ -83,9 +83,9 @@ def gru_recurrence_bt_plain(x_gates: torch.Tensor, w_hh: torch.Tensor,
                             b_hh: torch.Tensor, h0: torch.Tensor,
                             compute_dtype: torch.dtype) -> torch.Tensor:
     """Kernel B3's function in plain PyTorch: x_gates (B, T, 3H) -> outs
-    (B, T, H) float32."""
+    (B, T, H) float32, contiguous as the kernel writes them."""
     return gru_recurrence_plain(x_gates.transpose(0, 1), w_hh, b_hh, h0,
-                                compute_dtype).transpose(0, 1)
+                                compute_dtype).transpose(0, 1).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -405,31 +405,27 @@ def gru_recurrence_dma_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
     return out
 
 
-def _dispatch(cuda_fn, plain_fn, x_gates, *args) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    if x_gates.device.type == "cuda":
-        return cuda_fn(x_gates, *args)
-    if x_gates.device.type == "cpu":
-        return plain_fn(x_gates, *args)
-    raise ValueError(f"no GRU recurrence for device {x_gates.device}")
+def _dispatch(op_name: str, x_gates, *args) -> torch.Tensor:
+    """The custom op ``vcr_tpu_torch::<op_name>`` (``ops/library.py``): the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x_gates.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no GRU recurrence for device {x_gates.device}")
+    return getattr(torch.ops.vcr_tpu_torch, op_name)(x_gates, *args)
 
 
 def gru_recurrence(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
     """B1 on CUDA tensors, the plain version on CPU tensors."""
-    return _dispatch(gru_recurrence_cuda, gru_recurrence_plain,
-                     x_gates, w_hh, b_hh, h0, compute_dtype)
+    return _dispatch("gru_recurrence", x_gates, w_hh, b_hh, h0, compute_dtype)
 
 
 def gru_recurrence_bt(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
     """B3 on CUDA tensors, the plain version on CPU tensors."""
-    return _dispatch(gru_recurrence_bt_cuda, gru_recurrence_bt_plain,
-                     x_gates, w_hh, b_hh, h0, compute_dtype)
+    return _dispatch("gru_recurrence_bt", x_gates, w_hh, b_hh, h0, compute_dtype)
 
 
 def gru_recurrence_dma(x_gates, w_hh, b_hh, h0, compute_dtype) -> torch.Tensor:
     """B4 on CUDA tensors, the plain version on CPU tensors."""
-    return _dispatch(gru_recurrence_dma_cuda, gru_recurrence_plain,
-                     x_gates, w_hh, b_hh, h0, compute_dtype)
+    return _dispatch("gru_recurrence_dma", x_gates, w_hh, b_hh, h0, compute_dtype)
 
 
 def _run(recurrence, params, xs, h0, batch, compute_dtype):

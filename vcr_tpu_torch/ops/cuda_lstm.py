@@ -194,12 +194,12 @@ def lstm_recurrence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
 
 def lstm_recurrence(x_gates, w_hh, b_hh, h0, c0, compute_dtype,
                     reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    if x_gates.device.type == "cuda":
-        return lstm_recurrence_cuda(x_gates, w_hh, b_hh, h0, c0, compute_dtype, reverse)
-    if x_gates.device.type == "cpu":
-        return lstm_recurrence_plain(x_gates, w_hh, b_hh, h0, c0, compute_dtype, reverse)
-    raise ValueError(f"no LSTM recurrence for device {x_gates.device}")
+    """The custom op ``vcr_tpu_torch::lstm_recurrence`` (``ops/library.py``):
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x_gates.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no LSTM recurrence for device {x_gates.device}")
+    return torch.ops.vcr_tpu_torch.lstm_recurrence(x_gates, w_hh, b_hh, h0, c0,
+                                                   compute_dtype, reverse)
 
 
 class LstmSequence(torch.autograd.Function):

@@ -124,8 +124,11 @@ def make_caption_fn(spec: model_base.ModelSpec,
                     rng: int = 0,
                     kv_cache: str | None = None,
                     decode_weights: str | None = None) -> Callable:
-    """The serving function ``caption(params, feats) -> tokens``; ``eos_id``
-    already resolved (None: ``spec.sos_id + 1``)."""
+    """The serving function ``caption(params, feats, noise=None) -> tokens``;
+    ``eos_id`` already resolved (None: ``spec.sos_id + 1``). A call draws
+    its random numbers (:func:`draw_plan`) from a generator seeded with
+    ``rng``, unless ``noise`` gives them as tensors by their plan names:
+    ``export_serving`` makes them inputs of the exported program."""
     if featurizer != "none":
         raise NotImplementedError(
             f"featurizer {featurizer!r} is not ported yet: ROADMAP A17 "
@@ -151,26 +154,55 @@ def make_caption_fn(spec: model_base.ModelSpec,
                                        sample_top_k, sample_top_p, rng, kv_cache,
                                        decode_weights)
     if sample_temperature > 0:
-        def caption(params, feats: torch.Tensor) -> torch.Tensor:
+        def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
+            noise = noise or {}
             return decode.sample_tokens(params, spec, feats, eos_id, rng,
                                         sample_temperature, sample_top_k, sample_top_p,
+                                        gumbel=noise.get("steps"),
+                                        gumbel_noise=noise.get("select"),
                                         decode_weights=decode_weights)
+    elif beam_size > 1 and spec.arch == "rationale":
+        def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
+            tokens, _ = decode.rationale_beam_decode(
+                params, spec, feats, beam_size, eos_id, rng=rng,
+                decode_weights=decode_weights, gumbel_noise=(noise or {}).get("select"))
+            return tokens[:, 0]                       # best beam per item
     elif beam_size > 1:
-        def caption(params, feats: torch.Tensor) -> torch.Tensor:
+        def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
             tokens, _ = decode.decode_tokens(params, spec, feats, eos_id, beam_size,
-                                             rng=rng, decode_weights=decode_weights)
+                                             decode_weights=decode_weights)
             return tokens[:, 0]                       # best beam per item
     elif spec.arch == "rationale":
-        def caption(params, feats: torch.Tensor) -> torch.Tensor:
-            return rationale.apply(params, spec, feats, emit="tokens", rng=rng)[0]
+        def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
+            return rationale.apply(params, spec, feats, emit="tokens", rng=rng,
+                                   gumbel_noise=(noise or {}).get("select"))[0]
     elif spec.arch == "spatial":
-        def caption(params, feats: torch.Tensor) -> torch.Tensor:
+        def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
             return spatial.apply(params, spec, feats, emit="tokens")[0]
     else:
-        def caption(params, feats: torch.Tensor) -> torch.Tensor:
+        def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
             return apply_fn(params, spec, feats, train=False, emit="tokens")
 
     return caption
+
+
+def draw_plan(spec: model_base.ModelSpec, beam_size: int = 1,
+              sample_temperature: float = 0.0) -> list:
+    """The random draws of one call of :func:`make_caption_fn`'s caption, in
+    the order its generator makes them: RationaleNet's frame-selection noise
+    ``"select"`` (B, N, 2), then, when sampling, one (B, padded vocab) block
+    per decode step, stacked as ``"steps"`` (L, B, padded vocab). Each entry
+    is ``{"input", "kind": "gumbel", "shape"}`` with ``"b"`` for the batch,
+    plus ``"steps"`` for a stack of per-step draws. Passing these tensors as
+    the caption's ``noise`` gives the tokens of a call that draws them."""
+    plan = []
+    if spec.arch == "rationale":
+        plan.append({"input": "select", "kind": "gumbel",
+                     "shape": ["b", spec.num_frames, 2]})
+    if sample_temperature > 0:
+        plan.append({"input": "steps", "kind": "gumbel",
+                     "shape": ["b", spec.padded_vocab_size], "steps": spec.max_len})
+    return plan
 
 
 def _transformer_caption_fn(spec: model_base.ModelSpec, beam_size: int, eos_id: int,
@@ -182,12 +214,12 @@ def _transformer_caption_fn(spec: model_base.ModelSpec, beam_size: int, eos_id: 
     gathered-cache beam, or sampling."""
     modes = {"kv_cache": kv_cache, "decode_weights": decode_weights}
 
-    def caption(params, feats: torch.Tensor) -> torch.Tensor:
+    def caption(params, feats: torch.Tensor, noise=None) -> torch.Tensor:
         feats = feats.to(spec.cdtype)
         if sample_temperature > 0:
             return decode.sample_tokens(params, spec, feats, eos_id, rng,
                                         sample_temperature, sample_top_k, sample_top_p,
-                                        **modes)
+                                        gumbel=(noise or {}).get("steps"), **modes)
         if beam_size > 1:
             return decode.transformer_beam_decode_fast(params, spec, feats, beam_size,
                                                        eos_id, **modes)[0][:, 0]

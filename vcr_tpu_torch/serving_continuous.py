@@ -9,8 +9,11 @@ finished and refills them from a request queue.
 * Admission encodes a fixed-size chunk of A videos through the family's
   encoder (kernel B1 for S2VT's encode and prime, S2VT-att's encode and
   SpatialNet-over-S2VT's prime; B2 for RationaleNet's generator), then
-  copies the valid rows into their slots (``index_copy_``: the rows of an
-  incomplete chunk are left out, so no row past the pool is ever written).
+  copies the valid rows into their slots (``index_copy_``). Every state
+  leaf has one slot more than the pool, the sink slot R, which nothing
+  reads: the invalid rows of an incomplete chunk are written there, so the
+  slot their padded id names is left untouched, with no host-side
+  selection of rows (the JAX package drops them at index R).
 * A tick advances every slot ``step_chunk`` tokens with the family's decode
   cell: ``decode._s2vt_stepper``, ``decode._s2vt_att_stepper``, or the
   Transformer's ``make_slot_stepper``, whose rows each carry a position.
@@ -22,7 +25,10 @@ finished and refills them from a request queue.
   finished, the (R, L) tokens and (R,) lengths: nothing else leaves the
   card.
 
-Every state leaf is a tensor of its own (admission writes rows in place).
+The device half is three tensor-only functions, ``encode``, ``admit``
+(which writes rows in place) and ``step`` (which returns a new state), that
+``export_continuous`` freezes as they are, so a live pool and its artifact
+decode identically. Every state leaf is a tensor of its own.
 Each public operation runs under ``torch.inference_mode()``, whichever
 thread calls it; the kernels launch on that thread's current stream, the
 default one unless the caller chose another.
@@ -55,8 +61,6 @@ raises.
 
 from __future__ import annotations
 
-import hashlib
-from collections import deque
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -70,6 +74,7 @@ from vcr_tpu_torch.models import rationale, s2vt, s2vt_att, spatial
 from vcr_tpu_torch.models import transformer as tr
 from vcr_tpu_torch.nn.attention import bahdanau_project_keys
 from vcr_tpu_torch.nn.gumbel import sample_gumbel
+from vcr_tpu_torch.scheduler import run_slot_scheduler, stream_seed
 from vcr_tpu_torch.serving import resolve_eos_id
 
 _ARCHS = ("s2vt", "s2vt-att", "spatial", "rationale", "transformer")
@@ -93,138 +98,6 @@ def _row_sampling_filters(logits: torch.Tensor, temp: torch.Tensor, topk: torch.
     thresh = sp.gather(-1, (keep - 1).clamp(0, v - 1))
     apply_p = (topp > 0.0) & (topp < 1.0)
     return torch.where(apply_p[:, None] & (probs < thresh), NEG_INF, lg)
-
-
-def run_slot_scheduler(ops, requests: Iterable[Optional[Tuple[object, np.ndarray]]],
-                       *, poll_cancelled=None) -> Iterator[Tuple[object, np.ndarray]]:
-    """The host-side slot scheduler. ``ops`` supplies the device half:
-
-      slots / admit_chunk / step_chunk : pool geometry (ints)
-      stats : dict, in_flight : int    : observability (mutated here)
-      encode_admit(feats (A,...), ids (A,), valid (A,)) : encode a chunk and
-          copy it into the slots
-      tick() : advance all slots step_chunk tokens
-      poll_active() -> np.bool_ (R,)   : which slots still decode
-      read_tokens() -> (toks (R, L), steps (R,)) numpy
-
-    ``requests``: an iterable of (key, feats), or (key, feats, opts) where
-    ``opts`` is a per-request dict (sampling parameters); forwarding opts
-    needs ``ops.accepts_request_opts`` (a ValueError otherwise). Pulled
-    lazily, so a generator models live arrivals. A live source may yield
-    ``None`` as a poll marker ("nothing available right now"), which skips
-    admission for that round instead of blocking in-flight decodes; it ends
-    the stream by returning. Yields (key, tokens (n,) int32 ending at eos or
-    max_len) in COMPLETION order.
-
-    ``poll_cancelled`` (optional): a callable taking the set of outstanding
-    request keys (queued, and in flight where ``ops.release_slots`` exists)
-    and returning the subset to cancel. Queued cancels are dropped;
-    in-flight cancels release their slots through ``ops.release_slots(ids)``.
-    Cancelled keys are never yielded; ``ops.stats["cancelled"]`` counts
-    them.
-    """
-    a = ops.admit_chunk
-    accepts_opts = getattr(ops, "accepts_request_opts", False)
-    can_release = hasattr(ops, "release_slots")
-    queue: deque = deque()
-    req_iter = iter(requests)
-    pending: Dict[int, object] = {}       # slot -> request key
-    free = list(range(ops.slots - 1, -1, -1))
-    exhausted = False
-    feat_shape = None  # from the first request: SpatialNet's features are
-    #                    (N, F, K, K), the others' (N, Dv)
-
-    while True:
-        # refill the host-side queue enough to fill free slots
-        while not exhausted and len(queue) < min(len(free), a):
-            try:
-                item = next(req_iter)
-            except StopIteration:
-                exhausted = True
-                break
-            if item is None:      # poll marker: keep ticking
-                break
-            queue.append(item)
-        # sweep cancellations after the refill and before admission: a
-        # freshly pulled request is checked before it reaches the card, and a
-        # released slot is admittable this same round
-        if poll_cancelled is not None and (pending or queue):
-            outstanding = {it[0] for it in queue}
-            if can_release:
-                outstanding |= set(pending.values())
-            gone = poll_cancelled(outstanding)
-            if gone:
-                n_q = len(queue)
-                queue = deque(it for it in queue if it[0] not in gone)
-                n_cancel = n_q - len(queue)
-                slot_ids = [s for s, key in pending.items() if key in gone]
-                if slot_ids:
-                    ops.release_slots(np.asarray(slot_ids, np.int32))
-                    for s in slot_ids:
-                        pending.pop(s)
-                        free.append(s)
-                    n_cancel += len(slot_ids)
-                    ops.in_flight = len(pending)
-                ops.stats["cancelled"] = ops.stats.get("cancelled", 0) + n_cancel
-        # admit up to A requests into free slots (a fixed-shape chunk)
-        if queue and free:
-            n = min(len(queue), len(free), a)
-            if feat_shape is None:
-                feat_shape = tuple(np.asarray(queue[0][1]).shape)
-            feats = np.zeros((a,) + feat_shape, np.float32)
-            ids = np.zeros((a,), np.int32)
-            valid = np.zeros((a,), bool)
-            keys = []
-            chunk_opts = [None] * a
-            for j in range(n):
-                item = queue.popleft()
-                key, f = item[0], item[1]
-                opt = item[2] if len(item) > 2 else None
-                if opt and not accepts_opts:
-                    raise ValueError(
-                        f"request {key!r} carries opts {sorted(opt)} but this pool "
-                        "does not accept per-request options (greedy or beam mode)")
-                feats[j] = np.asarray(f, np.float32).reshape(feat_shape)
-                ids[j] = free.pop()
-                valid[j] = True
-                keys.append(key)
-                chunk_opts[j] = opt
-            ops.stats["admit_chunks"] += 1
-            if accepts_opts:
-                ops.encode_admit(feats, ids, valid, chunk_opts)
-            else:
-                ops.encode_admit(feats, ids, valid)
-            for j in range(n):
-                pending[int(ids[j])] = keys[j]
-            ops.in_flight = len(pending)
-
-        if not pending:
-            if exhausted and not queue:
-                return
-            continue
-
-        # advance all slots, then harvest finished ones
-        ops.tick()
-        ops.stats["ticks"] += 1
-        ops.stats["slot_steps"] += ops.slots * ops.step_chunk
-        active = ops.poll_active()
-        done = [s for s in pending if not active[s]]
-        if done:
-            toks, steps = ops.read_tokens()
-            for s in done:
-                ops.stats["served"] += 1
-                ops.stats["useful_steps"] += int(steps[s])
-                result = pending.pop(s), toks[s, : steps[s]].copy()
-                ops.in_flight = len(pending)
-                free.append(s)
-                yield result
-
-
-def _stream_seed(seed: int, *index) -> int:
-    """A generator seed from ``seed`` and an index tuple, the same on every
-    host and for every pool geometry."""
-    digest = hashlib.blake2b(repr((int(seed),) + index).encode(), digest_size=8).digest()
-    return int.from_bytes(digest, "little") >> 1
 
 
 def _tree_map(fn, *trees):
@@ -322,37 +195,73 @@ class ContinuousCaptioner:
         # blocks while the pool is idle and polls while decodes are in flight
         self.in_flight = 0
 
-        # the decode cell's parameters: spatial and rationale decode through
-        # their wrapped captioner. Under int8 decode weights they are
-        # quantized once, here: the Transformer's decoder denses replaced,
-        # the GRU families' step dicts augmented; self.params, which the
-        # encoders read, stays float32
+        # the tick tree: spatial and rationale decode through their wrapped
+        # captioner. Under int8 decode weights it is quantized once, here:
+        # the Transformer's decoder denses replaced, the GRU families' step
+        # dicts augmented beside their float32 originals, which the encoders
+        # keep reading (B1 and B2 launch as before). One tree serves encode
+        # and step, as the artifact's one weights file does.
         self._base = spec.base_arch if spec.arch in ("spatial", "rationale") else spec.arch
         if spec.arch in ("spatial", "rationale"):
             model_base.base_module(spec)  # raises for an unknown base
         check_gru_kv_cache(spec, self.kv_cache)
-        step_params = (augment_decode_weights(self.params, spec)
-                       if self.decode_weights == "int8" else self.params)
-        self._dec_params = (step_params["caption_net"]
-                            if spec.arch in ("spatial", "rationale") else step_params)
-        rows = slots * beam_size
-        if self._base == "transformer":
-            self._slot_step, self._init_self, self._cross_state = tr.make_slot_stepper(
-                self._dec_params, spec, beam_tile=beam_size, lineage=beam_size > 1,
-                kv_cache=self.kv_cache, decode_weights=self.decode_weights)
-        elif self._base == "s2vt":
-            self._s2vt_step = _s2vt_stepper(self._dec_params, spec, rows,
-                                            self.decode_weights)
+        self._step_params = (augment_decode_weights(self.params, spec)
+                             if self.decode_weights == "int8" else self.params)
+        self._fns = self._device_fns(self._step_params)
         with torch.inference_mode():
             self.state = self._init_state()
 
     # ---------------------------------------------------------- device fns
+    #
+    # encode, admit and step take and return tensors only (nests of dicts of
+    # them), so export_continuous freezes exactly these three, and a live
+    # pool and its artifact decode identically, chunk for chunk. Every state
+    # leaf has one row (K rows in beam mode) more than the pool has slots:
+    # the sink slot R, where admission writes the rows of an incomplete
+    # chunk. Nothing reads it.
+
+    def _dec_params(self, params):
+        return params["caption_net"] if self.spec.arch in ("spatial", "rationale") \
+            else params
+
+    def _device_fns(self, params):
+        """The tick tree's closures: the decode cell ``cell(dec, words,
+        state) -> (dec, logits)`` and, for the Transformer, the slot
+        stepper's ``init_self`` and ``cross_state``. Built once for the
+        pool's own tree, anew for another (the tree that torch.export
+        traces)."""
+        if getattr(self, "_fns", None) is not None and params is self._step_params:
+            return self._fns
+        spec, k, dw = self.spec, self.beam_size, self.decode_weights
+        dec_params = self._dec_params(params)
+        fns = {}
+        if self._base == "transformer":
+            slot_step, fns["init_self"], fns["cross_state"] = tr.make_slot_stepper(
+                dec_params, spec, beam_tile=k, lineage=k > 1, kv_cache=self.kv_cache,
+                decode_weights=dw)
+
+            def cell(dec, words, st):
+                steps = st["gstep"].repeat_interleave(k) if k > 1 else st["steps"]
+                return slot_step(dec, words, steps.clamp(max=spec.max_len - 1))
+        elif self._base == "s2vt":
+            s2vt_step = _s2vt_stepper(dec_params, spec, (self.slots + 1) * k, dw)
+
+            def cell(dec, words, st):
+                return s2vt_step(dec, words, 0)
+        else:
+            def cell(dec, words, st):
+                step = _s2vt_att_stepper(dec_params, spec, dec["pk"], dec["eo"], dw)
+                new_inner, logits = step({"h": dec["h"]}, words, 0)
+                return dict(dec, **new_inner), logits
+        fns["cell"] = cell
+        return fns
 
     def _zeros_dec_state(self, rows: int):
         spec, dev = self.spec, self.device
         if self._base == "transformer":
-            d_k = tr._attn_hidden(self._dec_params["decoder"]["layers"]) // spec.tf_heads
-            return {**self._init_self(rows),
+            d_k = tr._attn_hidden(self._dec_params(self._step_params)["decoder"]["layers"]) \
+                // spec.tf_heads
+            return {**self._fns["init_self"](rows),
                     **{f"x{li}": tr._zero_kv(rows, spec.tf_heads, spec.num_frames, d_k,
                                              spec.cdtype, self.kv_cache, dev)
                        for li in range(spec.tf_layers)}}
@@ -372,7 +281,8 @@ class ContinuousCaptioner:
                                   device=dev)}
 
     def _init_state(self):
-        r, l, dev = self.slots, self.spec.max_len, self.device
+        """The empty pool: R slots and the sink slot."""
+        r, l, dev = self.slots + 1, self.spec.max_len, self.device
 
         def i32(n, value=0):
             return torch.full((n,), value, dtype=torch.int32, device=dev)
@@ -405,7 +315,7 @@ class ContinuousCaptioner:
             return torch.as_tensor(self._select_noise(admit), dtype=torch.float32,
                                    device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(
-            _stream_seed(self.seed, "select", admit))
+            stream_seed(self.seed, "select", admit))
         return sample_gumbel(shape, gen, self.device)
 
     def _sample_noise_for(self, admit: int, row: int) -> torch.Tensor:
@@ -413,22 +323,22 @@ class ContinuousCaptioner:
             return torch.as_tensor(self._sample_noise(admit, row), dtype=torch.float32,
                                    device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(
-            _stream_seed(self.seed, "sample", admit, row))
+            stream_seed(self.seed, "sample", admit, row))
         return sample_gumbel((self.spec.max_len, self.spec.padded_vocab_size), gen,
                              self.device)
 
-    def _encode_chunk(self, feats: torch.Tensor, admit: int):
+    def encode(self, params, feats: torch.Tensor,
+               select_noise: Optional[torch.Tensor] = None):
         """(A, N, Dv) float32 (SpatialNet: (A, N, F, K, K)) -> the A rows of
-        decode state: one fixed-shape encoder forward per chunk. Features
-        enter as the batch decodes take them: at the compute dtype, except
-        SpatialNet's."""
-        spec, params, cd = self.spec, self.params, self.spec.cdtype
+        decode state: one fixed-shape encoder forward per chunk, over the
+        tick tree ``params``. Features enter as the batch decodes take them:
+        at the compute dtype, except SpatialNet's. RationaleNet's frame
+        selection adds ``select_noise`` (A, N, 2)."""
+        spec, cd = self.spec, self.spec.cdtype
         arch = spec.arch
         if arch == "rationale":
-            vf = feats.to(cd)
-            noise = self._select_noise_for(admit, (*vf.shape[:2], 2))
-            feats, _ = rationale.generator(params["gen"], spec, vf, gumbel_noise=noise,
-                                           train=False)
+            feats, _ = rationale.generator(params["gen"], spec, feats.to(cd),
+                                           gumbel_noise=select_noise, train=False)
             params, arch = params["caption_net"], spec.base_arch
         elif arch == "spatial":
             outs, state, _, _ = spatial.encode_for_base(params, spec, feats, train=False)
@@ -440,9 +350,10 @@ class ContinuousCaptioner:
         elif arch == "transformer":
             vf = feats.to(cd)
             e_out = tr.encode(params, spec, vf, tr.create_masks_inp(vf))
+            fns = self._device_fns(params)
             # the self caches ride along as zeros, so admission also resets
             # the slot's caches
-            return {**self._init_self(feats.shape[0]), **self._cross_state(e_out)}
+            return {**fns["init_self"](feats.shape[0]), **fns["cross_state"](e_out)}
         else:
             feats = feats.to(cd)
         if arch == "s2vt":
@@ -452,67 +363,65 @@ class ContinuousCaptioner:
         return {"h": h, "eo": eo.to(cd),
                 "pk": bahdanau_project_keys(params["decoder"]["attention"], eo, cd)}
 
-    def _admit(self, new_dec, slot_ids: np.ndarray, valid: np.ndarray,
-               row_opts=None, row_noise=None) -> None:
-        """Copy the valid rows of ``new_dec`` into their slots and reset the
-        slots' bookkeeping. Sampling also installs each request's filters
-        ``row_opts`` (temp, top_k, top_p) and Gumbel block ``row_noise``."""
-        st, dev, k = self.state, self.device, self.beam_size
-        sel = np.flatnonzero(valid)
-        rows_t = torch.as_tensor(sel, dtype=torch.long, device=dev)
-        ids = torch.as_tensor(slot_ids[sel], dtype=torch.long, device=dev)
-        new_rows = _tree_map(lambda x: x.index_select(0, rows_t), new_dec)
+    def admit(self, state, new_dec, ids: torch.Tensor, valid: torch.Tensor,
+              row_opts=None, row_noise: Optional[torch.Tensor] = None):
+        """Copy the rows of ``new_dec`` into slots ``ids`` (A,) and reset the
+        slots' bookkeeping, in place; -> ``state``. A row that is not
+        ``valid`` goes to the sink slot R instead, so the slot its padded
+        id names (0, as the scheduler pads) is left as it was. Sampling
+        also installs each request's filters ``row_opts`` (temp, top_k,
+        top_p), (A,) each, and Gumbel block ``row_noise`` (A, L, V)."""
+        k, sos = self.beam_size, self.spec.sos_id
+        ids = torch.where(valid, ids.long(), self.slots)
         if k == 1:
             _tree_map(lambda leaf, new: leaf.index_copy_(0, ids, new.to(leaf.dtype)),
-                      st["dec"], new_rows)
-            st["last"][ids] = self.spec.sos_id
+                      state["dec"], new_dec)
+            state["last"].index_fill_(0, ids, sos)
             if self._sample:
-                temp, topk, topp = row_opts
-                st["stemp"][ids] = torch.as_tensor(temp[sel], device=dev)
-                st["stopk"][ids] = torch.as_tensor(topk[sel], device=dev)
-                st["stopp"][ids] = torch.as_tensor(topp[sel], device=dev)
-                st["gumbel"].index_copy_(0, ids, row_noise)
+                for name, x in zip(("stemp", "stopk", "stopp", "gumbel"),
+                                   (*row_opts, row_noise)):
+                    state[name].index_copy_(0, ids, x.to(state[name].dtype))
         else:
-            row_ids = (ids[:, None] * k + torch.arange(k, device=dev)[None]).reshape(-1)
-            tiled = _tree_map(lambda x: x.repeat_interleave(k, dim=0), new_rows)
+            arange_k = torch.arange(k, device=ids.device)
+            row_ids = (ids[:, None] * k + arange_k[None]).reshape(-1)
+            tiled = _tree_map(lambda x: x.repeat_interleave(k, dim=0), new_dec)
             _tree_map(lambda leaf, new: leaf.index_copy_(0, row_ids, new.to(leaf.dtype)),
-                      st["dec"], tiled)
-            if "anc" in st["dec"]:
+                      state["dec"], tiled)
+            if "anc" in state["dec"]:
                 # the lineage Transformer: re-arm each fresh group's ancestry
                 # to the local identity (the tiled rows copied beam 0's)
-                st["dec"]["anc"][row_ids] = (row_ids % k).to(torch.int32)[:, None]
+                anc = state["dec"]["anc"]
+                anc.index_copy_(0, row_ids, (row_ids % k).to(anc.dtype)[:, None]
+                                .expand(-1, anc.shape[1]))
             # only beam 0 is live at step 0 (the K rows start as copies)
-            scores0 = torch.full((k,), NEG_INF, dtype=torch.float32, device=dev)
-            scores0[0] = 0.0
-            st["last"][row_ids] = self.spec.sos_id
-            st["scores"][row_ids] = scores0.repeat(len(sel))
-            st["bfin"][row_ids] = False
-            st["btoks"][row_ids] = 0
-            st["gstep"][ids] = 0
-        st["steps"][ids] = 0
-        st["active"][ids] = True
-        st["toks"][ids] = 0
+            scores0 = torch.where(arange_k == 0, 0.0, NEG_INF).to(torch.float32)
+            state["last"].index_fill_(0, row_ids, sos)
+            state["scores"].index_copy_(0, row_ids, scores0.repeat(ids.shape[0]))
+            state["bfin"].index_fill_(0, row_ids, False)
+            state["btoks"].index_fill_(0, row_ids, 0)
+            state["gstep"].index_fill_(0, ids, 0)
+        state["steps"].index_fill_(0, ids, 0)
+        state["active"].index_fill_(0, ids, True)
+        state["toks"].index_fill_(0, ids, 0)
+        return state
 
-    def _cell(self, dec, words):
-        """One decode step of every row -> (new decode state, logits)."""
-        if self._base == "transformer":
-            steps = self.state["gstep"].repeat_interleave(self.beam_size) \
-                if self.beam_size > 1 else self.state["steps"]
-            return self._slot_step(dec, words, steps.clamp(max=self.spec.max_len - 1))
-        if self._base == "s2vt":
-            return self._s2vt_step(dec, words, 0)
-        step = _s2vt_att_stepper(self._dec_params, self.spec, dec["pk"], dec["eo"],
-                                 self.decode_weights)
-        new_inner, logits = step({"h": dec["h"]}, words, 0)
-        return dict(dec, **new_inner), logits
+    def step(self, params, state):
+        """Advance every slot ``step_chunk`` tokens over the tick tree
+        ``params`` -> the new state. The state it was given is left as it
+        was, except where a leaf is returned unchanged."""
+        cell = self._device_fns(params)["cell"]
+        one = self._step_once if self.beam_size == 1 else self._step_once_beam
+        for _ in range(self.step_chunk):
+            state = one(cell, state)
+        return state
 
-    def _step_once(self) -> None:
-        """Advance every slot one greedy or sampled token."""
-        st, l = self.state, self.spec.max_len
+    def _step_once(self, cell, st):
+        """Every slot one greedy or sampled token."""
+        l = self.spec.max_len
         active = st["active"]
-        rows = torch.arange(self.slots, device=self.device)
+        rows = torch.arange(active.shape[0], device=active.device)
         # dead rows free-run unmasked; only the bookkeeping is masked
-        st["dec"], logits = self._cell(st["dec"], st["last"])
+        dec, logits = cell(st["dec"], st["last"], st)
         pos = st["steps"].clamp(max=l - 1).long()
         if self._sample:
             # each slot filters by its request's (temperature, top_k, top_p)
@@ -521,23 +430,25 @@ class ContinuousCaptioner:
             nxt = (filt + st["gumbel"][rows, pos]).argmax(dim=-1).to(torch.int32)
         else:
             nxt = logits.argmax(dim=-1).to(torch.int32)
-        st["toks"][rows, pos] = torch.where(active, nxt, st["toks"][rows, pos])
-        st["steps"] = st["steps"] + active.to(torch.int32)
-        st["active"] = active & (nxt != self.eos_id) & (st["steps"] < l)
-        st["last"] = torch.where(active, nxt, st["last"])
+        toks = st["toks"].index_put((rows, pos),
+                                    torch.where(active, nxt, st["toks"][rows, pos]))
+        steps = st["steps"] + active.to(torch.int32)
+        return dict(st, dec=dec, toks=toks, steps=steps,
+                    active=active & (nxt != self.eos_id) & (steps < l),
+                    last=torch.where(active, nxt, st["last"]))
 
-    def _step_once_beam(self) -> None:
+    def _step_once_beam(self, cell, st):
         """One beam-search step of every slot's K rows (``decode.beam_search``'s
         body), then the harvest view (toks/steps: the best beam cut at its
         first eos) of the active slots. A slot finishes when all K beams
         emitted eos."""
-        st, g, k, l = self.state, self.slots, self.beam_size, self.spec.max_len
-        dev, active = self.device, st["active"]
+        k, l, active = self.beam_size, self.spec.max_len, st["active"]
+        g, dev = active.shape[0], active.device
         rows_idx = torch.arange(g * k, device=dev)
-        dec, logits = self._cell(st["dec"], st["last"])
+        dec, logits = cell(st["dec"], st["last"], st)
         logp = torch.log_softmax(logits.float(), dim=-1)
-        eos_only = torch.full((1, logp.shape[-1]), NEG_INF, device=dev)
-        eos_only[0, self.eos_id] = 0.0
+        vocab = torch.arange(logp.shape[-1], device=dev)
+        eos_only = torch.where(vocab == self.eos_id, 0.0, NEG_INF)[None].to(torch.float32)
         cont = torch.where(st["bfin"][:, None], eos_only, logp)
         s1, i1 = _top_k(st["scores"][:, None] + cont, k)
         top_scores, top_idx = _top_k(s1.reshape(g, k * k), k)        # (G, K)
@@ -552,26 +463,25 @@ class ContinuousCaptioner:
         else:
             # pk/eo are the video's, the same in a slot's K rows: only h moves
             dec = dict(dec, h=dec["h"][flat_src])
-        st["dec"] = dec
         btoks, bfin = st["btoks"][flat_src], st["bfin"][flat_src]
         words = word_idx.reshape(-1)
         btoks[rows_idx, st["gstep"].clamp(max=l - 1).long().repeat_interleave(k)] = words
         bfin = bfin | (words == self.eos_id)
         # dead slots: every bookkeeping leaf stays as it was
         act_r = active.repeat_interleave(k)
-        st["btoks"] = torch.where(act_r[:, None], btoks, st["btoks"])
-        st["bfin"] = torch.where(act_r, bfin, st["bfin"])
-        st["scores"] = torch.where(act_r, top_scores.reshape(-1), st["scores"])
-        st["last"] = torch.where(act_r, words, st["last"])
+        btoks = torch.where(act_r[:, None], btoks, st["btoks"])
+        bfin = torch.where(act_r, bfin, st["bfin"])
         gstep = st["gstep"] + active.to(torch.int32)
-        st["gstep"] = gstep
-        st["active"] = active & ~st["bfin"].reshape(g, k).all(dim=1) & (gstep < l)
-        b0 = st["btoks"].reshape(g, k, l)[:, 0]
+        b0 = btoks.reshape(g, k, l)[:, 0]
         iseos = b0 == self.eos_id
         hsteps = torch.where(iseos.any(dim=1), iseos.to(torch.int32).argmax(dim=1) + 1,
                              gstep).to(torch.int32)
-        st["toks"] = torch.where(active[:, None], b0, st["toks"])
-        st["steps"] = torch.where(active, hsteps, st["steps"])
+        return dict(st, dec=dec, btoks=btoks, bfin=bfin, gstep=gstep,
+                    scores=torch.where(act_r, top_scores.reshape(-1), st["scores"]),
+                    last=torch.where(act_r, words, st["last"]),
+                    active=active & ~bfin.reshape(g, k).all(dim=1) & (gstep < l),
+                    toks=torch.where(active[:, None], b0, st["toks"]),
+                    steps=torch.where(active, hsteps, st["steps"]))
 
     # ----------------------------------------------- scheduler ops protocol
 
@@ -579,16 +489,21 @@ class ContinuousCaptioner:
                      opts=None) -> None:
         self._admit_count += 1
         admit = self._admit_count
+        dev = self.device
         with torch.inference_mode():
             # only the valid rows cross to the card; the chunk's other rows
             # are zeros there, as on the host
             sel = np.flatnonzero(valid)
-            x = torch.zeros(feats.shape, dtype=torch.float32, device=self.device)
-            x[torch.as_tensor(sel, device=self.device)] = torch.as_tensor(
-                feats[sel], device=self.device)
-            new_dec = self._encode_chunk(x, admit)
+            x = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
+            x[torch.as_tensor(sel, device=dev)] = torch.as_tensor(feats[sel], device=dev)
+            noise = (self._select_noise_for(admit, (*feats.shape[:2], 2))
+                     if self.spec.arch == "rationale" else None)
+            new_dec = self.encode(self._step_params, x, noise)
+            ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
+            valid_t = torch.as_tensor(valid, dtype=torch.bool, device=dev)
             if not self._sample:
-                return self._admit(new_dec, ids, valid)
+                self.state = self.admit(self.state, new_dec, ids_t, valid_t)
+                return
             a = ids.shape[0]
             t0, k0, p0 = self._row_defaults
             temp = np.full((a,), t0, np.float32)
@@ -614,21 +529,23 @@ class ContinuousCaptioner:
                 topp[j] = p if 0.0 <= p <= 1.0 else 0.0
                 if not (temp[j] > 0):  # "temperature 0" = greedy
                     temp[j], topk[j], topp[j] = 1.0, 1, 0.0
-            noise = torch.stack([self._sample_noise_for(admit, int(j))
-                                 for j in np.flatnonzero(valid)])
-            self._admit(new_dec, ids, valid, (temp, topk, topp), noise)
+            row_noise = torch.stack([
+                self._sample_noise_for(admit, j) if valid[j] else
+                torch.zeros((self.spec.max_len, self.spec.padded_vocab_size), device=dev)
+                for j in range(a)])
+            opts_t = tuple(torch.as_tensor(v, device=dev) for v in (temp, topk, topp))
+            self.state = self.admit(self.state, new_dec, ids_t, valid_t, opts_t, row_noise)
 
     def tick(self) -> None:
-        step = self._step_once if self.beam_size == 1 else self._step_once_beam
         with torch.inference_mode():
-            for _ in range(self.step_chunk):
-                step()
+            self.state = self.step(self._step_params, self.state)
 
     def poll_active(self) -> np.ndarray:
-        return self.state["active"].cpu().numpy()
+        return self.state["active"][:self.slots].cpu().numpy()
 
     def read_tokens(self) -> Tuple[np.ndarray, np.ndarray]:
-        return self.state["toks"].cpu().numpy(), self.state["steps"].cpu().numpy()
+        return (self.state["toks"][:self.slots].cpu().numpy(),
+                self.state["steps"][:self.slots].cpu().numpy())
 
     def check_feat_shape(self, shape) -> Optional[str]:
         """None if a request of this feature shape is admissible, else the

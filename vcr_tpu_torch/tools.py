@@ -1,12 +1,10 @@
 """Inference over a corpus split, the serving daemon and the reference's
 checkpoint format: the counterpart of ``load_inference_state``,
 ``decode_corpus``, ``greedy_captions``, ``serve_captions``,
-``verify_parity`` and ``export_reference_checkpoint`` in
-``vcr_tpu/tools.py``.
-
-The JAX package's two ``export_*`` artifacts are not ported yet (ROADMAP
-A16): their modes raise in :mod:`vcr_tpu_torch.cli`, and ``--mode serve``
-refuses a frozen continuous artifact.
+``verify_parity``, ``export_reference_checkpoint``,
+``export_serving_artifact`` and ``export_continuous_artifact`` in
+``vcr_tpu/tools.py``. ``--mode serve`` also serves a frozen continuous
+artifact of this package (``export_continuous``) with no model code.
 """
 
 from __future__ import annotations
@@ -150,15 +148,18 @@ def _build_serving_pool(cfg: Config, checkpoint_path: str = "", device=None):
     a checkpoint or a save_path directory holding ``model_best`` (as
     ``--serve_models`` entries give it); empty: ``cfg.save_path``'s best.
     Shared by the single- and multi-model daemons."""
-    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
-
     meta_path = os.path.join(checkpoint_path or "", "meta.json")
     if checkpoint_path and os.path.isfile(meta_path):
         with open(meta_path) as f:
             if json.load(f).get("kind") == "continuous":
-                raise NotImplementedError(
-                    f"{checkpoint_path} is a frozen continuous-serving artifact; "
-                    "serving one is not ported yet: ROADMAP A16 (deployable artifacts)")
+                # a frozen pool (--mode export_continuous): served as it is,
+                # with no model code; a JAX-made one raises ValueError
+                from vcr_tpu_torch.export_continuous import load_continuous
+
+                cc = load_continuous(checkpoint_path, device)
+                return cc, cc.vocab, cc.meta["spec"]["arch"]
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
     if checkpoint_path and os.path.isdir(os.path.join(checkpoint_path, "model_best")):
         cfg = cfg.replace(save_path=checkpoint_path)
         checkpoint_path = ""
@@ -241,6 +242,62 @@ def serve_captions(cfg: Config, checkpoint_path: str = "", block: bool = True,
     finally:
         signal.signal(signal.SIGTERM, prev)
         server.close()
+
+
+def export_serving_artifact(cfg: Config, checkpoint_path: str = "",
+                            out_dir: Optional[str] = None, device=None) -> str:
+    """``--mode export_serving``: a checkpoint as a deployable serving
+    artifact (:mod:`vcr_tpu_torch.export_serving`) under
+    ``<save_path>/serving_artifact``, traced on ``device`` (the card by
+    default), which runs on the card or the CPU. The decode follows the
+    checkpoint-adopted flags (--beam_size, --sample_temperature,
+    --sample_top_k, --sample_top_p, --serve_kv_cache,
+    --serve_decode_weights); its draws are seeded with --seed. --mesh_dp > 1
+    (the JAX package's multi-chip artifact) raises naming A15."""
+    from vcr_tpu_torch import export_serving
+
+    if cfg.mesh_dp > 1:
+        raise NotImplementedError("--mesh_dp > 1: a multi-device artifact is not "
+                                  "ported yet: ROADMAP A15 (multi-device)")
+    cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
+    out = out_dir or os.path.join(cfg.save_path, "serving_artifact")
+    return export_serving.export_captioner(
+        params, spec, out, featurizer="none", beam_size=cfg.beam_size, vocab=vocab,
+        rng=cfg.seed, sample_temperature=cfg.sample_temperature,
+        sample_top_k=cfg.sample_top_k, sample_top_p=cfg.sample_top_p,
+        kv_cache=cfg.serve_kv_cache, decode_weights=cfg.serve_decode_weights,
+        device=device)
+
+
+def export_continuous_artifact(cfg: Config, checkpoint_path: str = "",
+                               out_dir: Optional[str] = None, device=None) -> str:
+    """``--mode export_continuous``: freeze a continuous-batching slot pool
+    (encode, admit and step programs, weights, the empty pool;
+    :mod:`vcr_tpu_torch.export_continuous`) under
+    ``<save_path>/continuous_artifact``, traced on ``device`` (the card by
+    default). The pool's geometry comes from --serve_slots and
+    --serve_admit_chunk. Serve it with ``--mode serve --pretrained_base
+    <dir>``, which runs no model code. Sampling pools are live-only and
+    raise, as in the JAX package; --mesh_dp > 1 raises naming A15."""
+    from vcr_tpu_torch.export_continuous import export_continuous
+
+    # sample_temperature is a command-line override: its value here is the
+    # one the checkpoint's config would give, so refuse before loading it
+    if cfg.sample_temperature > 0:
+        raise NotImplementedError(
+            "per-slot sampling is live-pool only (--mode serve); the frozen "
+            "continuous artifact bakes greedy or beam argmax into its step program: "
+            "export without --sample_temperature")
+    if cfg.mesh_dp > 1:
+        raise NotImplementedError("--mesh_dp > 1: a mesh-sharded slot pool is not "
+                                  "ported yet: ROADMAP A15 (multi-device)")
+    cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
+    out = out_dir or os.path.join(cfg.save_path, "continuous_artifact")
+    return export_continuous(params, spec, out, slots=cfg.serve_slots,
+                             admit_chunk=cfg.serve_admit_chunk,
+                             beam_size=max(cfg.beam_size, 1), vocab=vocab, seed=cfg.seed,
+                             kv_cache=cfg.serve_kv_cache,
+                             decode_weights=cfg.serve_decode_weights, device=device)
 
 
 def verify_parity(cfg: Config, checkpoint_path: str, out_file: Optional[str] = None,

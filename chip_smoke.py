@@ -195,6 +195,25 @@ exit code and no result line:
    loader turns off around the call) and on the CPU: tokens equal.
    Phase 5 also times B1 through its custom op against its launcher, and
    the host time of one call of each.
+14. featurizers -- raw frames to captions through serving.build_captioner
+   with a fused backbone (random weights from a seed), the counts set to 0
+   just before each call and read just after: VGG16 to fc7 into the
+   flagship S2VT at B=8 (240 frames of 3x224x224 in bf16; B1 twice a
+   call), ResNet-34 into S2VT-att at B=16 (480 frames; B1 once), and the
+   Darknet-53 + YOLOv3 first-head cut into SpatialNet over S2VT at B=2 (60
+   frames of 416x416; B1 once), its cfg written from the published plan
+   (models.darknet.yolov3_first_head_cfg: 59 convs, 23 shortcuts, one
+   yolo) and read by parse_cfg, the cut (60, 1024, 13, 13). For each:
+   tokens and features of the right shape, finite; the backbone alone and
+   the whole call, best and median of 3 (CUDA events), beside the
+   backbone's bound (its products, counted by FlopCounterMode, at the bf16
+   tensor-core peak, or its frames, float32 weights and features over the
+   memory rate); captions/s and peak memory. One video (30 frames) on the
+   card against the CPU: float32 (TF32 off) features within 1e-4 of the
+   largest and tokens equal; bf16 features within FEAT_BF16_GAP, and the
+   token agreement reported. Last, the fused VGG16 -> S2VT artifact,
+   exported on the CPU and loaded on the card: tokens equal to the live
+   call's at B=8, B1 twice a call, its ms beside the live call's.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -301,6 +320,22 @@ TF_LINEAGE_GAP = 0.5         # lineage vs gather stepper, the lockstep logit gap
                              # bound of tpu_checks.py:230: products of other
                              # shapes round apart by a few bf16 quanta, a fault
                              # of the stepper by O(1)
+VGG_BATCH = 8                # phase 14: videos of 30 frames, VGG16 fc7 -> S2VT
+VGG_SIZE = 224
+RESNET_BATCH = 16            # ResNet-34 -> S2VT-att
+RESNET_SIZE = 224
+DARKNET_BATCH = 2            # the Darknet-53 + first-head cut -> SpatialNet
+DARKNET_SIZE = 416
+CHECK_VIDEOS = 1             # the card against the CPU, one video of 30 frames
+FEAT_F32_TOL = 1e-4          # float32 features, card (TF32 off) against CPU,
+                             # relative to the largest |feature|
+FEAT_BF16_GAP = {"vgg16": 0.03, "resnet": 0.03, "yolo": 0.03}  # bf16 features,
+                             # card against CPU, relative to the largest
+                             # |feature| (ROADMAP §C): each layer's bf16
+                             # activations round apart where a float32 sum
+                             # differs in its last bit, and cuDNN also rounds
+                             # each conv's output; read 6.9e-3 (VGG16 fc7),
+                             # 1.14e-2 (ResNet-34), 1.09e-2 (the Darknet cut)
 
 
 class SmokeFailure(RuntimeError):
@@ -2314,6 +2349,167 @@ def artifact_phase(cuda_gru, cuda_lstm, smi):
     return out
 
 
+def backbone_flops(fn) -> int:
+    """The products of one call of ``fn`` (convolutions and matrix
+    products), counted by torch's FlopCounterMode."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def backbone_bound_ms(flops, in_bytes, out_bytes, peaks):
+    """Least time of a backbone call in bf16: its products at the bf16
+    tensor-core rate (BatchNorm, bias, activation and pools left out), or
+    its frames and float32 weights read once and its float32 features
+    written once, whichever is larger."""
+    bf16_rate, _, mem_rate = peaks
+    ops_s, bytes_s = flops / bf16_rate, (in_bytes + out_bytes) / mem_rate
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
+
+
+def tree_bytes(tree) -> int:
+    from vcr_tpu_torch.export_serving import flatten_tree
+
+    return sum(t.numel() * t.element_size() for t in flatten_tree(tree)[0])
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float().cpu() - want.float().cpu()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def featurizers_phase(cuda_gru, cuda_lstm, smi, device="cuda"):
+    """Phase 14 on ``device``: raw frames -> captions through the fused
+    featurizers at the published widths; returns what the kernels line
+    reports of it."""
+    from vcr_tpu_torch import entry, export_serving, serving
+    from vcr_tpu_torch.device import params_to
+    from vcr_tpu_torch.models import darknet, resnet, vgg
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vcr_featurizers_")
+    out = {}
+    try:
+        cfg_path = os.path.join(root, "yolov3_first_head.cfg")
+        with open(cfg_path, "w") as f:
+            f.write(darknet.yolov3_first_head_cfg(DARKNET_SIZE))
+        net = darknet.Darknet(cfg_path)
+        types = [b["type"] for b in net.blocks[1:]]
+        counts = {t: types.count(t) for t in sorted(set(types))}
+        check(counts == {"convolutional": 59, "shortcut": 23, "yolo": 1},
+              f"Darknet-53 + first head: {counts}")
+        paths = {
+            "vgg16_s2vt": ("vgg16", entry.FLAGSHIP, VGG_BATCH, VGG_SIZE, 2,
+                           lambda: vgg.init_params(torch.Generator().manual_seed(0))),
+            "resnet34_s2vt_att": ("resnet", entry.S2VT_ATT, RESNET_BATCH, RESNET_SIZE, 1,
+                                  lambda: resnet.init_params(
+                                      torch.Generator().manual_seed(0), "resnet34")),
+            "darknet_spatial": ("yolo", entry.SPATIAL, DARKNET_BATCH, DARKNET_SIZE, 1,
+                                lambda: net),
+        }
+        for name, (feat, dims, b, size, b1, make_fp) in paths.items():
+            spec, params = entry.make_spec_and_params(**dims, device=device)
+            fp_cpu = make_fp()
+            fp = (darknet.Darknet.from_blocks(fp_cpu.blocks,
+                                              params_to(fp_cpu.params, device),
+                                              fp_cpu.header)
+                  if feat == "yolo" else params_to(fp_cpu, device))
+            g = torch.Generator(device=device).manual_seed(14)
+            frames = torch.randn((b, spec.num_frames, 3, size, size), generator=g,
+                                 device=device).to(torch.bfloat16)
+            caption = serving.build_captioner(params, spec, feat, fp, device=device)
+            tokens, launches = counted(cuda_gru, cuda_lstm, lambda: caption(frames))
+            check(launches == expected_counts(b1=b1),
+                  f"{name}: launches {launches}, want B1 {b1} on its tensor-core body")
+            check(tokens.shape == (b, spec.max_len) and tokens.dtype == torch.int32
+                  and bool(((tokens >= 0) & (tokens < spec.vocab_size)).all()),
+                  f"{name}: tokens {tuple(tokens.shape)} {tokens.dtype}")
+            featurize = serving.make_featurize(spec, feat, fp if feat == "yolo" else None)
+            weights = fp.params if feat == "yolo" else fp
+            with torch.inference_mode():
+                feats = featurize(weights, frames)
+                want_shape = ((b, spec.num_frames, spec.vid_feat_size, spec.grid_size,
+                               spec.grid_size) if feat == "yolo"
+                              else (b, spec.num_frames, spec.vid_feat_size))
+                check(tuple(feats.shape) == want_shape and all_finite(feats),
+                      f"{name}: features {tuple(feats.shape)}, want {want_shape}")
+                flops = backbone_flops(lambda: featurize(weights, frames))
+                bound, bound_by = backbone_bound_ms(
+                    flops, frames.numel() * 2 + tree_bytes(weights),
+                    feats.numel() * 4, PEAKS)
+                backbone_ms = median_best_ms(lambda: featurize(weights, frames))
+                path_ms = median_best_ms(lambda: caption(frames))
+                memory = peak_memory(lambda: caption(frames))
+            out[name] = {"featurizer": feat, "videos": b, "frames": b * spec.num_frames,
+                         "image_size": size, "launches": launches,
+                         "backbone_gflop": flops / 1e9, "backbone_ms": backbone_ms,
+                         "backbone_bound_ms": bound, "bound_by": bound_by,
+                         "path_ms": path_ms,
+                         "captions_per_s": b / (path_ms[0] / 1e3), **memory}
+
+            # float32 (TF32 off) and bf16: one video on the card against the CPU
+            gaps = {}
+            x = frames[:CHECK_VIDEOS].float()
+            for dtype in ("float32", "bfloat16"):
+                dspec, dparams = entry.make_spec_and_params(**dims, compute_dtype=dtype,
+                                                            device="cpu")
+                dfeat = serving.make_featurize(dspec, feat, fp_cpu if feat == "yolo"
+                                               else None)
+                dweights = fp_cpu.params if feat == "yolo" else fp_cpu
+                with torch.inference_mode():
+                    on_cpu = dfeat(dweights, x.cpu())
+                    on_card = dfeat(fp.params if feat == "yolo" else fp, x)
+                cpu_tokens = serving.build_captioner(dparams, dspec, feat, fp_cpu,
+                                                     device="cpu")(x.cpu())
+                card_tokens = serving.build_captioner(dparams, dspec, feat, fp,
+                                                      device=device)(x)
+                gaps[dtype] = {"feature_rel_gap": rel_gap(on_card, on_cpu),
+                               "token_agreement": (card_tokens.cpu() == cpu_tokens
+                                                   ).float().mean().item()}
+            check(gaps["float32"]["feature_rel_gap"] <= FEAT_F32_TOL
+                  and gaps["float32"]["token_agreement"] == 1.0,
+                  f"{name}: float32 card against CPU {gaps['float32']}")
+            check(gaps["bfloat16"]["feature_rel_gap"] <= FEAT_BF16_GAP[feat],
+                  f"{name}: bf16 card against CPU {gaps['bfloat16']}, bound "
+                  f"{FEAT_BF16_GAP[feat]}")
+            out[name]["card_vs_cpu"] = {"videos": CHECK_VIDEOS, **gaps,
+                                        "f32_tolerance": FEAT_F32_TOL,
+                                        "bf16_bound": FEAT_BF16_GAP[feat]}
+            emit(f"featurizers_{name}", **out[name], nvidia_smi=smi)
+            if name == "vgg16_s2vt":
+                vgg_case = (spec, params, fp_cpu, frames, tokens)
+            del caption, feats, frames
+
+        # the fused VGG16 -> S2VT artifact: exported on the CPU, run on the card
+        spec, params, fp_cpu, frames, tokens = vgg_case
+        art = os.path.join(root, "vgg16_s2vt")
+        t0 = time.perf_counter()
+        export_serving.export_captioner(params_to(params, "cpu"), spec, art, "vgg16",
+                                        fp_cpu, image_size=VGG_SIZE, device="cpu")
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = export_serving.load_artifact(art, device=device)
+        load_s = time.perf_counter() - t0
+        got, launches = counted(cuda_gru, cuda_lstm, lambda: loaded(frames))
+        check(launches == expected_counts(b1=2),
+              f"VGG16 artifact: launches {launches}, want B1 2")
+        diff = first_difference(got, tokens)
+        check(diff["agreement"] == 1.0, f"VGG16 artifact tokens against the live "
+                                        f"call: {diff}")
+        out["vgg16_artifact"] = {"launches": launches, "export_s": export_s,
+                                 "load_s": load_s, "bytes": dir_bytes(art),
+                                 "ms": median_best_ms(lambda: loaded(frames)),
+                                 "live_ms": out["vgg16_s2vt"]["path_ms"], **diff}
+        emit("featurizers_vgg16_artifact", **out["vgg16_artifact"],
+             phase_s=time.perf_counter() - t_phase, nvidia_smi=smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2881,6 +3077,9 @@ def main() -> int:
 
     # 13. the deployable artifacts
     art = artifact_phase(cuda_gru, cuda_lstm, smi)
+
+    # 14. raw frames -> captions through the fused featurizers
+    feat = featurizers_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -2910,6 +3109,10 @@ def main() -> int:
         "launches_per_artifact_call": {name: art[name]["gru_seq"] for name in (
             "flagship", "rationale", "s2vt_beam5", "transformer")},
         "launches_per_frozen_pool_admit_chunk": art["pool_per_chunk"]["gru_seq"],
+        "launches_per_featurized_call": {name: feat[name]["launches"]["gru_seq"]
+                                         for name in ("vgg16_s2vt", "resnet34_s2vt_att",
+                                                      "darknet_spatial",
+                                                      "vgg16_artifact")},
         "at_admission_batch": cont["kernel_timing"]["gru_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
                                                 "gru_seq"),

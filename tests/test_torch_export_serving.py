@@ -201,10 +201,12 @@ def test_cli_export_serving_equals_decode(tmp_path):
 
 def test_refusals(s2vt_art, tmp_path):
     out, tspec, tparams, feats, jparams = s2vt_art
-    with pytest.raises(NotImplementedError, match="A17"):
+    # the fused featurizers are ported (A17): a backbone without its weights,
+    # or weights without a backbone, raises
+    with pytest.raises(ValueError, match="needs feat_params"):
         texport.export_captioner(tparams, tspec, str(tmp_path / "a"), featurizer="vgg16",
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="featurizer='none'"):
         texport.export_captioner(tparams, tspec, str(tmp_path / "a"), feat_params={},
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):

@@ -51,7 +51,10 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "nn.attention", "models.s2vt_att", "convert", "models.spatial",
                  "models.transformer", "serving_continuous", "server", "multiserver",
                  "client", "ops.kvquant", "ops.wquant", "data.native", "ops.library",
-                 "export_serving", "export_continuous", "scheduler"):
+                 "export_serving", "export_continuous", "scheduler", "models.vgg",
+                 "models.resnet", "models.darknet", "data.prep.frames",
+                 "data.prep.captions", "data.prep.glove", "data.prep.video_feats",
+                 "data.prep.bbox_feats", "evals.attention_export"):
         assert f"vcr_tpu_torch.{name}" in mods
     assert "chip_smoke" in mods
     # nor what the JAX package's counterparts of the command line need:
@@ -114,6 +117,35 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
                                "valid": torch.ones((2,))}, "cpu")
     _, _, metrics, pred = train(params, opt.init(params), batch, 0, 1.0)
     assert metrics["loss"].device.type == "cpu" and pred.shape == (2, 3)
+
+
+def test_featurizer_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The fused featurizers, the prep modes that run a backbone and
+    eval_attention default to the card: without one they raise before any
+    file is touched, and run on the CPU when asked."""
+    from vcr_tpu_torch.config import Config
+    from vcr_tpu_torch.data.prep import bbox_feats, video_feats
+    from vcr_tpu_torch.evals import attention_export
+    from vcr_tpu_torch.models import resnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dims = dict(vocab_size=11, embed_size=4, hidden=8, vid_feat=512, max_len=3,
+                num_frames=2)
+    spec, params = entry.make_spec_and_params(**dims, arch="s2vt-att", device="cpu")
+    fp = resnet.init_params(torch.Generator().manual_seed(0), "resnet18")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.build_captioner(params, spec, "resnet", fp)
+    tokens = serving.build_captioner(params, spec, "resnet", fp, device="cpu")(
+        torch.zeros((1, 2, 3, 32, 32)))
+    assert tokens.shape == (1, 3)
+    (tmp_path / "msvd" / "clips").mkdir(parents=True)
+    cfg = Config(data_dir=str(tmp_path), corpus="msvd", vision_arch="resnet18",
+                 img_size=64, spatial_net_file=str(tmp_path / "none"))
+    for run in (video_feats.extract_video_feats, bbox_feats.extract_bbox_feats,
+                attention_export.run_export):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(cfg)
+    assert os.listdir(tmp_path / "msvd") == ["clips"]
 
 
 @pytest.fixture
@@ -541,6 +573,71 @@ def test_conv2d_float32_on_the_card_ignores_cudnn_tf32(cuda, monkeypatch):
         out.append([y.detach().cpu()] + [t.cpu() for t in grads])
     assert torch.backends.cudnn.allow_tf32
     _assert_grads_close(out[1], out[0], 1e-4)
+
+
+@pytest.mark.cuda
+def test_strided_conv_float32_on_the_card_ignores_cudnn_tf32(cuda, monkeypatch):
+    """The backbones' conv (``layers.conv2d_f32``) in float32 at each
+    stride and padding they use is float32 on the card with cuDNN's TF32
+    left on by the caller: within 1e-5 of the CPU's relative to the largest
+    output, where TF32 is off by about 1e-3. The flag is left as it was."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    g = torch.Generator().manual_seed(6)
+    for k, stride, pad in ((3, 1, 1), (7, 2, 3), (3, 2, 1), (1, 2, 0), (1, 1, 0)):
+        x = torch.randn((2, 128, 27, 27), generator=g)
+        w = torch.randn((96, 128, k, k), generator=g) * (2.0 / (128 * k * k)) ** 0.5
+        want = layers.conv2d_f32(x, w, stride, pad, torch.float32)
+        got = layers.conv2d_f32(x.to(cuda), w.to(cuda), stride, pad, torch.float32)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max(), (k, stride)
+    assert torch.backends.cudnn.allow_tf32
+
+
+# bf16 features, card against CPU, relative to the largest |feature|
+# (ROADMAP §C): each layer's bf16 activations round apart where a float32
+# sum differs in its last bit, and the card's cuDNN also rounds each conv's
+# output to bf16, where the CPU (and the JAX package) keep it float32
+CARD_BF16_FEATURE_GAP = {"vgg16": 0.03, "resnet34": 0.03, "darknet": 0.03}
+
+
+def _card_backbone(name, gen):
+    """(featurize(params, frames), params, frames) of a backbone at a small
+    input: VGG16's 13 convs at 64x64 with fc6/fc7 of (2048, 256) and (256,
+    256), ResNet-34 at 64x64, Darknet-53 and YOLOv3's first head at 64x64."""
+    from vcr_tpu_torch.models import darknet, resnet, vgg
+
+    if name == "vgg16":
+        params = vgg.init_params(torch.Generator().manual_seed(0))
+        params["fc6"] = {"w": 0.02 * torch.randn((2048, 256), generator=gen),
+                         "b": torch.zeros((256,))}
+        params["fc7"] = {"w": 0.05 * torch.randn((256, 256), generator=gen),
+                         "b": torch.zeros((256,))}
+        return vgg.extract_fc7, params, 64
+    if name == "resnet34":
+        return resnet.extract_features, resnet.init_params(gen, "resnet34"), 64
+    blocks = darknet.parse_cfg_text(darknet.yolov3_first_head_cfg(64))
+    net = darknet.Darknet.from_blocks(blocks, darknet.init_params(gen, blocks),
+                                      np.zeros(5, dtype=np.int32))
+    return (lambda p, x, cd: net.get_feats(x, cd, params=p)), net.params, 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_BF16_FEATURE_GAP))
+def test_backbone_bf16_on_the_card_within_its_envelope(cuda, name):
+    """Each backbone in bf16 on the card against the port on the CPU (which
+    equals the JAX package, tests/test_torch_backbones.py): features within
+    the measured envelope; in float32 (TF32 off) within 1e-5."""
+    featurize, params, size = _card_backbone(name, torch.Generator().manual_seed(7))
+    x = torch.randn((3, 3, size, size), generator=torch.Generator().manual_seed(8))
+    on_card = params_to(params, cuda)
+    for dtype, bound in ((torch.bfloat16, CARD_BF16_FEATURE_GAP[name]),
+                         (torch.float32, 1e-5)):
+        with torch.inference_mode():
+            want = featurize(params, x, dtype)
+            got = featurize(on_card, x.to(cuda), dtype).cpu()
+        gap = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"{name} {dtype}: card against CPU {gap:.3e} (bound {bound})")
+        assert got.dtype == torch.float32 and gap <= bound
 
 
 @pytest.mark.cuda

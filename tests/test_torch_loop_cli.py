@@ -312,16 +312,29 @@ def test_preemption_signal_saves_and_resumes(tmp_path):
 
 # verify_parity and export_reference run since A8, train_spatial since A11,
 # the Transformer in each since A12, serve since A14, the quantized serving
-# modes since A13, and export_serving, export_continuous and serve on a
-# frozen artifact since A16; their cases keep their ids and hold what still
-# stands: a multi-device artifact (A15), a sampling pool frozen (live-pool
-# only, as in the JAX package), a JAX-made artifact, a quantized KV cache on
-# S2VT, which has none; the int8-weight pool is exported and served; and
-# SpatialNet over a Transformer
+# modes since A13, export_serving, export_continuous and serve on a frozen
+# artifact since A16, and the prep modes and eval_attention since A17; their
+# cases keep their ids and hold what still stands: a multi-device artifact
+# (A15), a sampling pool frozen (live-pool only, as in the JAX package), a
+# JAX-made artifact, a quantized KV cache on S2VT, which has none; the
+# int8-weight pool is exported and served; SpatialNet over a Transformer; an
+# unknown corpus or vision architecture, a YOLO input size that is no
+# multiple of 32, a corpus without train captions, a SpatialNet checkpoint
+# that is not there
 @pytest.mark.parametrize("mode, extra, exc, item", [
     *(pytest.param(m, [], NotImplementedError, cli.NOT_PORTED_MODES[m].split(" (")[0],
                    id=m)
       for m in sorted(cli.NOT_PORTED_MODES)),
+    pytest.param("extract_captions", ["--corpus", "youtube"], NotImplementedError,
+                 "Unknown corpus", id="extract_captions"),
+    pytest.param("extract_video_feats", ["--corpus", "msvd", "--vision_arch", "alexnet"],
+                 NotImplementedError, "vision architecture", id="extract_video_feats"),
+    pytest.param("extract_bbox_feats", ["--img_size", "48"], ValueError, "multiple of 32",
+                 id="extract_bbox_feats"),
+    pytest.param("extract_glove", ["--data_dir", "{artifact}"], FileNotFoundError,
+                 "train_captions.json", id="extract_glove"),
+    pytest.param("eval_attention", ["--spatial_net_file", "{artifact}"], FileNotFoundError,
+                 "tree.pt", id="eval_attention"),
     pytest.param("export_serving", ["--mesh_dp", "2"], NotImplementedError, "A15",
                  id="export_serving"),
     pytest.param("export_continuous", ["--sample_temperature", "0.7"],

@@ -118,16 +118,20 @@ def test_bf16_s2vt_matches_jax():
 # the quantized modes (A13), which are ported too. They keep their ids and
 # hold what still stands: S2VT's greedy batch decode has no int8-weight form
 # (the pool, the beam and sampling serve it), and a GRU family has no
-# attention cache to quantize (ValueError).
+# attention cache to quantize (ValueError). The featurizers (A17) are ported
+# too; their cases keep their ids and hold that a backbone without its
+# weights raises (ValueError).
 @pytest.mark.parametrize("kwargs, exc, item", [
-    ({"featurizer": "vgg16"}, NotImplementedError, "A17"),
+    pytest.param({"featurizer": "vgg16"}, ValueError, "needs feat_params",
+                 id="kwargs0-NotImplementedError-A17"),
     pytest.param({"decode_weights": "int8"}, ValueError, "slot pool", id="kwargs1-A6"),
     pytest.param({"kv_cache": "int8"}, ValueError, "has none", id="kwargs2-A6"),
     pytest.param({"beam_size": 3, "kv_cache": "int8"}, ValueError, "has none",
                  id="kwargs3-A6"),
     pytest.param({"sample_temperature": 0.7, "kv_cache": "int4"}, ValueError, "has none",
                  id="kwargs4-A6"),
-    ({"featurizer": "resnet"}, NotImplementedError, "A17"),
+    pytest.param({"featurizer": "resnet"}, ValueError, "needs feat_params",
+                 id="kwargs5-NotImplementedError-A17"),
 ])
 def test_unported_serving_options_raise(models, kwargs, exc, item):
     _, _, tspec, tparams, _ = models

@@ -243,7 +243,9 @@ def test_build_captioner_takes_jax_argument_order(f32):
     beam = tdecode.transformer_beam_decode_fast(tparams, tspec, torch.from_numpy(feats), 3,
                                                 _eos(tspec))[0][:, 0]
     assert torch.equal(got, beam)
-    with pytest.raises(NotImplementedError, match="A17"):
+    # feat_params is the fourth argument in both: weights without a backbone
+    # raise (the featurizers are ported, A17)
+    with pytest.raises(ValueError, match="featurizer='none'"):
         tserving.build_captioner(tparams, tspec, "none", {"w": 0}, device="cpu")
 
 

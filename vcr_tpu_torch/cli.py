@@ -1,12 +1,14 @@
-"""Command line: ``python -m vcr_tpu_torch.cli --mode train | train_rationale
-| train_spatial | eval | decode | serve | verify_parity | export_reference
-| export_serving | export_continuous [--flags]``, the counterpart of
-``vcr_tpu/cli.py``.
+"""Command line: ``python -m vcr_tpu_torch.cli --mode extract_captions |
+extract_video_feats | extract_bbox_feats | extract_glove | train |
+train_rationale | train_spatial | eval | decode | eval_attention | serve |
+verify_parity | export_reference | export_serving | export_continuous
+[--flags]``, the counterpart of ``vcr_tpu/cli.py``.
 
 Every flag of the JAX package's command line parses to the same Config;
 ``--device cuda`` (the default, which raises without a card) or ``--device
-cpu`` chooses where the model runs. The JAX package's other modes raise
-``NotImplementedError`` naming their ROADMAP item.
+cpu`` chooses where the model, and a prep mode's backbone, runs. The JAX
+package's ``--mode bench`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,11 +23,6 @@ from vcr_tpu_torch.config import Config, get_config
 
 # modes of the JAX package's command line that this package has not ported
 NOT_PORTED_MODES = {
-    "extract_captions": "ROADMAP A17 (featurizers and prep)",
-    "extract_video_feats": "ROADMAP A17 (featurizers and prep)",
-    "extract_bbox_feats": "ROADMAP A17 (featurizers and prep)",
-    "extract_glove": "ROADMAP A17 (featurizers and prep)",
-    "eval_attention": "ROADMAP A17 (featurizers and prep)",
     "bench": "ROADMAP A4 (the port's benchmark)",
 }
 
@@ -55,6 +52,28 @@ def dispatch(cfg: Config, device=None):
     if cfg.mode in NOT_PORTED_MODES:
         raise NotImplementedError(
             f"--mode {cfg.mode} is not ported yet: {NOT_PORTED_MODES[cfg.mode]}")
+    if cfg.mode == "extract_captions":
+        from vcr_tpu_torch.data.prep.captions import extract_captions
+
+        return extract_captions(cfg)
+    if cfg.mode == "extract_video_feats":
+        from vcr_tpu_torch.data.prep import video_feats
+
+        if cfg.corpus == "msvd_vgg":
+            return video_feats.extract_video_feats_msvd_vgg(cfg)
+        return video_feats.extract_video_feats(cfg, device=device)
+    if cfg.mode == "extract_bbox_feats":
+        from vcr_tpu_torch.data.prep.bbox_feats import extract_bbox_feats
+
+        return extract_bbox_feats(cfg, device=device)
+    if cfg.mode == "extract_glove":
+        from vcr_tpu_torch.data.prep.glove import extract_glove
+
+        return extract_glove(cfg)
+    if cfg.mode == "eval_attention":
+        from vcr_tpu_torch.evals.attention_export import run_export
+
+        return run_export(cfg, device=device)
     if cfg.mode in ("train", "train_rationale", "train_spatial"):
         from vcr_tpu_torch.train.loop import train
 

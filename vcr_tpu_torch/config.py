@@ -60,7 +60,7 @@ class Config:
     shuffle: bool = True
     glove_emb_file: str = "glove.6B.300d.txt"
 
-    # Image model (the featurizers, ROADMAP A17)
+    # Image model (the featurizers and the prep modes)
     img_size: int = 224
     vision_arch: str = "resnet34"
     num_frames: int = 30
@@ -148,7 +148,7 @@ class Config:
     # `phrase<TAB>phrase` TSV path.
     meteor_synonyms: str = ""
     meteor_paraphrases: str = ""
-    # eval_attention export inputs (ROADMAP A17)
+    # eval_attention export inputs
     spatial_net_file: str = ""
     vid_file: str = ""
     out_dir: str = "./attention_maps"

@@ -18,8 +18,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def params_to(params, device):
-    """A nested dict of tensors, moved to ``device`` (no copy where it is
-    already there)."""
+    """A nest of dicts, lists and tuples of tensors, moved to ``device`` (no
+    copy where it is already there); ``None`` stays ``None``."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
+    if params is None:
+        return None
     return params.to(device)

@@ -50,9 +50,10 @@ import torch
 from vcr_tpu_torch.export_serving import (FORMAT_VERSION, RUNTIME, _holds_float32_conv,
                                           _kernel_sources, _load_leaves, _save_leaves,
                                           check_kernel_sources, default_input_shape,
-                                          draw_noise, dtype_name, flatten_tree,
-                                          load_program, path_name, read_meta,
-                                          save_program, tf32_scope, unflatten_tree)
+                                          draw_noise, dtype_name, fill_tree,
+                                          flatten_tree, load_program, path_name,
+                                          read_meta, save_program, tf32_scope,
+                                          tree_skeleton)
 from vcr_tpu_torch.scheduler import run_slot_scheduler, stream_seed
 
 ENCODE_FILE = "encode_fn.pt2"
@@ -66,34 +67,34 @@ _BOOKKEEPING = ("active", "steps", "toks")
 
 
 class _Encode(torch.nn.Module):
-    def __init__(self, cc, p_paths):
+    def __init__(self, cc, p_skel):
         super().__init__()
-        self._cc, self._p_paths = cc, p_paths
+        self._cc, self._p_skel = cc, p_skel
 
     def forward(self, weight_leaves, feats, noise):
-        params = unflatten_tree(self._p_paths, weight_leaves)
+        params = fill_tree(self._p_skel, weight_leaves)
         return flatten_tree(self._cc.encode(params, feats, *noise))[0]
 
 
 class _Admit(torch.nn.Module):
-    def __init__(self, cc, s_paths, n_paths):
+    def __init__(self, cc, s_skel, n_skel):
         super().__init__()
-        self._cc, self._s_paths, self._n_paths = cc, s_paths, n_paths
+        self._cc, self._s_skel, self._n_skel = cc, s_skel, n_skel
 
     def forward(self, state_leaves, new_leaves, ids, valid):
-        state = unflatten_tree(self._s_paths, state_leaves)
-        new = unflatten_tree(self._n_paths, new_leaves)
+        state = fill_tree(self._s_skel, state_leaves)
+        new = fill_tree(self._n_skel, new_leaves)
         return flatten_tree(self._cc.admit(state, new, ids, valid))[0]
 
 
 class _Step(torch.nn.Module):
-    def __init__(self, cc, p_paths, s_paths):
+    def __init__(self, cc, p_skel, s_skel):
         super().__init__()
-        self._cc, self._p_paths, self._s_paths = cc, p_paths, s_paths
+        self._cc, self._p_skel, self._s_skel = cc, p_skel, s_skel
 
     def forward(self, weight_leaves, state_leaves):
-        params = unflatten_tree(self._p_paths, weight_leaves)
-        state = unflatten_tree(self._s_paths, state_leaves)
+        params = fill_tree(self._p_skel, weight_leaves)
+        state = fill_tree(self._s_skel, state_leaves)
         return flatten_tree(self._cc.step(params, state))[0]
 
 
@@ -120,9 +121,10 @@ def export_continuous(params, spec, out_dir: str, *,
     dev = cc.device
     item_shape = (tuple(int(d) for d in feat_item_shape) if feat_item_shape is not None
                   else default_input_shape(spec))
-    p_leaves, p_paths = flatten_tree(cc._step_params)
+    p_leaves = flatten_tree(cc._step_params)[0]
     with torch.no_grad():
-        s_leaves, s_paths = flatten_tree(cc._init_state())
+        state0 = cc._init_state()
+        s_leaves, s_paths = flatten_tree(state0)
     book = {name: s_paths.index((name,)) for name in _BOOKKEEPING}
     feats = torch.zeros((admit_chunk, *item_shape), dtype=torch.float32, device=dev)
     noise = ([torch.zeros((admit_chunk, spec.num_frames, 2), device=dev)]
@@ -130,11 +132,13 @@ def export_continuous(params, spec, out_dir: str, *,
     ids = torch.arange(admit_chunk, dtype=torch.long, device=dev)
     valid = torch.ones((admit_chunk,), dtype=torch.bool, device=dev)
     with torch.no_grad():
-        n_leaves, n_paths = flatten_tree(cc.encode(cc._step_params, feats, *noise))
-        encode = torch.export.export(_Encode(cc, p_paths), (p_leaves, feats, noise))
-        admit = torch.export.export(_Admit(cc, s_paths, n_paths),
+        new = cc.encode(cc._step_params, feats, *noise)
+        n_leaves = flatten_tree(new)[0]
+        p_skel, s_skel = tree_skeleton(cc._step_params), tree_skeleton(state0)
+        encode = torch.export.export(_Encode(cc, p_skel), (p_leaves, feats, noise))
+        admit = torch.export.export(_Admit(cc, s_skel, tree_skeleton(new)),
                                     ([x.clone() for x in s_leaves], n_leaves, ids, valid))
-        step = torch.export.export(_Step(cc, p_paths, s_paths), (p_leaves, s_leaves))
+        step = torch.export.export(_Step(cc, p_skel, s_skel), (p_leaves, s_leaves))
     programs = (encode, admit, step)
 
     os.makedirs(out_dir, exist_ok=True)

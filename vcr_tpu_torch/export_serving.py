@@ -14,7 +14,10 @@ model code:
 
 The leaves are the parameter tree flattened in sorted-key order, as
 ``jax.tree_util`` flattens a dict, so a port artifact's ``weights.npz``
-holds the JAX package's leaves for the same parameters.
+holds the JAX package's leaves for the same parameters. With a fused
+featurizer the tree is (captioner weights, featurizer weights), the
+backbone in the program: raw frames in, tokens out; a Darknet's cfg
+structure is fixed at export, its ``None`` layers hold no leaf.
 
 The program is traced by ``torch.export`` from ``serving.make_caption_fn``
 on the device the caller names, and moved to the serving device at load.
@@ -67,9 +70,13 @@ _OP_SOURCES = {"gru_recurrence": "gru_seq", "gru_recurrence_bt": "gru_seq",
                "gru_recurrence_dma": "gru_seq_dma", "lstm_recurrence": "lstm_seq"}
 
 
-def default_input_shape(spec) -> Tuple[int, ...]:
+def default_input_shape(spec, featurizer: str = "none",
+                        image_size: int = 224) -> Tuple[int, ...]:
     """Per-item input shape (without the batch) the serving graph expects:
-    precomputed features, (N, V), or SpatialNet's grid (N, F, K, K)."""
+    precomputed features, (N, V), or SpatialNet's grid (N, F, K, K); raw
+    normalized frames (N, 3, S, S) when a backbone is fused in."""
+    if featurizer != "none":
+        return (spec.num_frames, 3, image_size, image_size)
     if spec.arch == "spatial":
         return (spec.num_frames, spec.vid_feat_size, spec.grid_size, spec.grid_size)
     return (spec.num_frames, spec.vid_feat_size)
@@ -78,9 +85,10 @@ def default_input_shape(spec) -> Tuple[int, ...]:
 # ------------------------------------------------------------- leaf trees
 
 def flatten_tree(tree) -> Tuple[list, list]:
-    """A nest of dicts and tuples -> (leaves, paths), depth first, a dict in
-    sorted-key order and a tuple in its order: ``jax.tree_util``'s order. A
-    path is the tuple of keys and tuple indices that leads to its leaf."""
+    """A nest of dicts, tuples and lists -> (leaves, paths), depth first, a
+    dict in sorted-key order and a sequence in its order, ``None`` a node
+    without leaves: ``jax.tree_util``'s order. A path is the tuple of keys
+    and indices that leads to its leaf."""
     leaves, paths = [], []
 
     def walk(node, path):
@@ -90,7 +98,7 @@ def flatten_tree(tree) -> Tuple[list, list]:
         elif isinstance(node, (tuple, list)):
             for i, x in enumerate(node):
                 walk(x, path + (i,))
-        else:
+        elif node is not None:
             leaves.append(node)
             paths.append(path)
 
@@ -98,23 +106,29 @@ def flatten_tree(tree) -> Tuple[list, list]:
     return leaves, paths
 
 
-def unflatten_tree(paths, leaves):
-    """Inverse of :func:`flatten_tree` (an int path element is a tuple's)."""
-    root: dict = {}
-    for path, leaf in zip(paths, leaves):
-        node = root
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
+def tree_skeleton(tree):
+    """``tree``'s nest with each leaf replaced by True (``None`` stays):
+    what :func:`fill_tree` rebuilds it from, without the weights."""
+    if isinstance(tree, dict):
+        return {k: tree_skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_skeleton(v) for v in tree)
+    return None if tree is None else True
+
+
+def fill_tree(skeleton, leaves):
+    """The tree of ``skeleton`` with its leaves taken in
+    :func:`flatten_tree`'s order from the list ``leaves``."""
+    it = iter(leaves)
 
     def build(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(isinstance(k, int) for k in node):
-            return tuple(build(node[i]) for i in range(len(node)))
-        return {k: build(v) for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(v) for v in node)
+        return None if node is None else next(it)
 
-    return build(root)
+    return build(skeleton)
 
 
 def path_name(path) -> str:
@@ -297,16 +311,20 @@ def _plan_dims(plan, batch_dim):
 
 class _Caption(torch.nn.Module):
     """caption(weight_leaves, frames, noise) over a flat leaf list; ``noise``
-    the list of the draw plan's tensors."""
+    the list of the draw plan's tensors. With a fused featurizer the leaves
+    are those of (params, feat_params)."""
 
-    def __init__(self, caption, paths, plan):
+    def __init__(self, caption, skeleton, plan, fused: bool):
         super().__init__()
-        self._caption, self._paths = caption, paths
+        self._caption, self._skeleton, self._fused = caption, skeleton, fused
         self._names = [entry["input"] for entry in plan]
 
     def forward(self, weight_leaves, frames, noise):
-        params = unflatten_tree(self._paths, weight_leaves)
-        return self._caption(params, frames, dict(zip(self._names, noise)))
+        tree = fill_tree(self._skeleton, weight_leaves)
+        noise = dict(zip(self._names, noise))
+        if self._fused:
+            return self._caption(tree[0], frames, noise, feat_params=tree[1])
+        return self._caption(tree, frames, noise)
 
 
 def export_captioner(params, spec, out_dir: str,
@@ -333,38 +351,38 @@ def export_captioner(params, spec, out_dir: str,
     given; ``"cpu"`` traces it on the CPU). The program runs on either
     device. ``rng`` is the int seed of the call's draws (None: 0).
     ``batch_size=None`` exports a symbolic batch dimension; ``input_shape``
-    overrides the per-item feature shape (:func:`default_input_shape`). A
-    fused featurizer or ``feat_params`` raises naming ROADMAP A17, which
-    also gives ``image_size`` (a fused featurizer's frame size) its use;
-    ``dp > 1`` (the JAX package's multi-chip artifact) raises naming A15.
+    overrides the per-item input shape (:func:`default_input_shape`). A fused
+    ``featurizer`` ("vgg16", "resnet", "yolo" with its ``feat_params``, as
+    ``serving.build_captioner`` takes them) puts the backbone in the program,
+    which then takes frames (N, 3, ``image_size``, ``image_size``). ``dp >
+    1`` (the JAX package's multi-chip artifact) raises naming ROADMAP A15.
     Returns ``out_dir``."""
     from vcr_tpu_torch import decode, serving
     from vcr_tpu_torch.device import params_to, resolve_device
     from vcr_tpu_torch.models import base as model_base
 
-    if feat_params is not None or featurizer != "none":
-        raise NotImplementedError(
-            "a fused featurizer in the artifact is not ported yet: ROADMAP A17 "
-            "(featurizers); export precomputed features with featurizer='none'")
     if dp > 1:
         raise NotImplementedError(
             f"dp={dp}: a multi-device artifact is not ported yet: ROADMAP A15 "
             "(multi-device)")
+    darknet, feat_params = serving.split_feat_params(featurizer, feat_params)
     device = resolve_device(device)
     eos_id = serving.resolve_eos_id(spec, eos_id, vocab)
     seed = 0 if rng is None else int(rng)
     caption = serving.make_caption_fn(spec, featurizer, beam_size, eos_id,
                                       sample_temperature, sample_top_k, sample_top_p,
                                       seed, kv_cache=kv_cache,
-                                      decode_weights=decode_weights)
+                                      decode_weights=decode_weights, darknet=darknet)
     plan = serving.draw_plan(spec, beam_size, sample_temperature)
     params = params_to(params, device)
     if model_base.check_serving_modes(kv_cache, decode_weights)[1] == "int8":
         # the tree build_captioner serves: quantized once, the codes leaves
         params = decode.augment_decode_weights(params, spec)
-    leaves, paths = flatten_tree(params)
+    fused = featurizer != "none"
+    tree = (params, params_to(feat_params, device)) if fused else params
+    leaves, paths = flatten_tree(tree)
     item_shape = (tuple(int(d) for d in input_shape) if input_shape is not None
-                  else default_input_shape(spec))
+                  else default_input_shape(spec, featurizer, image_size))
     example_b = 2 if batch_size is None else int(batch_size)
     gen = torch.Generator().manual_seed(0)
     frames = torch.randn((example_b, *item_shape), generator=gen).to(device)
@@ -372,10 +390,10 @@ def export_captioner(params, spec, out_dir: str,
     b = torch.export.Dim("b") if batch_size is None else None
     dynamic = ([None] * len(leaves), {0: b} if b is not None else None,
                _plan_dims(plan, b))
+    module = _Caption(caption, tree_skeleton(tree), plan, fused)
     try:
         with torch.no_grad():
-            program = torch.export.export(_Caption(caption, paths, plan),
-                                          (leaves, frames, noise),
+            program = torch.export.export(module, (leaves, frames, noise),
                                           dynamic_shapes=dynamic)
     except Exception as e:
         if batch_size is None:
@@ -393,6 +411,7 @@ def export_captioner(params, spec, out_dir: str,
         "kind": "serving",
         "spec": dataclasses.asdict(spec),
         "featurizer": featurizer,
+        "image_size": int(image_size) if fused else None,
         "eos_id": int(eos_id),
         "beam_size": int(beam_size),
         "sample_temperature": float(sample_temperature),

@@ -1,5 +1,6 @@
 """Core functional layers: the mixed-precision products, dense, embedding,
-dropout, the Transformer's Norm, and SpatialNet's conv and BatchNorm.
+dropout, the Transformer's Norm, SpatialNet's conv and BatchNorm, and the
+backbones' strided conv and max pools.
 
 Every product runs through :func:`vdot` (or, batched, :func:`bmm_f32`):
 operands rounded to the compute dtype, float32 accumulation and a float32
@@ -307,3 +308,41 @@ def batchnorm(params, x: torch.Tensor, train: bool) -> Tuple[torch.Tensor, dict]
     inv = torch.rsqrt(var + _BN_EPS)
     y = (x - mean[None, :, None, None]) * (inv * params["scale"])[None, :, None, None]
     return y + params["bias"][None, :, None, None], new
+
+
+# ---------------- the backbones' conv and pool (inference only) ----------------
+
+def conv2d_f32(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
+               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x (B, C, H, W) NCHW, w (O, I, kH, kW), ``stride`` and ``padding`` on
+    both sides of both axes (torch's ``padding=``, the JAX package's explicit
+    ``[(p, p), (p, p)]``) -> (B, O, H', W') float32, without a bias: the
+    backbones' ``lax.conv_general_dilated(..., preferred_element_type=f32)``
+    with both operands rounded to ``compute_dtype``.
+
+    On the CPU it is a float32 conv of the rounded operands, whose result
+    is kept unrounded, as JAX's. On the card a bf16 conv is one cuDNN call on
+    bf16 operands with float32 accumulation, whose output cuDNN rounds to
+    bf16 before it is up-cast: one rounding per layer more than JAX (the gap
+    this gives the backbones' features is stated in ROADMAP §C). A float32
+    conv runs with cuDNN's TF32 off. While ``torch.export`` traces, the bf16
+    conv is the op ``vcr_tpu_torch::conv2d_f32out`` (``ops/library.py``),
+    which picks its device's form when the program runs. Inference only:
+    nothing differentiates the backbones."""
+    xc, wc = x.to(compute_dtype), w.to(compute_dtype)
+    if compute_dtype == torch.float32:
+        with cudnn_tf32_off():
+            return F.conv2d(xc, wc, stride=stride, padding=padding)
+    if torch.compiler.is_exporting():
+        return torch.ops.vcr_tpu_torch.conv2d_f32out(xc, wc, [stride] * 2, [padding] * 2)
+    if xc.is_cuda:
+        return F.conv2d(xc, wc, stride=stride, padding=padding).float()
+    return F.conv2d(xc.float(), wc.float(), stride=stride, padding=padding)
+
+
+def max_pool2d_edge(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Darknet's stride-1 max pool: the map extended right and bottom by
+    ``size - 1`` copies of its edge, then the max over every ``size`` x
+    ``size`` window; the output keeps the input's size."""
+    pad = size - 1
+    return F.max_pool2d(F.pad(x, (0, pad, 0, pad), mode="replicate"), size, 1)

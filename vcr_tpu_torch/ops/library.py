@@ -23,11 +23,11 @@ The ops are forward only. ``cuda_gru.GruSequence`` and
 gradients from the plain recurrence; a backward through an op itself (B3 or
 B4 on a tensor that requires a gradient) raises.
 
-Beside them are three device-neutral product ops (``mm_f32``, ``bmm_f32``,
-``conv2d_same``, below), which an exported program holds in place of the
-models' bf16 products. Importing ``vcr_tpu_torch.ops`` registers all of
-them; a serving host that runs an exported program imports this module and
-nothing of the models.
+Beside them are four device-neutral product ops (``mm_f32``, ``bmm_f32``,
+``conv2d_same``, ``conv2d_f32out``, below), which an exported program holds
+in place of the models' bf16 products. Importing ``vcr_tpu_torch.ops``
+registers all of them; a serving host that runs an exported program imports
+this module and nothing of the models.
 """
 
 from __future__ import annotations
@@ -112,9 +112,9 @@ gru_recurrence_dma.register_fake(_fake_time_major)
 # ------------------------------------------------- device-neutral products
 #
 # The models pick the form of a bf16 product by the device of its operands
-# (``nn.layers.vdot``, ``bmm_f32``, ``conv2d``): cuBLAS or cuDNN with a
-# float32 or bf16 output on the card, float32 products of the rounded
-# operands on the CPU. ``torch.export`` would bake the tracing device's
+# (``nn.layers.vdot``, ``bmm_f32``, ``conv2d``, ``conv2d_f32``): cuBLAS or
+# cuDNN with a float32 or bf16 output on the card, float32 products of the
+# rounded operands on the CPU. ``torch.export`` would bake the tracing device's
 # form into the program, so while it traces, those layers emit these ops
 # instead, and the device picks the form when the program runs. They are
 # called dozens of times a decode, so they are registered through the
@@ -124,6 +124,7 @@ _PRODUCTS = torch.library.Library(NAMESPACE, "FRAGMENT")
 _PRODUCTS.define("mm_f32(Tensor x, Tensor w) -> Tensor")
 _PRODUCTS.define("bmm_f32(Tensor a, Tensor b) -> Tensor")
 _PRODUCTS.define("conv2d_same(Tensor x, Tensor w) -> Tensor")
+_PRODUCTS.define("conv2d_f32out(Tensor x, Tensor w, int[] stride, int[] padding) -> Tensor")
 
 
 def _mm_f32_cuda(x, w):
@@ -149,9 +150,20 @@ def _conv2d_same_cpu(x, w):
     return _conv2d_same_cuda(x.float(), w.float()).to(x.dtype)
 
 
+def _conv2d_f32out_cuda(x, w, stride, padding):
+    """The backbones' bf16 conv on the card (``nn.layers.conv2d_f32``):
+    cuDNN's bf16 output, up-cast."""
+    return torch.nn.functional.conv2d(x, w, stride=stride, padding=padding).float()
+
+
+def _conv2d_f32out_cpu(x, w, stride, padding):
+    return torch.nn.functional.conv2d(x.float(), w.float(), stride=stride, padding=padding)
+
+
 for _name, _cuda, _cpu in (("mm_f32", _mm_f32_cuda, _mm_f32_cpu),
                            ("bmm_f32", _bmm_f32_cuda, _mm_f32_cpu),
-                           ("conv2d_same", _conv2d_same_cuda, _conv2d_same_cpu)):
+                           ("conv2d_same", _conv2d_same_cuda, _conv2d_same_cpu),
+                           ("conv2d_f32out", _conv2d_f32out_cuda, _conv2d_f32out_cpu)):
     _PRODUCTS.impl(_name, _cuda, "CUDA")
     _PRODUCTS.impl(_name, _cpu, "CPU")
 
@@ -169,3 +181,10 @@ def _fake_bmm_f32(a, b):
 @torch.library.register_fake(f"{NAMESPACE}::conv2d_same", lib=_PRODUCTS)
 def _fake_conv2d_same(x, w):
     return x.new_empty((x.shape[0], w.shape[0], *x.shape[2:]))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::conv2d_f32out", lib=_PRODUCTS)
+def _fake_conv2d_f32out(x, w, stride, padding):
+    size = [(n + 2 * p - k) // s + 1
+            for n, k, s, p in zip(x.shape[2:], w.shape[2:], stride, padding)]
+    return x.new_empty((x.shape[0], w.shape[0], *size), dtype=torch.float32)

@@ -1,15 +1,17 @@
-"""Serving: features -> caption tokens, as one callable.
+"""Serving: raw frames or features -> caption tokens, as one callable.
 
-PyTorch counterpart of ``vcr_tpu/serving.py``. Ported so far: captioning on
-precomputed features (``featurizer="none"``) by S2VT, by S2VT-att, by the
-Transformer (its KV-cached serving decodes), by RationaleNet over S2VT or
-S2VT-att (hard-Gumbel frame selection, then its captioner) and by SpatialNet
-over either (on (B, N, F, K, K) grid features), greedy, by beam search or by
-sampling (``decode``), and in the quantized serving modes: int8 or int4
-K/V caches (the Transformer's) and int8 decode weights. Every other
-featurizer (YOLOv3's among them) raises ``NotImplementedError`` naming its
-ROADMAP item, and a mode a decode has no form for raises ``ValueError``, so
-no option is ever silently ignored.
+PyTorch counterpart of ``vcr_tpu/serving.py``: captioning by S2VT, by
+S2VT-att, by the Transformer (its KV-cached serving decodes), by
+RationaleNet over S2VT or S2VT-att (hard-Gumbel frame selection, then its
+captioner) and by SpatialNet over either (on (B, N, F, K, K) grid
+features), greedy, by beam search or by sampling (``decode``), and in the
+quantized serving modes: int8 or int4 K/V caches (the Transformer's) and
+int8 decode weights. The input is precomputed features
+(``featurizer="none"``) or raw normalized frames (B, N, 3, S, S) that a
+fused backbone featurizes first: VGG16's fc7 (``"vgg16"``), ResNet's pooled
+features (``"resnet"``) or Darknet's grid cut (``"yolo"``, for SpatialNet).
+A mode a decode has no form for raises ``ValueError``, so no option is
+ever silently ignored.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import torch
 from vcr_tpu_torch import decode
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
-from vcr_tpu_torch.models import rationale, spatial
+from vcr_tpu_torch.models import rationale, resnet, spatial, vgg
 from vcr_tpu_torch.models import transformer as tr
+
+FEATURIZERS = ("none", "vgg16", "resnet", "yolo")
 
 
 def resolve_eos_id(spec: model_base.ModelSpec, eos_id: int | None = None,
@@ -58,17 +62,25 @@ def build_captioner(params, spec: model_base.ModelSpec,
                     kv_cache: str | None = None,
                     decode_weights: str | None = None,
                     device=None) -> Callable:
-    """-> fn(feats (B, N, V), or SpatialNet's (B, N, F, K, K); array or
-    tensor) -> tokens (B, L) int32 tensor on ``device``.
+    """-> fn(feats (B, N, V), or SpatialNet's (B, N, F, K, K), or frames (B,
+    N, 3, S, S) under a fused featurizer; array or tensor) -> tokens (B, L)
+    int32 tensor on ``device``.
 
     The arguments come in the JAX package's order, so a positional call
     means the same in both, then ``device``, which defaults to the card;
     pass ``device="cpu"`` for the plain versions on the CPU. The parameters
     are moved there once, here.
 
-    ``featurizer`` stays ``"none"`` (precomputed features) until ROADMAP A17
-    ports the featurizers: any other, and any ``feat_params``, raises naming
-    A17. The JAX package defaults to ``"vgg16"``.
+    ``featurizer``: ``"none"`` (the input is features; the default here,
+    where the JAX package defaults to ``"vgg16"``: every server, pool and
+    command line of this package feeds features), ``"vgg16"`` (fc7, 4096-d;
+    ``feat_params`` its ``models.vgg`` weights), ``"resnet"`` (pooled
+    512-d; ``models.resnet`` weights) or ``"yolo"`` (Darknet's grid cut, for
+    SpatialNet; ``feat_params`` a ``models.darknet.Darknet``, whose cfg
+    shapes the call and whose weights are moved to ``device``). The frames
+    of all B videos go through the backbone as one batch of B*N. A
+    featurizer without ``feat_params``, or ``feat_params`` without one,
+    raises ValueError.
 
     Greedy: S2VT, S2VT-att, RationaleNet and SpatialNet their greedy decode,
     the Transformer its KV-cached ``decode_greedy_fast`` on features cast to
@@ -93,25 +105,78 @@ def build_captioner(params, spec: model_base.ModelSpec,
     the returned fn is deterministic per input; build it with another
     ``rng`` to re-roll.
     """
-    if feat_params is not None:
-        raise NotImplementedError(
-            "feat_params (a featurizer's weights) is not ported yet: ROADMAP A17 "
-            "(featurizers); pass precomputed features with featurizer='none'")
+    darknet, feat_params = split_feat_params(featurizer, feat_params)
     device = resolve_device(device)
     caption = make_caption_fn(spec, featurizer, beam_size,
                               resolve_eos_id(spec, eos_id, vocab), sample_temperature,
                               sample_top_k, sample_top_p, 0 if rng is None else rng,
-                              kv_cache=kv_cache, decode_weights=decode_weights)
+                              kv_cache=kv_cache, decode_weights=decode_weights,
+                              darknet=darknet)
     params = params_to(params, device)
+    feat_params = params_to(feat_params, device)
     if model_base.check_serving_modes(kv_cache, decode_weights)[1] == "int8":
         # quantized once here; the steppers find the codes
         params = decode.augment_decode_weights(params, spec)
 
+    fused = {} if featurizer == "none" else {"feat_params": feat_params}
+
     def run(feats) -> torch.Tensor:
         with torch.inference_mode():
-            return caption(params, torch.as_tensor(feats, device=device))
+            return caption(params, torch.as_tensor(feats, device=device), **fused)
 
     return run
+
+
+def split_feat_params(featurizer: str, feat_params):
+    """-> (the Darknet object or None, the featurizer's weight tree or
+    None), checked against ``featurizer``: a backbone needs its weights
+    (for ``"yolo"`` a ``Darknet``), ``"none"`` takes none."""
+    if featurizer not in FEATURIZERS:
+        raise ValueError(f"unknown featurizer {featurizer!r}; one of {FEATURIZERS}")
+    if featurizer == "none":
+        if feat_params is not None:
+            raise ValueError("feat_params given with featurizer='none': name the "
+                             "backbone they are the weights of")
+        return None, None
+    if feat_params is None:
+        raise ValueError(f"featurizer {featurizer!r} needs feat_params (its weights; "
+                         "for 'yolo' a models.darknet.Darknet)")
+    if featurizer == "yolo":
+        if not hasattr(feat_params, "blocks"):
+            raise TypeError("featurizer 'yolo' takes a models.darknet.Darknet as "
+                            f"feat_params, not {type(feat_params).__name__}")
+        return feat_params, feat_params.params
+    return None, feat_params
+
+
+def make_featurize(spec: model_base.ModelSpec, featurizer: str, darknet=None):
+    """``featurize(feat_params, frames (B, N, 3, S, S)) -> features``:
+    (B, N, 4096) VGG16 fc7, (B, N, 512) ResNet pooled, or (B, N, F, K, K)
+    Darknet's cut ``outputs[first_yolo - 2]``, all float32, the B*N frames
+    run as one batch in the compute dtype; None for ``"none"``."""
+    if featurizer == "none":
+        return None
+    if featurizer == "yolo":
+        if darknet is None:
+            raise ValueError("featurizer 'yolo' needs the Darknet (its cfg shapes the "
+                             "trace)")
+
+        def extract(fp, flat):
+            return darknet.get_feats(flat, spec.cdtype, params=fp)
+    elif featurizer in ("vgg16", "resnet"):
+        backbone = vgg.extract_fc7 if featurizer == "vgg16" else resnet.extract_features
+
+        def extract(fp, flat):
+            return backbone(fp, flat, spec.cdtype)
+    else:
+        raise ValueError(f"unknown featurizer {featurizer!r}; one of {FEATURIZERS}")
+
+    def featurize(fp, frames: torch.Tensor) -> torch.Tensor:
+        b, n = frames.shape[:2]
+        feats = extract(fp, frames.reshape(b * n, *frames.shape[2:]))
+        return feats.reshape(b, n, *feats.shape[1:])
+
+    return featurize
 
 
 def make_caption_fn(spec: model_base.ModelSpec,
@@ -123,16 +188,32 @@ def make_caption_fn(spec: model_base.ModelSpec,
                     sample_top_p: float = 0.0,
                     rng: int = 0,
                     kv_cache: str | None = None,
-                    decode_weights: str | None = None) -> Callable:
-    """The serving function ``caption(params, feats, noise=None) -> tokens``;
-    ``eos_id`` already resolved (None: ``spec.sos_id + 1``). A call draws
-    its random numbers (:func:`draw_plan`) from a generator seeded with
-    ``rng``, unless ``noise`` gives them as tensors by their plan names:
-    ``export_serving`` makes them inputs of the exported program."""
-    if featurizer != "none":
-        raise NotImplementedError(
-            f"featurizer {featurizer!r} is not ported yet: ROADMAP A17 "
-            "(featurizers); pass precomputed features with featurizer='none'")
+                    decode_weights: str | None = None,
+                    darknet=None) -> Callable:
+    """The serving function ``caption(params, feats, noise=None,
+    feat_params=None) -> tokens``; ``eos_id`` already resolved (None:
+    ``spec.sos_id + 1``). A call draws its random numbers (:func:`draw_plan`)
+    from a generator seeded with ``rng``, unless ``noise`` gives them as
+    tensors by their plan names: ``export_serving`` makes them inputs of the
+    exported program. Under a fused ``featurizer`` the input is frames,
+    featurized with ``feat_params`` first (:func:`make_featurize`;
+    ``darknet`` is the Darknet of ``"yolo"``)."""
+    featurize = make_featurize(spec, featurizer, darknet)
+    caption = _caption_fn(spec, beam_size, eos_id, sample_temperature, sample_top_k,
+                          sample_top_p, rng, kv_cache, decode_weights)
+    if featurize is None:
+        return caption
+
+    def featurized(params, frames: torch.Tensor, noise=None,
+                   feat_params=None) -> torch.Tensor:
+        return caption(params, featurize(feat_params, frames), noise)
+
+    return featurized
+
+
+def _caption_fn(spec, beam_size, eos_id, sample_temperature, sample_top_k, sample_top_p,
+                rng, kv_cache, decode_weights) -> Callable:
+    """:func:`make_caption_fn`'s caption on features."""
     kv_cache, decode_weights = model_base.check_serving_modes(kv_cache, decode_weights)
     decode.check_decode_mode(beam_size, sample_temperature, sample_top_k, sample_top_p)
     decode.check_gru_kv_cache(spec, kv_cache)

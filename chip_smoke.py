@@ -214,6 +214,16 @@ exit code and no result line:
    token agreement reported. Last, the fused VGG16 -> S2VT artifact,
    exported on the CPU and loaded on the card: tokens equal to the live
    call's at B=8, B1 twice a call, its ms beside the live call's.
+15. harnesses -- benchutil.time_chained of the flagship at B=2048 (CUDA
+   events, best and median of 3, one synchronise) with its FLOPs by
+   FlopCounterMode (B1 through its custom op's formula) and the MFU against
+   the bf16 peak, beside phase 5's ms; vcr_tpu_torch.checks on the card,
+   every row printed, exit 0 required; tune_serving over two (R, A, S)
+   geometries of the flagship's pool, a burst of 512 requests each, every
+   request served and B1 twice per admission chunk; two processes on the
+   one card joined over gloo, dp=2, training S2VT at full width (B=64 per
+   rank, 2 steps, p=0), both ranks' losses equal and within the bf16 train
+   bound of one process on the global batch, B1 twice per step and rank.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -238,11 +248,16 @@ import time
 import numpy as np
 import torch
 
+from vcr_tpu_torch.utils import benchutil
+from vcr_tpu_torch.utils.benchutil import (backbone_bound_ms, conv_bound_ms, gru_bound_ms,
+                                           lstm_bound_ms, median_best_ms, time_ms)
+
 # The card the bounds are computed for, and its published dense peaks (NVIDIA
-# H100 SXM data sheet): bf16 tensor-core FLOP/s, float32 FLOP/s outside the
-# tensor cores, device-memory bytes/s. Another card ends the run.
+# H100 SXM data sheet, benchutil.CARD_PEAKS): bf16 tensor-core FLOP/s, float32
+# FLOP/s outside the tensor cores, device-memory bytes/s. Another card ends
+# the run.
 CARD = "NVIDIA H100 80GB HBM3"
-PEAKS = (989e12, 67e12, 3.35e12)
+PEAKS = benchutil.CARD_PEAKS[CARD]
 
 SMOKE_BATCH = 256      # main-path batch of the correctness phases
 TIMING_BATCH = 2048    # flagship serving batch of the timing phase
@@ -327,6 +342,11 @@ RESNET_SIZE = 224
 DARKNET_BATCH = 2            # the Darknet-53 + first-head cut -> SpatialNet
 DARKNET_SIZE = 416
 CHECK_VIDEOS = 1             # the card against the CPU, one video of 30 frames
+TUNE_GEOMETRIES = ((512, 64, 4), (256, 32, 4))  # phase 15: (R, A, S) of the flagship pool
+TUNE_REQUESTS = 512          # a burst (rate 0) per geometry
+DIST_BATCH = 64              # two processes on the card: rows per rank,
+DIST_STEPS = 2               # steps,
+DIST_LOSS_TOL = 2e-3         # and the bf16 train bound (test_bf16_step_matches_jax)
 FEAT_F32_TOL = 1e-4          # float32 features, card (TF32 off) against CPU,
                              # relative to the largest |feature|
 FEAT_BF16_GAP = {"vgg16": 0.03, "resnet": 0.03, "yolo": 0.03}  # bf16 features,
@@ -349,22 +369,6 @@ def check(ok: bool, what: str) -> None:
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def time_ms(fn, iters: int = 1, reps: int = 3) -> float:
-    """Best of ``reps`` of ``iters`` calls, by CUDA events, after one warm-up."""
-    fn()
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / iters)
-    return best
 
 
 def gru_inputs(t, b, hidden, dtype, seed):
@@ -415,33 +419,6 @@ def all_finite(got) -> bool:
     if isinstance(got, torch.Tensor):
         got = (got,)
     return all(bool(torch.isfinite(x).all()) for x in got)
-
-
-def gru_bound_ms(t, b, hidden, peaks):
-    """Least time of one B1 call in bf16: bytes of each input read once and
-    the output written once, or the recurrent product at the bf16 tensor-core
-    rate plus the gate math (counted as 14 float32 operations per hidden
-    element) at the float32 rate, whichever is larger."""
-    bf16_rate, f32_rate, mem_rate = peaks
-    nbytes = (t * b * 3 * hidden * 2 + hidden * 3 * hidden * 2 + 3 * hidden * 4
-              + b * hidden * 4 + t * b * hidden * 4)
-    ops_s = 2 * t * b * hidden * 3 * hidden / bf16_rate + 14 * t * b * hidden / f32_rate
-    bytes_s = nbytes / mem_rate
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
-
-
-def lstm_bound_ms(t, b, hidden, peaks):
-    """Least time of one B2 call (one direction) in bf16: bytes of each input
-    read once and each output written once, or the recurrent product at the
-    bf16 tensor-core rate plus the gate math (counted as 23 float32
-    operations per hidden element: 8 adds, 3 sigmoids at 3, 2 tanh at 1, 4
-    for the c and h updates) at the float32 rate, whichever is larger."""
-    bf16_rate, f32_rate, mem_rate = peaks
-    nbytes = (t * b * 4 * hidden * 2 + hidden * 4 * hidden * 2 + 4 * hidden * 4
-              + 2 * b * hidden * 4 + t * b * hidden * 4 + b * hidden * 4)
-    ops_s = 2 * t * b * hidden * 4 * hidden / bf16_rate + 23 * t * b * hidden / f32_rate
-    bytes_s = nbytes / mem_rate
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
 
 
 def train_batch(gen, b, spec, feats_dtype, grid=()):
@@ -1197,18 +1174,6 @@ def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
             "train": step_launches[-1], "train_remat": remat_launches}
 
 
-def conv_trunk_bound_ms(frames, f, hidden, k, peaks):
-    """Least time of SpatialNet's conv trunk in bf16: its two 3x3 convs'
-    products at the bf16 tensor-core rate (BatchNorm and ReLU left out), or
-    the float32 input read once and the trunk's float32 output written
-    once, whichever is larger."""
-    bf16_rate, _, mem_rate = peaks
-    cells = frames * k * k
-    ops_s = 2 * cells * hidden * 9 * (f + hidden) / bf16_rate
-    bytes_s = (cells * f * 4 + cells * hidden * 4) / mem_rate
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
-
-
 def spatial_phase(cuda_gru, cuda_lstm, smi):
     """Phase 9: SpatialNet served (greedy, beam, over S2VT-att), float32
     card against CPU, its train step and its command line, at full width;
@@ -1292,7 +1257,7 @@ def spatial_phase(cuda_gru, cuda_lstm, smi):
         }
     stages["encoder_loop_ms_derived"] = (stages["encode_ms"] - stages["conv_trunk_ms"]
                                          - stages["key_projection_ms"])
-    trunk_bound, trunk_bound_by = conv_trunk_bound_ms(b * frames, f, hidden, k, PEAKS)
+    trunk_bound, trunk_bound_by = conv_bound_ms(b * frames, f, hidden, k, PEAKS)
     emit("spatial_serving", batch=b, feats=[frames, f, k, k], launches=serve_launches,
          beam_launches=beam_launches, s2vt_att_launches=att_launches,
          f32_tokens_card_eq_cpu=True, f32_logits_max_abs_err=logit_err,
@@ -1423,13 +1388,6 @@ def lineage_lockstep_gap(tr, gather_rows, params, spec, e_outputs, k, gen):
         state_g, logits_g = step_g(state_g, words, i)
         gap = max(gap, (logits_l.double() - logits_g.double()).abs().max().item())
     return gap
-
-
-def median_best_ms(fn):
-    """(best, median) of 3 calls by CUDA events, after the warm-up of the
-    first."""
-    runs = sorted(time_ms(fn, reps=1) for _ in range(3))
-    return runs[0], runs[1]
 
 
 def transformer_phase(cuda_gru, cuda_lstm, smi):
@@ -2349,26 +2307,6 @@ def artifact_phase(cuda_gru, cuda_lstm, smi):
     return out
 
 
-def backbone_flops(fn) -> int:
-    """The products of one call of ``fn`` (convolutions and matrix
-    products), counted by torch's FlopCounterMode."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn()
-    return counter.get_total_flops()
-
-
-def backbone_bound_ms(flops, in_bytes, out_bytes, peaks):
-    """Least time of a backbone call in bf16: its products at the bf16
-    tensor-core rate (BatchNorm, bias, activation and pools left out), or
-    its frames and float32 weights read once and its float32 features
-    written once, whichever is larger."""
-    bf16_rate, _, mem_rate = peaks
-    ops_s, bytes_s = flops / bf16_rate, (in_bytes + out_bytes) / mem_rate
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
-
-
 def tree_bytes(tree) -> int:
     from vcr_tpu_torch.export_serving import flatten_tree
 
@@ -2436,7 +2374,7 @@ def featurizers_phase(cuda_gru, cuda_lstm, smi, device="cuda"):
                               else (b, spec.num_frames, spec.vid_feat_size))
                 check(tuple(feats.shape) == want_shape and all_finite(feats),
                       f"{name}: features {tuple(feats.shape)}, want {want_shape}")
-                flops = backbone_flops(lambda: featurize(weights, frames))
+                flops = benchutil.flops(lambda: featurize(weights, frames))
                 bound, bound_by = backbone_bound_ms(
                     flops, frames.numel() * 2 + tree_bytes(weights),
                     feats.numel() * 4, PEAKS)
@@ -2508,6 +2446,170 @@ def featurizers_phase(cuda_gru, cuda_lstm, smi, device="cuda"):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+DIST_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, out_path, per_rank, steps, seed = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                               int(sys.argv[4]), int(sys.argv[5]),
+                                               int(sys.argv[6]))
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="tcp://localhost:" + port, world_size=2,
+                        rank=rank)
+from vcr_tpu_torch import entry
+from vcr_tpu_torch.ops import cuda_gru
+from vcr_tpu_torch.parallel import mesh as pmesh
+from vcr_tpu_torch.train import optim, step
+
+spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
+spec = spec.with_(dropout_p=0.0)
+mesh = pmesh.make_mesh(2, 1, "cuda")
+specs = pmesh.param_specs(params, spec.padded_vocab_size, 1)
+params = pmesh.shard_params(params, mesh, specs)
+opt = optim.build_optimizer("adam", 1e-3, 0.0, 1.0)
+state = opt.init(params)
+train, _ = step.build_step_fns("s2vt", spec, opt, static_tf=1.0, device="cuda",
+                               mesh=mesh, specs=specs)
+r = np.random.default_rng(seed)
+losses, launches, ms = [], [], []
+for i in range(steps):
+    batch = {"vid_feats": r.standard_normal((2 * per_rank, spec.num_frames,
+                                             spec.vid_feat_size)).astype(np.float32),
+             "sent": r.integers(0, spec.vocab_size, (2 * per_rank, spec.max_len)
+                                ).astype(np.int32),
+             "sent_len": np.full((2 * per_rank,), 12, np.int32),
+             "valid": np.ones((2 * per_rank,), np.float32)}
+    local = step.device_batch(pmesh.shard_batch(batch, mesh), "cuda")
+    torch.cuda.synchronize()
+    cuda_gru.launches = cuda_gru.launches_tc = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, state, m, _ = train(params, state, local, i, 1.0)
+    end.record()
+    torch.cuda.synchronize()
+    losses.append(m["loss"].item())
+    launches.append({"gru_seq": cuda_gru.launches, "gru_seq_tc": cuda_gru.launches_tc})
+    ms.append(start.elapsed_time(end))
+with open(out_path, "w") as f:
+    json.dump({"losses": losses, "launches": launches, "step_ms": ms}, f)
+dist.destroy_process_group()
+"""
+
+
+def distributed_train(cuda_gru, cuda_lstm, smi):
+    """Two processes on the one card over gloo, dp=2: S2VT at full width,
+    DIST_BATCH rows per rank, DIST_STEPS steps, against one process on the
+    global batch (float32 losses, p=0) at the bf16 train bound."""
+    from vcr_tpu_torch import entry
+    from vcr_tpu_torch.parallel.launch import free_port
+    from vcr_tpu_torch.train import optim, step
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="vcr_dist_")
+    try:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DIST_WORKER, str(r), port,
+             os.path.join(out_dir, f"rank{r}.json"), str(DIST_BATCH), str(DIST_STEPS), "5"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"distributed rank {r} failed:\n{out[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    # one process on the same global batches
+    spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
+    spec = spec.with_(dropout_p=0.0)
+    opt = optim.build_optimizer("adam", 1e-3, 0.0, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns("s2vt", spec, opt, static_tf=1.0, device="cuda")
+    r = np.random.default_rng(5)
+    want = []
+    for i in range(DIST_STEPS):
+        b = 2 * DIST_BATCH
+        batch = {"vid_feats": r.standard_normal((b, spec.num_frames, spec.vid_feat_size)
+                                                ).astype(np.float32),
+                 "sent": r.integers(0, spec.vocab_size, (b, spec.max_len)).astype(np.int32),
+                 "sent_len": np.full((b,), 12, np.int32),
+                 "valid": np.ones((b,), np.float32)}
+        params, state, m, _ = train(params, state, step.device_batch(batch, "cuda"), i, 1.0)
+        want.append(m["loss"].item())
+    gaps = [abs(a - w) for a, w in zip(ranks[0]["losses"], want)]
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          f"the ranks' global losses differ: {ranks[0]['losses']} {ranks[1]['losses']}")
+    check(max(gaps) <= DIST_LOSS_TOL,
+          f"two processes against one: losses {ranks[0]['losses']} vs {want}")
+    per_step = [x["gru_seq"] for x in ranks[0]["launches"] + ranks[1]["launches"]]
+    check(all(n == 2 for n in per_step) and all(
+        x["gru_seq_tc"] == 2 for x in ranks[0]["launches"] + ranks[1]["launches"]),
+        f"B1 launches per step and rank {per_step}, want 2 on the tensor-core body")
+    row = {"processes": 2, "backend": "gloo", "dp": 2, "mp": 1,
+           "batch_per_rank": DIST_BATCH, "steps": DIST_STEPS, "losses": ranks[0]["losses"],
+           "one_process_losses": want, "max_loss_gap": max(gaps),
+           "tolerance": DIST_LOSS_TOL, "launches_per_step_per_rank": 2,
+           "step_ms_by_rank": [x["step_ms"] for x in ranks],
+           "seconds": time.perf_counter() - t0}
+    emit("harnesses_distributed_train", **row, nvidia_smi=smi)
+    return row
+
+
+def harnesses_phase(cuda_gru, cuda_lstm, smi, flagship):
+    """Phase 15: the harnesses on the card. benchutil's timing, FLOP count
+    and MFU of the flagship at B=2048 beside phase 5's ms; every row of
+    vcr_tpu_torch.checks; tune_serving over two geometries of the flagship's
+    pool; two processes training S2VT on the card."""
+    from vcr_tpu_torch import checks, tune_serving
+
+    t_phase = time.perf_counter()
+    spec, params, caption, feats, caption_ms = flagship
+    with torch.inference_mode():
+        timed = benchutil.time_chained(caption, (feats,), "cuda")
+    check(timed["flops"] > 0 and timed["mfu"] is not None and 0 < timed["mfu"] < 1,
+          f"flagship MFU reading {timed}")
+    with torch.inference_mode():
+        _, launches = counted(cuda_gru, cuda_lstm, lambda: caption(feats))
+    emit("harnesses_mfu", batch=feats.shape[0], phase5_caption_ms=caption_ms,
+         best_ms=timed["best_s"] * 1e3, median_ms=timed["median_s"] * 1e3,
+         gflop_per_call=timed["flops"] / 1e9, mfu=timed["mfu"],
+         peak_bf16_flops=benchutil.peak_bf16_flops("cuda"), loadavg=timed["loadavg"],
+         launches=launches, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    rc = checks.main([])
+    check(rc == 0, f"vcr_tpu_torch.checks on the card exited {rc}")
+    emit("harnesses_checks", rows=len(checks.Checks(torch.device("cuda"),
+                                                    checks.CARD).rows()),
+         exit_code=rc, seconds=time.perf_counter() - t0, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    rows, bests = tune_serving.tune(params, spec, spec.sos_id + 1, TUNE_GEOMETRIES, [0.0],
+                                    TUNE_REQUESTS, device="cuda")
+    for r in rows:
+        check(r["served"] == TUNE_REQUESTS, f"tune_serving served {r['served']}")
+        check(r["launches"]["gru_seq"] == 2 * r["admit_chunks"]
+              and r["launches"]["lstm_seq"] == 0,
+              f"tune_serving launches {r['launches']} for {r['admit_chunks']} admission "
+              "chunks, want B1 twice a chunk")
+    emit("harnesses_tune_serving", geometries=rows, best=bests,
+         seconds=time.perf_counter() - t0, nvidia_smi=smi)
+
+    dist_row = distributed_train(cuda_gru, cuda_lstm, smi)
+    emit("harnesses", phase_seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return {"mfu": timed, "tune": rows, "distributed": dist_row}
 
 
 def main() -> int:
@@ -2850,6 +2952,7 @@ def main() -> int:
     feats = torch.from_numpy(rng.standard_normal(
         (TIMING_BATCH, frames, spec.vid_feat_size)).astype(np.float32)).cuda()
     caption_ms = time_ms(lambda: caption(feats))
+    flagship = (spec, params, caption, feats, caption_ms)
     # yardsticks only, never called by the port: cuDNN's GRU on the same xs,
     # time-major and batch-major, which also does the input projection
     grus = {}
@@ -3080,6 +3183,9 @@ def main() -> int:
 
     # 14. raw frames -> captions through the fused featurizers
     feat = featurizers_phase(cuda_gru, cuda_lstm, smi)
+
+    # 15. the harnesses: MFU, the checks, the pool tuner, two processes
+    harness = harnesses_phase(cuda_gru, cuda_lstm, smi, flagship)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -3113,6 +3219,13 @@ def main() -> int:
                                          for name in ("vgg16_s2vt", "resnet34_s2vt_att",
                                                       "darknet_spatial",
                                                       "vgg16_artifact")},
+        "launches_per_tune_serving_geometry": {
+            "R%d_A%d_S%d" % (r["slots"], r["admit_chunk"], r["step_chunk"]):
+                {"launches": r["launches"]["gru_seq"], "admit_chunks": r["admit_chunks"]}
+            for r in harness["tune"]},
+        "launches_per_distributed_step_per_rank":
+            harness["distributed"]["launches_per_step_per_rank"],
+        "flagship_mfu": harness["mfu"]["mfu"],
         "at_admission_batch": cont["kernel_timing"]["gru_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
                                                 "gru_seq"),

@@ -378,14 +378,18 @@ def test_unported_modes_raise(mode, extra, exc, item, tmp_path, request):
 
 
 @pytest.mark.parametrize("argv, exc, item", [
-    # --arch s2vt-att trains since A9 and --mode train_spatial since A11; the
-    # case keeps its id: a mesh axis of model parallelism
-    pytest.param(["--mesh_mp", "2"], NotImplementedError, "A15", id="argv0-A9"),
+    # --arch s2vt-att trains since A9, --mode train_spatial since A11, and a
+    # mesh since A15; the case keeps its id: a mesh axis of model
+    # parallelism in a process that has no process group to span
+    pytest.param(["--mesh_mp", "2"], RuntimeError, "init_process_group", id="argv0-A9"),
     # --arch transformer trains since A12; the case keeps its id and holds
     # RationaleNet over a Transformer, which neither package has
     pytest.param(["--arch", "transformer", "--mode", "train_rationale"],
                  NotImplementedError, "wraps S2VT or S2VT-att", id="argv1-A12"),
-    (["--mesh_dp", "2"], NotImplementedError, "A15"),
+    # a mesh trains since A15; the case keeps its id: a data-parallel axis
+    # without a process group
+    pytest.param(["--mesh_dp", "2"], RuntimeError, "init_process_group",
+                 id="argv2-NotImplementedError-A15"),
     # the serving daemon's fields parse since A14 and its quantized modes
     # since A13; the case keeps its id and holds an unknown mode, refused
     # before any data is read

@@ -79,8 +79,13 @@ def test_config_has_every_field_with_its_default():
 
 
 @pytest.mark.parametrize("argv, exc, item", [
-    (["--mesh_dp", "2"], NotImplementedError, "A15"),
-    (["--mesh_mp", "2"], NotImplementedError, "A15"),
+    # a mesh parses in the train modes since A15 (test_config_takes_a_mesh_
+    # in_the_train_modes); these cases keep their ids and hold what the
+    # config still refuses: a mesh for the pool and the artifacts (A15b)
+    pytest.param(["--mesh_dp", "2", "--mode", "serve"], NotImplementedError, "A15b",
+                 id="argv0-NotImplementedError-A15"),
+    pytest.param(["--mesh_mp", "2", "--mode", "export_serving"], NotImplementedError,
+                 "A15b", id="argv1-NotImplementedError-A15"),
     # the serving daemon's fields parse since A14 and its quantized modes
     # since A13 (test_config_takes_the_quantized_serving_modes); these cases
     # keep their ids and hold what the modes still refuse: an unknown mode
@@ -100,6 +105,14 @@ def test_config_has_every_field_with_its_default():
 def test_config_refuses_what_is_not_ported(argv, exc, item):
     with pytest.raises(exc, match=item):
         tconfig.get_config(argv)
+
+
+@pytest.mark.parametrize("mode", ["train", "train_rationale", "train_spatial"])
+def test_config_takes_a_mesh_in_the_train_modes(mode):
+    cfg, _ = tconfig.get_config(["--mode", mode, "--mesh_dp", "2", "--mesh_mp", "4"])
+    assert (cfg.mesh_dp, cfg.mesh_mp) == (2, 4)
+    with pytest.raises(ValueError, match="mesh_dp must be >= 1"):
+        tconfig.get_config(["--mode", mode, "--mesh_dp", "0"])
 
 
 @pytest.mark.parametrize("kv, dw", [("int8", "bf16"), ("int4", "int8"), ("bf16", "int8")])

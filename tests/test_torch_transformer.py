@@ -30,7 +30,11 @@ MODEL_TOL = 1e-5     # encoder, train logits, eval logits through 2 layers each;
                      # read 8.3e-7
 BF16_B = 32
 BF16_LOGIT_TOL = 2e-3      # the bound of test_torch_s2vt.py's bf16 test: the same
-                           # roundings, float32 sums in other orders; read 2.4e-7
+                           # roundings, float32 sums in other orders; read 1.52e-3,
+                           # tokens 100% equal. The decoder alone, fed one encoder
+                           # output, reads 2.4e-7: the encoder's float32 outputs
+                           # differ by 1.3e-5 (sums in another order), and the bf16
+                           # decoder carries that to 1.5e-3
 BF16_TOKEN_AGREEMENT = 0.98
 # At H=128 (the width of test_torch_s2vt.py's bf16 test) the float32 sums of
 # the two packages differ in their last bit often enough that some operand

@@ -9,7 +9,8 @@ What the port does with each field:
 * :data:`INERT_FIELDS` are accepted and do nothing here (see there);
 * the values of features not ported yet raise ``NotImplementedError``
   naming their ROADMAP item (:meth:`Config.validate`): ``mesh_*`` away from
-  1 (multi-device, A15). An unknown architecture raises there too, before
+  1 in a mode other than the train modes (the sharded pool and the
+  multi-device artifact, A15b). An unknown architecture raises there too, before
   any data is read, and so does ``--mode train_rationale`` or
   ``train_spatial`` with an ``--arch`` other than S2VT or S2VT-att, which
   the JAX package would quietly replace by S2VT; an unknown serving mode
@@ -31,6 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 from vcr_tpu_torch.models import base as model_base
 
 CORPORA = ("msvd", "msrvtt", "msvd_vgg")
+# the modes that take --mesh_dp / --mesh_mp (multi-process training)
+TRAIN_MODES = ("train", "train_rationale", "train_spatial")
 ARCHS = ("s2vt", "s2vt-att", "transformer")
 
 # Fields that steer the JAX package's compiler and have no meaning on the
@@ -98,7 +101,7 @@ class Config:
     resume: bool = False
     seed: int = 123
 
-    # Mesh axes, data-parallel x model-parallel (ROADMAP A15; 1 x 1 here)
+    # Mesh axes, data-parallel x model-parallel: the train modes only
     mesh_dp: int = 1
     mesh_mp: int = 1
     # Compute dtype of the products ("bfloat16" or "float32"); parameters
@@ -166,14 +169,15 @@ class Config:
             # family; this package refuses instead of ignoring the flag
             raise NotImplementedError(
                 f"--mode {self.mode} wraps S2VT or S2VT-att, not --arch {self.arch}")
-        defaults = Config()
-        for f in dataclasses.fields(self):
-            if getattr(self, f.name) == getattr(defaults, f.name):
-                continue
-            if f.name.startswith("mesh_"):
+        for name in ("mesh_dp", "mesh_mp"):
+            value = getattr(self, name)
+            if value < 1:
+                raise ValueError(f"--{name} must be >= 1, got {value}")
+            if value > 1 and self.mode not in TRAIN_MODES:
                 raise NotImplementedError(
-                    f"--{f.name} {getattr(self, f.name)}: multi-device training and "
-                    "serving are not ported yet: ROADMAP A15")
+                    f"--{name} {value} with --mode {self.mode}: multi-device serving "
+                    "and artifacts are not ported yet: ROADMAP A15b (the train modes "
+                    "take a mesh)")
         model_base.check_serving_modes(self.serve_kv_cache, self.serve_decode_weights)
         return self
 

@@ -8,8 +8,8 @@ counterpart of ``vcr_tpu/data/pipeline.py``.
   <eos>-terminated and <pad>-padded to ``max_len``, and the reference strings
   for the caption metrics.
 * ``num_shards``/``shard_index`` take a strided shard of the samples per
-  process; one process (1 and 0) until multi-device training is ported
-  (ROADMAP A15).
+  dp index of a multi-process run (``train/loop.py``); one process takes 1
+  and 0.
 
 Features load by one of two routes, chosen once per iterator
 (``BatchIterator.route``):

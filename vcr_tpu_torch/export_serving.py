@@ -355,7 +355,7 @@ def export_captioner(params, spec, out_dir: str,
     ``featurizer`` ("vgg16", "resnet", "yolo" with its ``feat_params``, as
     ``serving.build_captioner`` takes them) puts the backbone in the program,
     which then takes frames (N, 3, ``image_size``, ``image_size``). ``dp >
-    1`` (the JAX package's multi-chip artifact) raises naming ROADMAP A15.
+    1`` (the JAX package's multi-chip artifact) raises naming ROADMAP A15b.
     Returns ``out_dir``."""
     from vcr_tpu_torch import decode, serving
     from vcr_tpu_torch.device import params_to, resolve_device
@@ -363,7 +363,7 @@ def export_captioner(params, spec, out_dir: str,
 
     if dp > 1:
         raise NotImplementedError(
-            f"dp={dp}: a multi-device artifact is not ported yet: ROADMAP A15 "
+            f"dp={dp}: a multi-device artifact is not ported yet: ROADMAP A15b "
             "(multi-device)")
     darknet, feat_params = serving.split_feat_params(featurizer, feat_params)
     device = resolve_device(device)

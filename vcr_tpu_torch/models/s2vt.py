@@ -41,7 +41,8 @@ import torch
 
 from vcr_tpu_torch.models import base
 from vcr_tpu_torch.nn.layers import (apply_keep_mask, dense, dense_init, embed,
-                                     embedding_init, keep_mask, mask_vocab_pad, vdot)
+                                     embedding_init, keep_mask, mask_vocab_pad,
+                                     vocab_argmax, vdot)
 from vcr_tpu_torch.nn.rnn import gru_gates, gru_init
 from vcr_tpu_torch.ops.cuda_gru import gru_sequence_fused
 
@@ -188,7 +189,7 @@ def decode_from_states(params, spec: base.ModelSpec, state1: torch.Tensor,
         st2 = gru_gates(xg2, st2, rnn2, cd)
         out = _dropout(st2, noise.out_keep, p, t)
         logits = mask_vocab_pad(dense(params["linear"], out, cd), spec.vocab_size)
-        words = logits.argmax(dim=-1).to(torch.int32)
+        words = vocab_argmax(logits)
         ys.append(words if emit == "tokens" else logits)
         if train:
             words = torch.where(noise.coins[t] < teacher_force_prob, s_in[:, t + 1], words)

@@ -35,7 +35,8 @@ from vcr_tpu_torch.models.s2vt import Rng, _check_call, generator_for
 from vcr_tpu_torch.nn.attention import (bahdanau_attend, bahdanau_context, bahdanau_init,
                                         bahdanau_project_keys, bahdanau_scores)
 from vcr_tpu_torch.nn.layers import (apply_keep_mask, dense, dense_init, embed,
-                                     embedding_init, keep_mask, mask_vocab_pad, vdot)
+                                     embedding_init, keep_mask, mask_vocab_pad,
+                                     vocab_argmax, vdot)
 from vcr_tpu_torch.nn.rnn import gate_remat_default, gru_gates, gru_init
 from vcr_tpu_torch.ops.cuda_gru import gru_sequence_fused
 
@@ -238,7 +239,7 @@ def decode(params, spec: base.ModelSpec, encoder_outs: torch.Tensor,
         context, _ = bahdanau_attend(att, state, proj_key, values, cd)
         state = _gru_in(dec["rnn"], context, embed(dec["embedding"], words), state, cd)
         logits = mask_vocab_pad(dense(dec["pred_linear"], state, cd), spec.vocab_size)
-        words = logits.argmax(dim=-1).to(torch.int32)
+        words = vocab_argmax(logits)
         ys.append(words if emit == "tokens" else logits)
     return torch.stack(ys, dim=1)
 

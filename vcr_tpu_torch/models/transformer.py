@@ -61,7 +61,8 @@ from vcr_tpu_torch.models import base
 from vcr_tpu_torch.models.s2vt import Rng, _check_call, generator_for
 from vcr_tpu_torch.nn.attention import mha_apply, mha_init
 from vcr_tpu_torch.nn.layers import (apply_keep_mask, bmm_f32, dense, dense_init, embed,
-                                     embedding_init, keep_mask, mask_vocab_pad, norm_init,
+                                     embedding_init, keep_mask, mask_vocab_pad,
+                                     vocab_argmax, norm_init,
                                      torch_norm)
 from vcr_tpu_torch.ops import kvquant, wquant
 
@@ -316,7 +317,7 @@ def decode_greedy(params, spec: base.ModelSpec, e_outputs: torch.Tensor,
                                 spec.vocab_size)
         if i + 1 < length:
             outputs = outputs.clone()
-            outputs[:, i + 1] = logits.argmax(dim=-1).to(torch.int32)
+            outputs[:, i + 1] = vocab_argmax(logits)
         logits_all.append(logits)
     return torch.stack(logits_all, dim=1)
 

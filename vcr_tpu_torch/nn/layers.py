@@ -10,12 +10,34 @@ result. Parameters are stored float32.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from vcr_tpu_torch.nn import init as vinit
+
+# The mp split of the vocabulary that the vocab products run under
+# (``parallel.mesh.VocabShard``; None: unsplit). The split's collectives
+# live in ``parallel.mesh``, imported only where a split is set, so that a
+# serving host, which never sets one, imports none of it.
+_VOCAB_SHARD: contextvars.ContextVar = contextvars.ContextVar("vocab_shard",
+                                                             default=None)
+
+
+def current_vocab_shard():
+    return _VOCAB_SHARD.get()
+
+
+@contextlib.contextmanager
+def vocab_scope(shard):
+    """Run the models' vocab products under ``shard`` (None: unsplit)."""
+    token = _VOCAB_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _VOCAB_SHARD.reset(token)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -123,6 +145,14 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 def dense(params, x: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x @ w + b. Under a vocab split (``parallel.mesh.vocab_scope``) a
+    column-split vocab projection gives this rank's columns, and the
+    gradient of ``x`` is summed over the ranks of the split."""
+    shard = current_vocab_shard()
+    if shard is not None and id(params["w"]) in shard.col_ids:
+        from vcr_tpu_torch.parallel import mesh
+
+        x = mesh.copy_to_mp(x, shard)
     y = vdot(x, params["w"], compute_dtype)
     if "b" in params:
         y = y + params["b"]
@@ -143,15 +173,39 @@ def embedding_init(vectors, padded_size: Optional[int] = None) -> dict:
 
 
 def embed(params, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` of the table; under a vocab split, of the row-split
+    table, summed over the ranks of the split."""
+    shard = current_vocab_shard()
+    if shard is not None and id(params["table"]) in shard.row_ids:
+        from vcr_tpu_torch.parallel import mesh
+
+        return mesh.embed_rows(params["table"], ids, shard)
     return params["table"][ids]
 
 
 def mask_vocab_pad(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Force padded vocab columns to -1e9 so they never win argmax."""
+    """Force padded vocab columns to -1e9 so they never win argmax. Under a
+    vocab split the logits are this rank's columns."""
+    shard = current_vocab_shard()
+    if shard is not None:
+        from vcr_tpu_torch.parallel import mesh
+
+        return mesh.mask_pad_columns(logits, vocab_size, shard)
     if logits.shape[-1] == vocab_size:
         return logits
     invalid = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
     return logits.masked_fill(invalid, -1e9)
+
+
+def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy tokens (..., ) int32 of vocab logits; under a vocab split,
+    of this rank's columns and the other ranks' (no logits are gathered)."""
+    shard = current_vocab_shard()
+    if shard is not None:
+        from vcr_tpu_torch.parallel import mesh
+
+        return mesh.sharded_argmax(logits, shard).to(torch.int32)
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 # ---------------- dropout ----------------

@@ -55,7 +55,7 @@ the per-step dense weights once, at construction: the Transformer's decoder
 denses are replaced by int8 codes, the GRU families' step dicts augmented
 beside their float32 originals, which the encoders keep reading (B1 and B2
 launch as before). ``kv_cache="int8"|"int4"`` (the Transformer's) stores its
-self and cross K/V caches quantized. Not ported: ``mesh`` (ROADMAP A15)
+self and cross K/V caches quantized. Not ported: ``mesh`` (ROADMAP A15b)
 raises.
 """
 
@@ -123,7 +123,7 @@ class ContinuousCaptioner:
       eos_id / vocab: the end token (``serving.resolve_eos_id``).
       rng: int seed of RationaleNet's frame selection and of the sampling
         streams (see the module docstring).
-      mesh: not ported (ROADMAP A15); anything but None raises.
+      mesh: not ported (ROADMAP A15b); anything but None raises.
       beam_size: K > 1 makes each slot a beam of K rows.
       sample_temperature / sample_top_k / sample_top_p: temperature > 0
         samples per slot (beam_size 1 only): the logits pass the row-wise
@@ -164,7 +164,8 @@ class ContinuousCaptioner:
                              "(beam maximizes sequence log-prob; sampling draws from it)")
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh-sharded slot pool is not ported yet: ROADMAP A15 (multi-device)")
+                "a mesh-sharded slot pool is not ported yet: "
+                "ROADMAP A15b (multi-device serving)")
         self.kv_cache, self.decode_weights = model_base.check_serving_modes(
             kv_cache, decode_weights)
         self.device = resolve_device(device)

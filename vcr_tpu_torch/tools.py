@@ -165,7 +165,7 @@ def _build_serving_pool(cfg: Config, checkpoint_path: str = "", device=None):
         checkpoint_path = ""
     if cfg.mesh_dp > 1:
         raise NotImplementedError("--mesh_dp > 1: a mesh-sharded slot pool is not "
-                                  "ported yet: ROADMAP A15 (multi-device)")
+                                  "ported yet: ROADMAP A15b (multi-device serving)")
     cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
     cc = ContinuousCaptioner(params, spec, slots=cfg.serve_slots,
                              admit_chunk=cfg.serve_admit_chunk, vocab=vocab,
@@ -253,12 +253,12 @@ def export_serving_artifact(cfg: Config, checkpoint_path: str = "",
     checkpoint-adopted flags (--beam_size, --sample_temperature,
     --sample_top_k, --sample_top_p, --serve_kv_cache,
     --serve_decode_weights); its draws are seeded with --seed. --mesh_dp > 1
-    (the JAX package's multi-chip artifact) raises naming A15."""
+    (the JAX package's multi-chip artifact) raises naming A15b."""
     from vcr_tpu_torch import export_serving
 
     if cfg.mesh_dp > 1:
         raise NotImplementedError("--mesh_dp > 1: a multi-device artifact is not "
-                                  "ported yet: ROADMAP A15 (multi-device)")
+                                  "ported yet: ROADMAP A15b (multi-device serving)")
     cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
     out = out_dir or os.path.join(cfg.save_path, "serving_artifact")
     return export_serving.export_captioner(
@@ -278,7 +278,7 @@ def export_continuous_artifact(cfg: Config, checkpoint_path: str = "",
     default). The pool's geometry comes from --serve_slots and
     --serve_admit_chunk. Serve it with ``--mode serve --pretrained_base
     <dir>``, which runs no model code. Sampling pools are live-only and
-    raise, as in the JAX package; --mesh_dp > 1 raises naming A15."""
+    raise, as in the JAX package; --mesh_dp > 1 raises naming A15b."""
     from vcr_tpu_torch.export_continuous import export_continuous
 
     # sample_temperature is a command-line override: its value here is the
@@ -290,7 +290,7 @@ def export_continuous_artifact(cfg: Config, checkpoint_path: str = "",
             "export without --sample_temperature")
     if cfg.mesh_dp > 1:
         raise NotImplementedError("--mesh_dp > 1: a mesh-sharded slot pool is not "
-                                  "ported yet: ROADMAP A15 (multi-device)")
+                                  "ported yet: ROADMAP A15b (multi-device serving)")
     cfg, params, spec, vocab = load_inference_state(cfg, checkpoint_path, device)
     out = out_dir or os.path.join(cfg.save_path, "continuous_artifact")
     return export_continuous(params, spec, out, slots=cfg.serve_slots,

@@ -47,14 +47,16 @@ def _detached(params):
     return params.detach()
 
 
-def save_checkpoint(path: str, params, opt_state: OptState, meta: Dict[str, Any]) -> None:
-    """Write ``params`` (nested dicts of tensors), the optimizer's state and
-    ``meta`` to the directory ``path``, crash-atomically."""
+def save_checkpoint(path: str, params, opt_state, meta: Dict[str, Any]) -> None:
+    """Write ``params`` (nested dicts of tensors), the optimizer's state (an
+    OptState, or an optimizer state_dict) and ``meta`` to the directory
+    ``path``, crash-atomically."""
     path = os.path.abspath(path)
     tmp, old = path + ".tmp", path + ".old"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    tree = {"params": _detached(params), "opt_state": opt_state.optimizer.state_dict()}
+    opt_sd = opt_state if isinstance(opt_state, dict) else opt_state.optimizer.state_dict()
+    tree = {"params": _detached(params), "opt_state": opt_sd}
     torch.save(tree, _tree_path(tmp))
     with open(_meta_path(tmp), "w") as f:
         json.dump(meta, f, indent=2, default=str)
@@ -144,7 +146,7 @@ class CheckpointManager:
         self.save_path = save_path
         os.makedirs(save_path, exist_ok=True)
 
-    def save_epoch(self, params, opt_state: OptState, epoch: int, n_iter: int,
+    def save_epoch(self, params, opt_state, epoch: int, n_iter: int,
                    config_dict: Dict, val_meteor: float, best_meteor: float,
                    is_best: bool) -> None:
         meta = {

@@ -11,6 +11,15 @@ the latest/best checkpoints keyed on validation METEOR (best on >=). Resume
 adopts the saved config, restores the optimizer state, and restarts a
 mid-epoch checkpoint (``--ckpt_iter``, or a SIGTERM/SIGINT) at its batch.
 
+Multi-process training: under ``--mesh_dp`` x ``--mesh_mp`` the loop runs
+in each process of an initialised ``torch.distributed`` group of that many
+processes, one device each (``python -m vcr_tpu_torch.parallel.launch``
+starts them). Each dp index reads its shard of the samples, bsize rows a
+step; the vocab projection and the embedding are split over mp
+(``parallel.mesh``); every rank scores the global validation batch; rank 0
+writes the checkpoints, whole, so they equal a one-process run's; and a
+signal to one process stops all of them at the same step boundary.
+
 Seeds. Every random draw of a step (dropout masks, teacher-forcing coins,
 Gumbel noise) comes from a generator seeded with one int,
 ``fold_seed(cfg.seed, n_iter + 1)`` for the update ``n_iter + 1``; the eval
@@ -28,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vcr_tpu_torch.config import Config, adopt_checkpoint_config
 from vcr_tpu_torch.data.pipeline import BatchIterator, CaptionDataset, prefetch
@@ -35,6 +45,7 @@ from vcr_tpu_torch.decode import decode_tokens
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.evals import metrics as qmetrics
 from vcr_tpu_torch.models import base as model_base
+from vcr_tpu_torch.parallel import mesh as pmesh
 from vcr_tpu_torch.train import checkpoint as ckpt
 from vcr_tpu_torch.train import optim, schedule
 from vcr_tpu_torch.train.step import build_step_fns, device_batch
@@ -85,11 +96,17 @@ def load_vocab(cfg: Config) -> Vocab:
                  seed=cfg.seed)
 
 
-def make_datasets(cfg: Config, vocab: Vocab, with_train: bool = True
+def make_datasets(cfg: Config, vocab: Vocab, with_train: bool = True, mesh=None
                   ) -> Tuple[Optional[BatchIterator], BatchIterator]:
     """The splits of ``cfg``'s workload, with its features;
-    with_train=False reads only the val split (eval-only consumers)."""
+    with_train=False reads only the val split (eval-only consumers). Under a
+    mesh each dp index iterates its strided shard of the samples,
+    ``cfg.bsize`` rows a step (the global batch is bsize x dp; the mp ranks
+    of a dp index read the same rows), and the shards pad to one batch
+    count so the collectives stay in lockstep."""
     feats = feat_type(workload(cfg.mode)[0](cfg))
+    shards = (dict(num_shards=mesh.dp, shard_index=mesh.dp_index) if mesh is not None
+              else {})
     val_ds = CaptionDataset(cfg.data_dir, cfg.corpus, "val", vocab,
                             cfg.num_frames, cfg.max_len, feats)
     train_it = None
@@ -97,9 +114,9 @@ def make_datasets(cfg: Config, vocab: Vocab, with_train: bool = True
         train_ds = CaptionDataset(cfg.data_dir, cfg.corpus, "train", vocab,
                                   cfg.num_frames, cfg.max_len, feats)
         train_it = BatchIterator(train_ds, cfg.bsize, shuffle=True, seed=cfg.seed,
-                                 num_threads=cfg.nworkers)
+                                 num_threads=cfg.nworkers, **shards)
     val_it = BatchIterator(val_ds, cfg.bsize, shuffle=False, seed=cfg.seed,
-                           num_threads=cfg.nworkers)
+                           num_threads=cfg.nworkers, **shards)
     return train_it, val_it
 
 
@@ -129,8 +146,25 @@ def _build_beam_fn(spec, model_name: str, vocab: Vocab, beam_size: int):
     return beam_fn
 
 
+def _gather_global_rows(pred, batch, ds: CaptionDataset, vocab: Vocab, mesh):
+    """(hyps, refs, vid_keys) of every valid row of the global batch, the
+    same on every rank (collective over dp). The tokens travel with each
+    row's dataset index in one gather; the references are read from the
+    captions, which every rank loads."""
+    local = np.concatenate([pmesh.local_rows(pred).astype(np.int32),
+                            np.asarray(batch["sample_idx"], np.int32)[:, None]], axis=1)
+    packed = pmesh.gather_global_rows(local, mesh)
+    toks, idxs = packed[:, :-1], packed[:, -1]
+    valid = idxs >= 0
+    if not valid.any():
+        return [], [], []
+    hyps = vocab.get_sents_from_indexes(toks[valid])
+    fields = [ds.text_fields(int(i), 0) for i in idxs[valid]]
+    return hyps, [f["refs"] for f in fields], [f["vid_key"] for f in fields]
+
+
 def evaluate(eval_step, params, val_it, vocab, log_keys, n_sample_sent, seed=0,
-             device=None, beam_fn=None):
+             device=None, beam_fn=None, mesh=None, specs=None):
     """Validation pass -> (metrics, sampled (hyp, ref, vid) triples,
     seconds): the log keys averaged over batches, per-sample METEOR averaged
     over batches, corpus BLEU-4, CIDEr-D, ROUGE-L and the embedding metrics.
@@ -141,8 +175,16 @@ def evaluate(eval_step, params, val_it, vocab, log_keys, n_sample_sent, seed=0,
 
     The seconds split into ``eval_decode_s`` (the device's forwards and the
     copies of their results to the host) and ``eval_host_metrics_s`` (the
-    caption metrics on the host), both in the returned metrics."""
+    caption metrics on the host), both in the returned metrics.
+
+    Under a mesh (``specs``: the split of ``params``) every rank scores the
+    global batch: the hypotheses are gathered over dp, and the metrics of
+    ``eval_step`` are the global batch's. The beam search runs on the whole
+    parameters, gathered over mp once per pass."""
     device = resolve_device(device)
+    beam_params = params
+    if beam_fn is not None and mesh is not None and mesh.mp > 1:
+        beam_params = pmesh.unshard_params(params, mesh, specs)
     t0 = time.time()
     sums: Dict[str, float] = {k: 0.0 for k in log_keys}
     meteor_sum, num_batches = 0.0, 0
@@ -156,9 +198,15 @@ def evaluate(eval_step, params, val_it, vocab, log_keys, n_sample_sent, seed=0,
         batch_seed = fold_seed(seed, n_seen)
         m, pred = eval_step(params, batch["_device"], batch_seed)
         if beam_fn is not None:
-            tokens, _scores = beam_fn(params, batch["_device"]["vid_feats"], batch_seed)
+            tokens, _scores = beam_fn(beam_params, batch["_device"]["vid_feats"],
+                                      batch_seed)
             pred = tokens[:, 0]  # the best beam
-        n_valid = int(batch["valid"].sum())
+        if mesh is not None:
+            hyps, refs_b, keys_b = _gather_global_rows(pred, batch, val_it.ds, vocab,
+                                                       mesh)
+            n_valid = len(hyps)
+        else:
+            n_valid = int(batch["valid"].sum())
         if n_valid == 0:
             continue
         # one copy of the batch's scalars and one of its tokens
@@ -166,8 +214,9 @@ def evaluate(eval_step, params, val_it, vocab, log_keys, n_sample_sent, seed=0,
         pred = pred.cpu().numpy()
         decode_s += time.perf_counter() - t
         t = time.perf_counter()
-        hyps = vocab.get_sents_from_indexes(pred[:n_valid])
-        refs_b, keys_b = batch["refs"], batch["vid_key"]
+        if mesh is None:
+            hyps = vocab.get_sents_from_indexes(pred[:n_valid])
+            refs_b, keys_b = batch["refs"], batch["vid_key"]
         for hyp, refs, vk in zip(hyps, refs_b, keys_b):
             sampler.add((hyp, refs[rnd.integers(len(refs))], vk))
         meteor_sum += qmetrics.batch_meteor(hyps, refs_b)
@@ -228,12 +277,13 @@ def train(cfg: Config, device=None) -> Dict[str, float]:
         meta_early = ckpt.peek_meta(ckpt.latest_path(cfg.save_path))
         if meta_early is not None and meta_early.get("config"):
             cfg = Config.from_dict(meta_early["config"]).replace(resume=True)
+    mesh = _make_mesh(cfg, device)
 
     model_name_fn, log_keys, use_tf_schedule = workload(cfg.mode)
     model_name = model_name_fn(cfg)
     vocab = load_vocab(cfg)
     spec = model_base.spec_from_config(cfg, vocab)
-    train_it, val_it = make_datasets(cfg, vocab)
+    train_it, val_it = make_datasets(cfg, vocab, mesh=mesh)
     print(f"====> Input route: {train_it.route} ({train_it.num_threads} threads)")
     params = init_params(cfg, spec, vocab, device)
 
@@ -242,6 +292,16 @@ def train(cfg: Config, device=None) -> Dict[str, float]:
         base_params, _, _ = ckpt.load_checkpoint(cfg.pretrained_base, device)
         ckpt.restore_into(params["caption_net"], base_params)
         print(f"====> Loaded pretrained base from {cfg.pretrained_base}")
+
+    specs = None
+    if mesh is not None:
+        # every rank starts from rank 0's weights, then keeps its blocks
+        pmesh.replicate(params, mesh)
+        specs = pmesh.param_specs(params, spec.padded_vocab_size, mesh.mp)
+        params = pmesh.shard_params(params, mesh, specs)
+        print(f"====> Mesh: dp={mesh.dp} x mp={mesh.mp}, rank {mesh.rank} "
+              f"(dp {mesh.dp_index}, mp {mesh.mp_index}); global batch "
+              f"{cfg.bsize * mesh.dp}")
 
     optimizer = optim.build_optimizer(cfg.optim, cfg.lr, cfg.wd, cfg.max_norm,
                                       cfg.momentum)
@@ -253,7 +313,7 @@ def train(cfg: Config, device=None) -> Dict[str, float]:
                                            cfg.lambda_cont, remat=cfg.remat,
                                            grad_accum=cfg.grad_accum,
                                            static_tf=None if scheduled_tf else 1.0,
-                                           device=device)
+                                           device=device, mesh=mesh, specs=specs)
     beam_fn = _build_beam_fn(spec, model_name, vocab, cfg.beam_size)
     tf_probs = schedule.teacher_force_schedule(
         cfg.epochs, cfg.schedule_sample if use_tf_schedule else False)
@@ -263,7 +323,8 @@ def train(cfg: Config, device=None) -> Dict[str, float]:
     start_epoch = cfg.start_epoch
     skip_batches = 0  # mid-epoch resume: batches already done in start_epoch
     if cfg.resume:
-        resumed = manager.try_resume(params, opt_state)
+        resumed = (manager.try_resume(params, opt_state) if mesh is None
+                   else _resume_split(manager, params, opt_state, mesh, specs))
         if resumed is not None:
             print("====> Resuming training from previous checkpoint")
             params, opt_state, meta = resumed
@@ -308,25 +369,90 @@ def train(cfg: Config, device=None) -> Dict[str, float]:
         except ValueError:  # not the main thread: leave the handlers alone
             pass
 
+    def _writable(params, opt_state):
+        """(params, optimizer state) whole, as one process holds them, on
+        the rank that writes checkpoints; None on the others. Under a mesh
+        every rank calls it: the mp gathers are collective."""
+        if mesh is None:
+            return params, opt_state
+        whole = (pmesh.unshard_params(params, mesh, specs),
+                 _unshard_opt_state(opt_state, mesh, specs))
+        return whole if mesh.rank == 0 else None
+
     def _save_latest(epoch, batch_in_epoch, n_iter, params, opt_state, best):
-        ckpt.save_checkpoint(
-            ckpt.latest_path(cfg.save_path), params, opt_state,
-            {"epoch": epoch, "n_iter": n_iter, "config": cfg.to_dict(),
-             "best_val_meteor_score": best, "batch_in_epoch": batch_in_epoch})
+        whole = _writable(params, opt_state)
+        if whole is not None:
+            ckpt.save_checkpoint(
+                ckpt.latest_path(cfg.save_path), *whole,
+                {"epoch": epoch, "n_iter": n_iter, "config": cfg.to_dict(),
+                 "best_val_meteor_score": best, "batch_in_epoch": batch_in_epoch})
 
     try:
         return _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab,
                              log_keys, logger, params, opt_state, train_step,
                              eval_step, device, beam_fn, manager, best_val_meteor,
-                             skip_batches, preempted, _save_latest)
+                             skip_batches, preempted, _save_latest, _writable, mesh,
+                             specs)
     finally:
         _restore_handlers()
 
 
+def _make_mesh(cfg: Config, device) -> Optional[pmesh.Mesh]:
+    """The (mesh_dp, mesh_mp) layout of this process's group, or None for a
+    one-process run. A group of several processes without a mesh raises:
+    nothing would synchronise their gradients."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if cfg.mesh_dp * cfg.mesh_mp > 1:
+        return pmesh.make_mesh(cfg.mesh_dp, cfg.mesh_mp, device)
+    if world > 1:
+        raise RuntimeError(
+            f"a launch of {world} processes needs a mesh spanning them: set --mesh_dp "
+            f"(x --mesh_mp) to {world}, or each process would train a model of its own")
+    return None
+
+
+def _opt_split(opt_state, specs):
+    return [pmesh.spec_at(specs, path) for path in opt_state.paths]
+
+
+def _unshard_opt_state(opt_state, mesh, specs) -> dict:
+    """The optimizer's state_dict with the moments of mp-split leaves
+    gathered whole (collective over mp)."""
+    sd = opt_state.optimizer.state_dict()
+    for i, spec in enumerate(_opt_split(opt_state, specs)):
+        if spec is None or i not in sd["state"]:
+            continue
+        sd["state"][i] = {k: (pmesh.gather_leaf(v, spec, mesh)
+                              if isinstance(v, torch.Tensor) and v.dim() > 0 else v)
+                          for k, v in sd["state"][i].items()}
+    return sd
+
+
+def _resume_split(manager, params, opt_state, mesh, specs):
+    """``manager.try_resume`` for mp-split parameters: the whole checkpoint
+    is read on every rank and each keeps its blocks."""
+    path = ckpt.latest_path(manager.save_path)
+    if not ckpt.checkpoint_exists(path):
+        return None
+    saved, opt_saved, meta = ckpt.load_checkpoint(path, "cpu")
+    ckpt.restore_into(params, pmesh.shard_params(saved, mesh, specs))
+    for i, spec in enumerate(_opt_split(opt_state, specs)):
+        if spec is not None and i in opt_saved["state"]:
+            opt_saved["state"][i] = {
+                k: (pmesh.shard_leaf(v, spec, mesh)
+                    if isinstance(v, torch.Tensor) and v.dim() > 0 else v)
+                for k, v in opt_saved["state"][i].items()}
+    opt_state.optimizer.load_state_dict(opt_saved)
+    return params, opt_state, meta
+
+
 def _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab, log_keys,
                   logger, params, opt_state, train_step, eval_step, device, beam_fn,
-                  manager, best_val_meteor, skip_batches, preempted, save_latest):
-    """The epoch loop of train(), inside its signal handlers."""
+                  manager, best_val_meteor, skip_batches, preempted, save_latest,
+                  writable, mesh, specs):
+    """The epoch loop of train(), inside its signal handlers. Under a mesh
+    the ranks agree on a preemption at every step boundary (an all-reduce of
+    the flags), so a signal to one process stops all of them at one step."""
     final_metrics: Dict[str, float] = {}
     timer = StepTimer()
     with trace():  # a torch.profiler trace when VCR_TRACE_DIR is set
@@ -348,7 +474,7 @@ def _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab, log_keys,
                     params, opt_state, batch["_device"],
                     fold_seed(cfg.seed, logger.n_iter + 1), tf_prob)
                 batch_in_epoch += 1
-                if preempted["flag"]:
+                if pmesh.global_any(preempted["flag"], mesh):
                     logger.n_iter += 1  # this step counts
                     save_latest(epoch, batch_in_epoch, logger.n_iter, params, opt_state,
                                 best_val_meteor)
@@ -378,7 +504,7 @@ def _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab, log_keys,
             with annotate("evaluate"):
                 val_metrics, val_samples, time_taken = evaluate(
                     eval_step, params, val_it, vocab, log_keys, cfg.n_sample_sent,
-                    cfg.seed, device, beam_fn)
+                    cfg.seed, device, beam_fn, mesh, specs)
 
             print("\n" + "*" * 34 + " TRAIN " + "*" * 34)
             print_sample_sents(sampler.get())
@@ -397,15 +523,16 @@ def _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab, log_keys,
             if is_best:
                 best_val_meteor = val_metrics["METEOR"]
             with annotate("checkpoint"):
-                manager.save_epoch(params, opt_state, epoch, logger.n_iter,
-                                   cfg.to_dict(), val_metrics["METEOR"],
-                                   best_val_meteor, is_best)
+                whole = writable(params, opt_state)
+                if whole is not None:
+                    manager.save_epoch(*whole, epoch, logger.n_iter, cfg.to_dict(),
+                                       val_metrics["METEOR"], best_val_meteor, is_best)
             final_metrics = dict(val_metrics,
                                  **{f"perf/{k}": v for k, v in step_times.items()})
 
             # a signal during validation or checkpointing: the epoch's
             # checkpoint is already written, so exit here
-            if preempted["flag"]:
+            if pmesh.global_any(preempted["flag"], mesh):
                 print(f"====> Preemption signal: epoch {epoch} checkpoint "
                       "saved -- exiting; resume with --resume true")
                 return final_metrics

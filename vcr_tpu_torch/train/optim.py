@@ -23,9 +23,11 @@ no step, no decay and no share of the clip norm.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from vcr_tpu_torch.parallel.mesh import clip_sum_of_squares
 
 # Leaves that are buffers in the reference torch models, not parameters:
 # positional-encoding tables ("pe") and BatchNorm running statistics
@@ -104,17 +106,41 @@ class Optimizer:
         return OptState(opt, paths, leaves, self.max_norm)
 
     @staticmethod
-    def step(state: OptState, grads: Sequence[torch.Tensor]) -> None:
+    def step(state: OptState, grads: Sequence[torch.Tensor],
+             split: Optional[Sequence[bool]] = None, group=None) -> None:
         """One update of ``state.leaves`` in place, from ``grads`` in the
-        order of ``state.paths``: clip, decay, moments, step."""
+        order of ``state.paths``: clip, decay, moments, step.
+
+        ``split`` marks the leaves that are this rank's blocks of an mp split
+        over the process group ``group``: the clip's global norm then sums
+        their squares over mp and counts each replicated leaf once
+        (:func:`clip_split_`)."""
         if len(grads) != len(state.leaves):
             raise ValueError(f"{len(grads)} gradients for {len(state.leaves)} "
                              "trainable leaves")
         for leaf, g in zip(state.leaves, grads):
             leaf.grad = g
-        torch.nn.utils.clip_grad_norm_(state.leaves, state.max_norm)
+        if split is None:
+            torch.nn.utils.clip_grad_norm_(state.leaves, state.max_norm)
+        else:
+            clip_split_([leaf.grad for leaf in state.leaves], split, group,
+                        state.max_norm)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
+
+
+@torch.no_grad()
+def clip_split_(grads: Sequence[torch.Tensor], split: Sequence[bool], group,
+                max_norm: float) -> torch.Tensor:
+    """``clip_grad_norm_``'s scaling, min(max_norm / (norm + 1e-6), 1), of
+    gradients of which the ``split`` ones are mp blocks: the global norm sums
+    their squares over mp and each replicated gradient's once. Scales
+    ``grads`` in place and returns the norm."""
+    norm = clip_sum_of_squares(grads, split, group).sqrt()
+    coef = (max_norm / (norm + 1e-6)).clamp(max=1.0)
+    for g in grads:
+        g.mul_(coef.to(g.dtype))
+    return norm
 
 
 def build_optimizer(name: str, lr: float, wd: float, max_norm: float,

@@ -17,7 +17,9 @@ import torch.utils.checkpoint
 
 from vcr_tpu_torch.device import resolve_device
 from vcr_tpu_torch.models import base
+from vcr_tpu_torch.nn.layers import vocab_scope
 from vcr_tpu_torch.nn.rnn import gate_remat_default
+from vcr_tpu_torch.parallel import mesh as mesh_mod
 from vcr_tpu_torch.train import losses
 from vcr_tpu_torch.train.optim import OptState, Optimizer, trainable_leaves
 
@@ -25,16 +27,18 @@ BATCH_KEYS = ("vid_feats", "sent", "sent_len", "valid")
 
 
 def _forward(model_name: str, fwd: Callable, params, batch, rng, tf_prob,
-             lambda_brev: float, lambda_cont: float):
+             lambda_brev: float, lambda_cont: float, shard=None):
     """Run a bound forward ``fwd(params, vid_feats, sent, sent_len, rng,
     tf_prob)`` and compute (loss, metrics, pred, aux) for the family; aux
-    holds SpatialNet's new BatchNorm state under ``bn_state``."""
+    holds SpatialNet's new BatchNorm state under ``bn_state``. ``shard``:
+    the logits are this rank's columns of an mp split of the vocab."""
     valid = batch["valid"]
     out = fwd(params, batch["vid_feats"], batch["sent"], batch["sent_len"], rng, tf_prob)
     aux: Dict = {}
     if model_name == "rationale":
         logits, probs = out
-        ce = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid)
+        ce = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid,
+                                         shard)
         brev = losses.brevity_loss(probs, valid) * lambda_brev
         cont = losses.continuity_loss(probs, valid) * lambda_cont
         loss = ce + brev + cont
@@ -44,10 +48,14 @@ def _forward(model_name: str, fwd: Callable, params, batch, rng, tf_prob,
         logits = out
         if model_name == "spatial":
             logits, _seq_alphas, aux["bn_state"] = out
-        loss = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid)
+        loss = losses.masked_cross_entropy(logits, batch["sent"], batch["sent_len"], valid,
+                                           shard)
         metrics = {"loss": loss}
-    metrics["acc"] = losses.masked_accuracy(logits, batch["sent"], batch["sent_len"], valid)
-    return loss, metrics, logits.argmax(dim=-1).to(torch.int32), aux
+    metrics["acc"] = losses.masked_accuracy(logits, batch["sent"], batch["sent_len"], valid,
+                                            shard)
+    pred = (logits.argmax(dim=-1) if shard is None
+            else mesh_mod.sharded_argmax(logits.detach(), shard))
+    return loss, metrics, pred.to(torch.int32), aux
 
 
 @torch.no_grad()
@@ -77,24 +85,37 @@ class StepFns:
 
     def __init__(self, model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
                  lambda_brev: float, lambda_cont: float, remat: bool, grad_accum: int,
-                 static_tf, device: torch.device):
+                 static_tf, device: torch.device, mesh=None, specs=None):
         _, self._apply = base.build_model(model_name)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        if mesh is not None and mesh.dp > 1 and model_name == "spatial":
+            raise NotImplementedError(
+                "SpatialNet over a dp-split batch needs BatchNorm statistics synced over "
+                "dp, which are not ported yet: ROADMAP A15b (mesh_mp alone trains it)")
         self.model_name, self.spec, self.optimizer = model_name, spec, optimizer
         self.lambdas = (lambda_brev, lambda_cont)
         self.remat, self.grad_accum, self.static_tf = remat, grad_accum, static_tf
         self.device = device
+        self.mesh, self.specs = mesh, specs
+
+    def _shard(self, params):
+        """The mp split of the vocab of ``params`` (None without one)."""
+        if self.mesh is None or self.mesh.mp == 1:
+            return None
+        return mesh_mod.vocab_shard_for(params, self.specs, self.mesh,
+                                        self.spec.padded_vocab_size)
 
     def _fwd(self, train: bool) -> Callable:
         def fn(params, vid_feats, sent, sent_len, rng, tf_prob):
             if train and self.static_tf is not None:
                 tf_prob = self.static_tf
             # S2VT and S2VT-att train with gate remat by default, as in the
-            # JAX package; RationaleNet and SpatialNet keep it off. The scope is entered
-            # here, inside what remat=True checkpoints, so that its replay
-            # sees it too.
-            with gate_remat_default(train and self.model_name in ("s2vt", "s2vt-att")):
+            # JAX package; RationaleNet and SpatialNet keep it off. The scopes
+            # are entered here, inside what remat=True checkpoints, so that
+            # its replay sees them too.
+            with gate_remat_default(train and self.model_name in ("s2vt", "s2vt-att")), \
+                    vocab_scope(self._shard(params)):
                 return self._apply(params, self.spec, vid_feats, sent, sent_len, rng=rng,
                                    train=train, teacher_force_prob=tf_prob)
 
@@ -119,7 +140,7 @@ class StepFns:
         """The train forward under autograd: (loss, metrics, pred, aux)."""
         with torch.enable_grad():
             return _forward(self.model_name, self._fwd(True), params, batch, rng, tf_prob,
-                            *self.lambdas)
+                            *self.lambdas, shard=self._shard(params))
 
     def grads(self, params, leaves: List[torch.Tensor], batch, rng: int, tf_prob):
         """(gradients of the loss for ``leaves``, detached metrics, pred,
@@ -174,7 +195,15 @@ class StepFns:
                                                           tf_prob)
         else:
             grads, metrics, pred, aux = self.grads(params, leaves, batch, rng, tf_prob)
-        self.optimizer.step(opt_state, grads)
+        if self.mesh is None:
+            self.optimizer.step(opt_state, grads)
+        else:
+            grads = mesh_mod.weighted_mean(grads, batch["valid"].sum(), self.mesh)
+            metrics = self._sync_metrics(metrics, batch)
+            split = [mesh_mod.spec_at(self.specs, path) is not None
+                     for path in opt_state.paths]
+            self.optimizer.step(opt_state, grads, split if any(split) else None,
+                                self.mesh.mp_group)
         if "bn_state" in aux:
             _merge_bn(params, aux["bn_state"])
         return params, opt_state, metrics, pred
@@ -185,14 +214,31 @@ class StepFns:
         self._check(params, batch)
         with torch.no_grad():
             _, metrics, pred, _ = _forward(self.model_name, self._fwd(False), params,
-                                           batch, rng, 0.0, *self.lambdas)
+                                           batch, rng, 0.0, *self.lambdas,
+                                           shard=self._shard(params))
+            if self.mesh is not None:
+                metrics = self._sync_metrics(metrics, batch)
         return metrics, pred
+
+    def _sync_metrics(self, metrics, batch):
+        """The global batch's metrics from each dp index's: means over valid
+        rows, and the accuracy over valid tokens."""
+        valid = batch["valid"].float()
+        n = valid.sum()
+        tokens = (losses.sentence_mask(batch["sent"].shape[1], batch["sent_len"])
+                  * valid[:, None]).sum()
+        names = list(metrics)
+        by_rows = mesh_mod.weighted_mean([metrics[k] for k in names if k != "acc"], n,
+                                         self.mesh)
+        out = dict(zip([k for k in names if k != "acc"], by_rows))
+        out["acc"] = mesh_mod.weighted_mean([metrics["acc"]], tokens, self.mesh)[0]
+        return {k: out[k] for k in names}
 
 
 def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
                    lambda_brev: float = 1.0, lambda_cont: float = 1.0,
                    remat: bool = False, grad_accum: int = 1, static_tf=None,
-                   device=None) -> Tuple[Callable, Callable]:
+                   device=None, mesh=None, specs=None) -> Tuple[Callable, Callable]:
     """-> (train_step, eval_step) for "s2vt", "s2vt-att", "transformer",
     "rationale" or "spatial" on ``device`` (None: the card; raises without
     one).
@@ -223,9 +269,17 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
     static_tf: a Python number that replaces ``tf_prob`` at train; at 1.0
     the decoders take their hoisted form (one vocab product after the loop).
 
+    mesh / specs: this process's place in a (dp, mp) layout
+    (``parallel.mesh.make_mesh``) and the split of each parameter
+    (``param_specs``); ``params`` are then this rank's blocks
+    (``shard_params``) and ``batch`` this dp index's rows. The logits stay
+    split over mp, the gradients are averaged over dp weighted by valid
+    rows, the clip's norm counts the split leaves over mp, and the metrics
+    are the global batch's on every rank. SpatialNet with dp > 1 raises.
+
     Both steps are bound methods of one :class:`StepFns`."""
     fns = StepFns(model_name, spec, optimizer, lambda_brev, lambda_cont, remat,
-                  grad_accum, static_tf, resolve_device(device))
+                  grad_accum, static_tf, resolve_device(device), mesh, specs)
     return fns.train_step, fns.eval_step
 
 

@@ -184,7 +184,10 @@ exit code and no result line:
    3 (CUDA events) of the artifact and the live call at B=2048 and B=1, the
    load and first-call seconds. RationaleNet at B=1024 (its selection noise
    drawn by the loader: B2 twice and B1 twice a call), S2VT beam 5 at
-   B=256 and the Transformer's KV-cached greedy at B=512 (no launch):
+   B=256 and the Transformer's KV-cached greedy at B=512 (no launch; its
+   export traces every step of every layer, 170-180 s on the host, so a
+   child process started after the build exports it on the CPU beside
+   phases 3-12, at a lower priority):
    tokens equal to the live call's, times beside it. The frozen flagship
    pool (R=512, A=64) against the live pool over 1,024 requests, each
    twice in turns: tokens equal, B1 twice per admission chunk, captions/s;
@@ -224,6 +227,25 @@ exit code and no result line:
    one card joined over gloo, dp=2, training S2VT at full width (B=64 per
    rank, 2 steps, p=0), both ranks' losses equal and within the bf16 train
    bound of one process on the global batch, B1 twice per step and rank.
+16. multidevice_serving -- two processes on the one card over gloo, full
+   width, bf16. The flagship pool sharded dp=2 (R=512, 256 slots a rank,
+   A=64, S=4) fed a seeded burst of 512 requests through caption_all on
+   rank 0, rank 1 following: tokens against the one-process pool on the
+   same burst (at least 98% equal), B1 twice per admission chunk on each
+   rank on the tensor-core body, captions/s and the host's ms per
+   admission, tick and poll beside the one-process pool's. RationaleNet's
+   pool at dp=2 (R=256, A=32, a burst of 256): at least 98% equal to its
+   one-process pool, B2 and B1 twice per chunk on each rank. SpatialNet
+   over S2VT trained at dp=2 (B=16, 8 a rank, p=0, 3 steps): losses within
+   the bf16 train bound of one process on the global batch, B1 once per
+   step and rank. The daemon: python -m vcr_tpu_torch.parallel.launch
+   --nproc 2 -- --mode serve --mesh_dp 2 over a saved flagship checkpoint,
+   256 POST /caption from 32 threads, at least 98% equal to the batch
+   greedy, captions/s beside one process's daemon under the same load
+   (the launcher with --nproc 1), then SIGTERM and every rank exits 0.
+   The dp=2 flagship artifact (exported on the CPU) at B=2048 on
+   ["cuda:0", "cuda:0"]: at least 98% equal to the dp=1 artifact, B1
+   twice per dp slice, ms of both (CUDA events, best of 3).
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -233,6 +255,7 @@ imports only the port.
 from __future__ import annotations
 
 import concurrent.futures
+import atexit
 import contextlib
 import io
 import json
@@ -306,6 +329,7 @@ TF_TRAIN_BATCH = 128         # its train step (bench_train.py:31)
 TF_BEAM = 5
 TF_CHECK_BATCH = 4           # float32 card vs CPU at full width
 TF_LINEAGE_BATCH = 8         # the bf16 lineage checks (tpu_checks.py:185-239)
+TF_EXPORT_WAIT_S = 600       # phase 13's wait for the Transformer artifact's export
 CONT_SLOTS = 512             # the flagship daemon's slot pool (R)
 CONT_ADMIT = 64              # its admission chunk (A; bench_all.py:430-431)
 CONT_REQUESTS = 1024         # single POST /caption requests, from
@@ -347,6 +371,12 @@ TUNE_REQUESTS = 512          # a burst (rate 0) per geometry
 DIST_BATCH = 64              # two processes on the card: rows per rank,
 DIST_STEPS = 2               # steps,
 DIST_LOSS_TOL = 2e-3         # and the bf16 train bound (test_bf16_step_matches_jax)
+MESH_POOL = dict(slots=512, admit=64, step=4, requests=512)  # phase 16: the flagship
+MESH_RATIONALE_POOL = dict(slots=256, admit=32, step=4, requests=256)  # pool, dp=2
+MESH_SPATIAL = dict(batch=16, steps=3)  # SpatialNet over S2VT trained at dp=2
+MESH_DAEMON_REQUESTS = 256   # POST /caption to the dp=2 daemon, from
+MESH_DAEMON_THREADS = 32     # this many client threads
+MESH_ART_BATCH = 2048        # the dp=2 flagship artifact's batch
 FEAT_F32_TOL = 1e-4          # float32 features, card (TF32 off) against CPU,
                              # relative to the largest |feature|
 FEAT_BF16_GAP = {"vgg16": 0.03, "resnet": 0.03, "yolo": 0.03}  # bf16 features,
@@ -2097,9 +2127,46 @@ def first_difference(got, want) -> dict:
     return {"agreement": same.float().mean().item(), "first_difference": first}
 
 
-def artifact_phase(cuda_gru, cuda_lstm, smi):
+TF_EXPORT_WORKER = r"""
+import json, os, sys, time
+os.nice(10)
+import torch
+torch.set_num_threads(2)
+from vcr_tpu_torch import entry, export_serving
+
+spec, params = entry.make_spec_and_params(**entry.TRANSFORMER, device="cpu")
+t0 = time.perf_counter()
+export_serving.export_captioner(params, spec, sys.argv[1], device="cpu")
+print(json.dumps({"export_s": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def start_tf_export():
+    """Phase 13's Transformer artifact, exported on the CPU by a child process
+    that sees no card, from the weights phase 13 draws (entry's seed), beside
+    the phases before it -> (process, artifact directory, log path). The
+    child is killed, and its directory removed, at exit."""
+    root = tempfile.mkdtemp(prefix="vcr_tf_export_")
+    log = open(os.path.join(root, "export.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TF_EXPORT_WORKER, os.path.join(root, "transformer")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    atexit.register(stop)
+    return proc, os.path.join(root, "transformer"), log.name
+
+
+def artifact_phase(cuda_gru, cuda_lstm, smi, tf_export):
     """Phase 13: the deployable artifacts, exported on the CPU and run on the
-    card; returns what the kernels line reports of it."""
+    card; ``tf_export`` is :func:`start_tf_export`'s. Returns what the
+    kernels line reports of it."""
     from vcr_tpu_torch import entry, export_continuous, export_serving, serving
     from vcr_tpu_torch.client import CaptionClient
     from vcr_tpu_torch.device import params_to
@@ -2164,10 +2231,25 @@ def artifact_phase(cuda_gru, cuda_lstm, smi):
         for name, dims, batch, kw, launches_want in cases:
             cspec, cparams_cpu = entry.make_spec_and_params(**dims, device="cpu")
             cparams = params_to(cparams_cpu, "cuda")
-            cart = os.path.join(root, name)
             t0 = time.perf_counter()
-            export_serving.export_captioner(cparams_cpu, cspec, cart, device="cpu", **kw)
-            export_s = time.perf_counter() - t0
+            if name == "transformer":
+                # exported by the child since the build: wait for it
+                proc, cart, log = tf_export
+                try:
+                    rc = proc.wait(timeout=TF_EXPORT_WAIT_S)
+                except subprocess.TimeoutExpired:
+                    rc = None
+                with open(log) as f:
+                    lines = f.read().splitlines()
+                check(rc == 0, f"the Transformer artifact's export (rc {rc}):\n"
+                               + "\n".join(lines[-30:]))
+                export_s = json.loads(lines[-1])["export_s"]
+            else:
+                cart = os.path.join(root, name)
+                export_serving.export_captioner(cparams_cpu, cspec, cart, device="cpu",
+                                                **kw)
+                export_s = time.perf_counter() - t0
+            waited_s = time.perf_counter() - t0
             del cparams_cpu
             t0 = time.perf_counter()
             loaded = export_serving.load_artifact(cart, device="cuda")
@@ -2188,7 +2270,8 @@ def artifact_phase(cuda_gru, cuda_lstm, smi):
                   and counts["gru_seq_bt"] == counts["gru_seq_dma"] == 0,
                   f"the {name} artifact launched {counts} in a call")
             out[name] = counts
-            emit(f"artifact_{name}", batch=batch, export_s=export_s, load_s=load_s,
+            emit(f"artifact_{name}", batch=batch, export_s=export_s, waited_s=waited_s,
+                 load_s=load_s,
                  files_bytes=dir_bytes(cart), draws=loaded.meta["draws"],
                  launches_per_call=counts,
                  artifact_ms_best_median=median_best_ms(lambda: loaded(x)),
@@ -2612,6 +2695,405 @@ def harnesses_phase(cuda_gru, cuda_lstm, smi, flagship):
     return {"mfu": timed, "tune": rows, "distributed": dist_row}
 
 
+MESH_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, out_path, conf = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="tcp://localhost:" + port, world_size=2,
+                        rank=rank)
+from vcr_tpu_torch import entry
+from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+from vcr_tpu_torch.parallel import mesh as pmesh
+from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+from vcr_tpu_torch.train import optim, step
+
+mesh = pmesh.make_mesh(2, 1, "cuda")
+res = {}
+
+
+def counts():
+    return {"gru_seq": cuda_gru.launches, "gru_seq_tc": cuda_gru.launches_tc,
+            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc}
+
+
+def reset():
+    cuda_gru.launches = cuda_gru.launches_tc = cuda_gru.launches_bt = 0
+    cuda_gru.launches_dma = cuda_gru.launches_dma_tc = 0
+    cuda_lstm.launches = cuda_lstm.launches_tc = 0
+
+
+def timed(cc, name, log):
+    fn = getattr(cc, name)
+
+    def run(*args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log.append(time.perf_counter() - t)
+        return out
+    setattr(cc, name, run)
+
+
+def serve(name, model, pool):
+    spec, params = entry.make_spec_and_params(**getattr(entry, model), device="cuda")
+    cc = ContinuousCaptioner(params, spec, slots=pool["slots"], admit_chunk=pool["admit"],
+                             step_chunk=pool["step"], mesh=mesh)
+    feats = np.random.default_rng(pool["seed"]).standard_normal(
+        (pool["requests"], spec.num_frames, spec.vid_feat_size), dtype=np.float32)
+    row = {}
+    for run in ("warm", "burst"):
+        n = pool["admit"] if run == "warm" else pool["requests"]
+        torch.cuda.synchronize()
+        reset()
+        if rank == 0:
+            logs = {"encode_admit": [], "tick": [], "poll_active": []}
+            if run == "burst":
+                for op, log in logs.items():
+                    timed(cc, op, log)
+            chunks = cc.stats["admit_chunks"]
+            t0 = time.perf_counter()
+            got = cc.caption_all({i: feats[i] for i in range(n)})
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            cc.stop()
+            row = {"seconds": seconds, "captions_per_s": n / seconds,
+                   "admit_chunks": cc.stats["admit_chunks"] - chunks,
+                   "host_ms": {op: 1e3 * sum(log) / max(len(log), 1)
+                               for op, log in logs.items()},
+                   "calls": {op: len(log) for op, log in logs.items()},
+                   "tokens": [got[i].tolist() for i in range(n)]}
+        else:
+            cc.follow()
+            torch.cuda.synchronize()
+        row["launches"] = counts()
+    res[name] = row
+    del cc, params
+
+
+if conf.get("flagship"):
+    serve("flagship", "FLAGSHIP", conf["flagship"])
+if conf.get("rationale"):
+    serve("rationale", "RATIONALE", conf["rationale"])
+if conf.get("spatial"):
+    sp = conf["spatial"]
+    spec, params = entry.make_spec_and_params(**entry.SPATIAL, device="cuda")
+    spec = spec.with_(dropout_p=0.0)
+    specs = pmesh.param_specs(params, spec.padded_vocab_size, 1)
+    opt = optim.build_optimizer("adam", 1e-3, 0.0, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns("spatial", spec, opt, static_tf=1.0, device="cuda",
+                                   mesh=mesh, specs=specs)
+    losses, launches, ms = [], [], []
+    for i in range(sp["steps"]):
+        g = torch.Generator(device="cuda").manual_seed(sp["seed"] + i)
+        b = sp["batch"]
+        batch = {"vid_feats": torch.randn((b, spec.num_frames, spec.vid_feat_size,
+                                           spec.grid_size, spec.grid_size), generator=g,
+                                          device="cuda"),
+                 "sent": torch.randint(0, spec.vocab_size, (b, spec.max_len), generator=g,
+                                       device="cuda", dtype=torch.int32),
+                 "sent_len": torch.full((b,), 12, dtype=torch.int32, device="cuda"),
+                 "valid": torch.ones((b,), device="cuda")}
+        local = pmesh.shard_batch(batch, mesh)
+        torch.cuda.synchronize()
+        reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m, _ = train(params, state, local, i, 1.0)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(m["loss"].item())
+        launches.append(counts())
+        ms.append(start.elapsed_time(end))
+    res["spatial"] = {"losses": losses, "launches": launches, "step_ms": ms}
+with open(out_path, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def run_mesh_workers(conf, timeout=600):
+    """MESH_WORKER in two processes on the one card over gloo -> each rank's
+    results."""
+    from vcr_tpu_torch.parallel.launch import free_port
+
+    out_dir = tempfile.mkdtemp(prefix="vcr_mesh_")
+    try:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MESH_WORKER, str(r), port,
+             os.path.join(out_dir, f"rank{r}.json"), json.dumps(conf)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"mesh rank {r} failed:\n{out[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        return ranks
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def one_process_pool(model, pool):
+    """The one-process pool of MESH_WORKER's run: a warm-up of one chunk,
+    then the burst, the same host timers -> its row."""
+    from vcr_tpu_torch import entry
+    from vcr_tpu_torch.serving_continuous import ContinuousCaptioner
+
+    spec, params = entry.make_spec_and_params(**getattr(entry, model), device="cuda")
+    cc = ContinuousCaptioner(params, spec, slots=pool["slots"], admit_chunk=pool["admit"],
+                             step_chunk=pool["step"])
+    feats = np.random.default_rng(pool["seed"]).standard_normal(
+        (pool["requests"], spec.num_frames, spec.vid_feat_size), dtype=np.float32)
+    cc.caption_all({i: feats[i] for i in range(pool["admit"])})
+    logs = {"encode_admit": [], "tick": [], "poll_active": []}
+    for op, log in logs.items():
+        fn = getattr(cc, op)
+
+        def run(*args, fn=fn, log=log):
+            t = time.perf_counter()
+            out = fn(*args)
+            log.append(time.perf_counter() - t)
+            return out
+        setattr(cc, op, run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = cc.caption_all({i: feats[i] for i in range(pool["requests"])})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"seconds": seconds, "captions_per_s": pool["requests"] / seconds,
+            "host_ms": {op: 1e3 * sum(log) / max(len(log), 1) for op, log in logs.items()},
+            "calls": {op: len(log) for op, log in logs.items()},
+            "tokens": [got[i].tolist() for i in range(pool["requests"])]}
+
+
+def mesh_daemon(smi):
+    """--mode serve through the launcher over a saved flagship checkpoint,
+    with --nproc 1 and with --nproc 2 --mesh_dp 2: MESH_DAEMON_REQUESTS
+    POSTs each against the batch greedy, then SIGTERM."""
+    from vcr_tpu_torch import serving
+    from vcr_tpu_torch.client import CaptionClient
+    from vcr_tpu_torch.config import Config
+    from vcr_tpu_torch.models import base
+    from vcr_tpu_torch.train import checkpoint, loop
+
+    root = tempfile.mkdtemp(prefix="vcr_mesh_daemon_")
+    proc = None
+    try:
+        data = write_corpus(os.path.join(root, "data"), CLI_WORDS, 300, 1, 1, 30, 4096,
+                            seed=9)
+        save = os.path.join(root, "s2vt")
+        cfg = Config(mode="train", data_dir=data[1], corpus="msvd_vgg",
+                     glove_emb_file="glove.txt", num_frames=30, vid_feat_size=4096,
+                     max_len=20, hidden_size=512, compute_dtype="bfloat16",
+                     vocab_pad_to=128, save_path=save, log_dir="")
+        vocab = loop.load_vocab(cfg)
+        spec = base.spec_from_config(cfg, vocab)
+        params = loop.init_params(cfg, spec, vocab, "cuda")
+        checkpoint.save_checkpoint(checkpoint.best_path(save), params, {},
+                                   {"config": cfg.to_dict(), "n_iter": 0, "epoch": 0})
+        feats = np.random.default_rng(21).standard_normal(
+            (MESH_DAEMON_REQUESTS, spec.num_frames, spec.vid_feat_size), dtype=np.float32)
+        with torch.inference_mode():
+            want = serving.build_captioner(params, spec, vocab=vocab)(feats).cpu().numpy()
+        eos = vocab.eos_id
+        rows = {}
+        for nproc in (1, 2):
+            mesh = ["--mesh_dp", "2"] if nproc == 2 else []
+            proc = subprocess.Popen(
+                [sys.executable, "-u", "-m", "vcr_tpu_torch.parallel.launch", "--nproc",
+                 str(nproc), "--", "--mode", "serve", *mesh, "--serve_port", "0",
+                 "--serve_slots", str(MESH_POOL["slots"]),
+                 "--serve_admit_chunk", str(MESH_POOL["admit"]), *data, "--save_path", save],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            lines = []
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("serving"):
+                    break
+            check(lines and lines[-1].startswith("serving")
+                  and (nproc == 1 or "dp=2" in lines[-1]),
+                  f"the daemon of {nproc} processes did not start:\n"
+                  + "".join(lines)[-3000:])
+            url = lines[-1].split(" on ")[1].split()[0]
+            client = CaptionClient(url, timeout_s=600, retries=0)
+            client.caption(feats[0])                                    # first use
+
+            def one(i, client=client):
+                return client.caption(feats[i])[0]
+
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(MESH_DAEMON_THREADS) as ex:
+                got = list(ex.map(one, range(MESH_DAEMON_REQUESTS)))
+            seconds = time.perf_counter() - t0
+            health = client.health()
+            proc.send_signal(signal.SIGTERM)
+            out = proc.stdout.read()
+            rc = proc.wait(timeout=120)
+            check(rc == 0, f"the daemon of {nproc} processes exited {rc}:\n"
+                  + ("".join(lines) + out)[-3000:])
+            check(nproc == 1 or "following rank 0" in "".join(lines) + out,
+                  "rank 1 did not follow rank 0")
+            agreement = token_agreement(got, [cut_at_eos(r, eos) for r in want])
+            check(agreement >= CONT_TOKEN_AGREEMENT,
+                  f"the daemon of {nproc} processes against batch greedy: {agreement} "
+                  "of the tokens equal")
+            rows[f"processes_{nproc}"] = {
+                "seconds": seconds, "captions_per_s": MESH_DAEMON_REQUESTS / seconds,
+                "daemon_latency_p50_ms": health.get("latency_p50_ms"),
+                "daemon_latency_p95_ms": health.get("latency_p95_ms"),
+                "token_agreement_vs_batch_greedy": agreement, "exit_code": rc}
+        return {"requests": MESH_DAEMON_REQUESTS, "client_threads": MESH_DAEMON_THREADS,
+                "slots": MESH_POOL["slots"], "admit_chunk": MESH_POOL["admit"], **rows}
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_artifact(cuda_gru, cuda_lstm, smi):
+    """The flagship artifact exported with dp=2 (on the CPU) and loaded on
+    ["cuda:0", "cuda:0"], against the dp=1 artifact at MESH_ART_BATCH."""
+    from vcr_tpu_torch import entry, export_serving
+
+    root = tempfile.mkdtemp(prefix="vcr_mesh_art_")
+    try:
+        spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cpu")
+        two = os.path.join(root, "dp2")
+        t0 = time.perf_counter()
+        export_serving.export_captioner(params, spec, two, dp=2, device="cpu")
+        export_s = time.perf_counter() - t0
+        # the dp=1 artifact: the same program, its meta saying dp=1
+        one = os.path.join(root, "dp1")
+        shutil.copytree(two, one)
+        meta_path = os.path.join(one, export_serving.META_FILE)
+        with open(meta_path) as f:
+            meta = json.load(f)
+        with open(meta_path, "w") as f:
+            json.dump(dict(meta, dp=1, nr_devices=1), f)
+        art2 = export_serving.load_artifact(two, devices=["cuda:0", "cuda:0"])
+        art1 = export_serving.load_artifact(one, device="cuda")
+        check(art2.meta["dp"] == 2 and len(art2.devices) == 2, "the dp=2 artifact's meta")
+        feats = torch.as_tensor(np.random.default_rng(23).standard_normal(
+            (MESH_ART_BATCH, spec.num_frames, spec.vid_feat_size), dtype=np.float32),
+            device="cuda")
+        got, want = art2(feats).cpu().numpy(), art1(feats).cpu().numpy()
+        check(got.shape == want.shape == (MESH_ART_BATCH, spec.max_len), "artifact shapes")
+        agreement = float((got == want).mean())
+        check(agreement >= CONT_TOKEN_AGREEMENT,
+              f"the dp=2 artifact against dp=1: {agreement} of the tokens equal")
+        _, launches = counted(cuda_gru, cuda_lstm, lambda: art2(feats))
+        check(launches == expected_counts(b1=4),
+              f"the dp=2 artifact launched {launches} in a call, want B1 twice per slice")
+        ms2, med2 = median_best_ms(lambda: art2(feats))
+        ms1, med1 = median_best_ms(lambda: art1(feats))
+        return {"batch": MESH_ART_BATCH, "devices": ["cuda:0", "cuda:0"],
+                "export_s": export_s, "token_agreement_vs_dp1": agreement,
+                "launches_per_call": launches,
+                "dp2_ms": ms2, "dp2_median_ms": med2, "dp1_ms": ms1, "dp1_median_ms": med1}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def multidevice_serving_phase(cuda_gru, cuda_lstm, smi):
+    """Phase 16: the sharded pools, SpatialNet's dp training, the dp daemon
+    and the dp artifact, two processes on the one card; returns what the
+    kernels line reports of it."""
+    from vcr_tpu_torch import entry
+    from vcr_tpu_torch.train import optim, step
+
+    t_phase = time.perf_counter()
+    pools = {"flagship": dict(MESH_POOL, seed=31), "rationale": dict(MESH_RATIONALE_POOL,
+                                                                     seed=32)}
+    ranks = run_mesh_workers({**pools, "spatial": dict(MESH_SPATIAL, seed=33)})
+    out = {}
+    for name, model in (("flagship", "FLAGSHIP"), ("rationale", "RATIONALE")):
+        pool = pools[name]
+        one = one_process_pool(model, pool)
+        lead = ranks[0][name]
+        agreement = token_agreement(lead["tokens"], one["tokens"])
+        check(agreement >= CONT_TOKEN_AGREEMENT,
+              f"the dp=2 {name} pool against one process: {agreement} of the tokens equal")
+        chunks = lead["admit_chunks"]
+        b2 = 2 * chunks if name == "rationale" else 0
+        per_rank = [r[name]["launches"] for r in ranks]
+        check(all(c == {"gru_seq": 2 * chunks, "gru_seq_tc": 2 * chunks, "lstm_seq": b2,
+                        "lstm_seq_tc": b2} for c in per_rank),
+              f"the dp=2 {name} pool launched {per_rank} per rank in {chunks} chunks, "
+              f"want B1 {2 * chunks} and B2 {b2} on the tensor-core bodies")
+        out[name] = {"launches_per_rank": per_rank, "admit_chunks": chunks}
+        emit(f"multidevice_serving_{name}_pool", dp=2, **{k: pool[k] for k in pool},
+             seconds=lead["seconds"], captions_per_s=lead["captions_per_s"],
+             host_ms=lead["host_ms"], calls=lead["calls"], admit_chunks=chunks,
+             launches_per_rank=per_rank, one_process={k: one[k] for k in (
+                 "seconds", "captions_per_s", "host_ms", "calls")},
+             token_agreement_vs_one_process=agreement,
+             token_agreement_bound=CONT_TOKEN_AGREEMENT, nvidia_smi=smi)
+
+    # SpatialNet: one process on the same global batches
+    sp = MESH_SPATIAL
+    spec, params = entry.make_spec_and_params(**entry.SPATIAL, device="cuda")
+    spec = spec.with_(dropout_p=0.0)
+    opt = optim.build_optimizer("adam", 1e-3, 0.0, 1.0)
+    state = opt.init(params)
+    train, _ = step.build_step_fns("spatial", spec, opt, static_tf=1.0, device="cuda")
+    want = []
+    for i in range(sp["steps"]):
+        g = torch.Generator(device="cuda").manual_seed(33 + i)
+        b = sp["batch"]
+        batch = {"vid_feats": torch.randn((b, spec.num_frames, spec.vid_feat_size,
+                                           spec.grid_size, spec.grid_size), generator=g,
+                                          device="cuda"),
+                 "sent": torch.randint(0, spec.vocab_size, (b, spec.max_len), generator=g,
+                                       device="cuda", dtype=torch.int32),
+                 "sent_len": torch.full((b,), 12, dtype=torch.int32, device="cuda"),
+                 "valid": torch.ones((b,), device="cuda")}
+        params, state, m, _ = train(params, state, batch, i, 1.0)
+        want.append(m["loss"].item())
+    del params, state
+    got = [r["spatial"] for r in ranks]
+    gaps = [abs(a - w) for a, w in zip(got[0]["losses"], want)]
+    check(got[0]["losses"] == got[1]["losses"],
+          f"the ranks' SpatialNet losses differ: {got[0]['losses']} {got[1]['losses']}")
+    check(max(gaps) <= DIST_LOSS_TOL,
+          f"SpatialNet dp=2 against one process: {got[0]['losses']} vs {want}")
+    per_step = [c for r in got for c in r["launches"]]
+    check(all(c["gru_seq"] == c["gru_seq_tc"] == 1 and c["lstm_seq"] == 0
+              for c in per_step),
+          f"SpatialNet dp=2 launches per step and rank {per_step}, want B1 once")
+    out["spatial"] = {"launches_per_step_per_rank": 1}
+    emit("multidevice_serving_spatial_train", dp=2, batch=sp["batch"],
+         batch_per_rank=sp["batch"] // 2, steps=sp["steps"], losses=got[0]["losses"],
+         one_process_losses=want, max_loss_gap=max(gaps), tolerance=DIST_LOSS_TOL,
+         launches_per_step_per_rank=1, step_ms_by_rank=[r["step_ms"] for r in got],
+         nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    daemon = mesh_daemon(smi)
+    emit("multidevice_serving_daemon", **daemon, phase_seconds=time.perf_counter() - t0,
+         nvidia_smi=smi)
+    artifact = mesh_artifact(cuda_gru, cuda_lstm, smi)
+    emit("multidevice_serving_artifact", **artifact, nvidia_smi=smi)
+    out["artifact"] = artifact["launches_per_call"]
+    emit("multidevice_serving", phase_seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2645,6 +3127,8 @@ def main() -> int:
             built.result()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          kernels=["gru_seq", "gru_seq_dma", "lstm_seq"], host_libraries=["npy_loader"])
+    # phase 13's Transformer artifact, exported on the host from here on
+    tf_export = start_tf_export()
 
     # 3. kernels against their plain versions on the card
     spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
@@ -3179,13 +3663,17 @@ def main() -> int:
     quant = quantized_phase(cuda_gru, cuda_lstm, smi)
 
     # 13. the deployable artifacts
-    art = artifact_phase(cuda_gru, cuda_lstm, smi)
+    art = artifact_phase(cuda_gru, cuda_lstm, smi, tf_export)
 
     # 14. raw frames -> captions through the fused featurizers
     feat = featurizers_phase(cuda_gru, cuda_lstm, smi)
 
     # 15. the harnesses: MFU, the checks, the pool tuner, two processes
     harness = harnesses_phase(cuda_gru, cuda_lstm, smi, flagship)
+
+    # 16. multi-device serving: the sharded pools, SpatialNet's dp training,
+    # the dp daemon and the dp artifact, two processes on the one card
+    mesh = multidevice_serving_phase(cuda_gru, cuda_lstm, smi)
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -3225,6 +3713,11 @@ def main() -> int:
             for r in harness["tune"]},
         "launches_per_distributed_step_per_rank":
             harness["distributed"]["launches_per_step_per_rank"],
+        "launches_per_rank_mesh_pool": mesh["flagship"],
+        "launches_per_rank_mesh_rationale_pool": mesh["rationale"],
+        "launches_per_spatial_dp2_step_per_rank":
+            mesh["spatial"]["launches_per_step_per_rank"],
+        "launches_per_dp2_artifact_call": mesh["artifact"]["gru_seq"],
         "flagship_mfu": harness["mfu"]["mfu"],
         "at_admission_batch": cont["kernel_timing"]["gru_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
@@ -3282,6 +3775,7 @@ def main() -> int:
         "continuous_rationale_admit_chunks": cont["rationale_admit_chunks"],
         "launches_w8_rationale_pool": quant["rationale_w8"]["lstm_seq"],
         "w8_rationale_pool_admit_chunks": quant["rationale_w8_admit_chunks"],
+        "launches_per_rank_mesh_rationale_pool": mesh["rationale"],
         "launches_per_artifact_call": {name: art[name]["lstm_seq"] for name in (
             "flagship", "rationale", "s2vt_beam5", "transformer")},
         "at_admission_batch": cont["kernel_timing"]["lstm_seq"],

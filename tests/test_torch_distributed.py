@@ -319,3 +319,104 @@ def test_layout_without_a_group():
     assert pmesh.param_spec(("linear", "w"), torch.zeros(3, 10), 10, 4) is None
     with pytest.warns(UserWarning, match="not divisible"):
         pmesh.param_specs({"linear": {"w": torch.zeros(3, 10)}}, 10, 4)
+
+
+SPATIAL_WORKER = PRELUDE + """
+import numpy as np
+from vcr_tpu_torch.parallel import mesh as pm
+from vcr_tpu_torch.train import optim, step
+spec, params, batches = torch.load(os.path.join(out, "spatial_in.pt"), weights_only=False)
+mesh = pm.make_mesh(2, 1, "cpu")
+opt = optim.build_optimizer("adam", 1e-3, 1e-4, 0.1)
+state = opt.init(params)
+train, _ = step.build_step_fns("spatial", spec, opt, static_tf=1.0, device="cpu",
+                               mesh=mesh, specs=pm.param_specs(params, spec.padded_vocab_size, 1))
+losses = []
+for i, batch in enumerate(batches):
+    local = step.device_batch(pm.shard_batch(batch, mesh), "cpu")
+    params, state, m, _ = train(params, state, local, i, 1.0)
+    losses.append(float(m["loss"]))
+bn = {{b: {{k: params[b][k].tolist() for k in ("mean", "var")}} for b in ("bn1", "bn2")}}
+with open(os.path.join(out, "spatial%d.json" % rank), "w") as f:
+    json.dump({{"losses": losses, "bn": bn}}, f)
+torch.save(params, os.path.join(out, "spatial_params%d.pt" % rank))
+dist.destroy_process_group()
+"""
+
+
+def test_spatial_dp2_trains_as_one_process(tmp_path):
+    """SpatialNet over S2VT at dp=2, float32, p=0: BatchNorm's statistics are
+    the global batch's (sums over dp, differentiable), and each rank's
+    backward is seeded with its share of the global valid rows. Four steps,
+    the third with rank 1's rows all padding (its own share is 0, yet the
+    gradient through its rows' statistics counts): the loss of each step
+    within 1e-5 of one process on the global batch and of the JAX package's
+    one-device step, the running statistics within 1e-5, and every
+    parameter within 1e-5 of one process's."""
+    import jax
+    import jax.numpy as jnp
+
+    import __graft_entry__ as graft
+    from vcr_tpu.train import optim as joptim
+    from vcr_tpu.train import step as jstep
+    from vcr_tpu_torch import bridge, entry
+    from vcr_tpu_torch.train import optim as toptim
+    from vcr_tpu_torch.train import step as tstep
+
+    tmp = str(tmp_path)
+    dims = dict(vocab_size=21, embed_size=16, hidden=16, vid_feat=8, max_len=5,
+                num_frames=4)
+    common = dict(arch="spatial", base_arch="s2vt", grid_size=3, compute_dtype="float32",
+                  vocab_pad_to=8)
+    jspec, jparams = graft._make_spec_and_params(**dims, **common)
+    tspec, _ = entry.make_spec_and_params(**dims, device="cpu", **common)
+    jspec, tspec = jspec.with_(dropout_p=0.0), tspec.with_(dropout_p=0.0)
+    jparams = jax.tree_util.tree_map(np.asarray, jparams)
+    r = np.random.default_rng(4)
+    batches = []
+    for i in range(4):
+        b = 4
+        batches.append({
+            "vid_feats": r.standard_normal((b, 4, 8, 3, 3)).astype(np.float32),
+            "sent": r.integers(0, 21, (b, 5)).astype(np.int32),
+            "sent_len": r.integers(1, 6, (b,)).astype(np.int32),
+            "valid": np.ones((b,), np.float32)})
+    batches[1]["valid"][1] = 0.0
+    batches[2]["valid"][2:] = 0.0
+    torch.save((tspec, bridge.from_jax_params(jparams, "cpu"), batches),
+               os.path.join(tmp, "spatial_in.pt"))
+    _run_pair(tmp, SPATIAL_WORKER, timeout=180)
+    ranks = []
+    for rk in range(2):
+        with open(os.path.join(tmp, f"spatial{rk}.json")) as f:
+            ranks.append(json.load(f))
+    assert ranks[0] == ranks[1]
+
+    topt = toptim.build_optimizer("adam", 1e-3, 1e-4, 0.1)
+    tparams = bridge.from_jax_params(jparams, "cpu")
+    tstate = topt.init(tparams)
+    ttrain, _ = tstep.build_step_fns("spatial", tspec, topt, static_tf=1.0, device="cpu")
+    jopt = joptim.build_optimizer("adam", 1e-3, 1e-4, 0.1)
+    jtrain, _ = jstep.build_step_fns("spatial", jspec, jopt, static_tf=1.0)
+    jp = jax.tree_util.tree_map(jnp.asarray, jparams)
+    jstate = jopt.init(jp)
+    one, jax_losses = [], []
+    for i, batch in enumerate(batches):
+        tparams, tstate, m, _ = ttrain(tparams, tstate, tstep.device_batch(batch, "cpu"),
+                                       i, 1.0)
+        one.append(float(m["loss"]))
+        jp, jstate, jm, _ = jtrain(jp, jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                                   jax.random.PRNGKey(i), 1.0)
+        jax_losses.append(float(jm["loss"]))
+    np.testing.assert_allclose(ranks[0]["losses"], one, rtol=0, atol=LOSS_TOL)
+    np.testing.assert_allclose(ranks[0]["losses"], jax_losses, rtol=0, atol=LOSS_TOL)
+    for bn in ("bn1", "bn2"):
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(ranks[0]["bn"][bn][k], tparams[bn][k].numpy(),
+                                       rtol=0, atol=1e-5, err_msg=f"{bn}.{k}")
+            np.testing.assert_allclose(ranks[0]["bn"][bn][k], np.asarray(jp[bn][k]),
+                                       rtol=0, atol=1e-5, err_msg=f"{bn}.{k} (JAX)")
+    got = dict(_leaves(torch.load(os.path.join(tmp, "spatial_params0.pt"))))
+    for path, want in _leaves(tparams):
+        gap = (got[path] - want).abs().max().item() / max(1.0, want.abs().max().item())
+        assert gap <= PARAM_TOL, (path, gap)

@@ -209,8 +209,11 @@ def test_refusals(s2vt_art, tmp_path):
     with pytest.raises(ValueError, match="featurizer='none'"):
         texport.export_captioner(tparams, tspec, str(tmp_path / "a"), feat_params={},
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        texport.export_captioner(tparams, tspec, str(tmp_path / "a"), dp=2, device="cpu")
+    # the dp artifact is ported (tests/test_torch_mesh_cli.py): a fixed batch
+    # that dp does not divide raises
+    with pytest.raises(ValueError, match="not divisible by dp"):
+        texport.export_captioner(tparams, tspec, str(tmp_path / "a"), dp=2, batch_size=3,
+                                 device="cpu")
     # a JAX artifact, and a meta without this package's runtime
     jspec = graft._make_spec_and_params(**DIMS, arch="s2vt", compute_dtype="float32",
                                         vocab_pad_to=8)[0]

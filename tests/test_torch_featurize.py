@@ -204,8 +204,8 @@ def test_featurized_artifact_leaves_match_jax(backbones, tmp_path):
 def test_featurizer_refusals(backbones):
     """A backbone without its weights, weights without a backbone, a
     Darknet's weights without the Darknet, an unknown featurizer: each
-    raises before anything runs, in serving and in the export; dp > 1
-    still names A15."""
+    raises before anything runs, in serving and in the export; so does a
+    dp artifact whose fixed batch dp does not divide."""
     _, tfp = backbones["vgg16"]
     _, _, tspec, tparams = _models("vgg16", "float32")
     with pytest.raises(ValueError, match="needs feat_params"):
@@ -218,7 +218,7 @@ def test_featurizer_refusals(backbones):
         tserving.build_captioner(tparams, tspec, "alexnet", tfp, device="cpu")
     with pytest.raises(ValueError, match="needs feat_params"):
         texport.export_captioner(tparams, tspec, "/nonexistent", "resnet", device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="not divisible by dp"):
         texport.export_captioner(tparams, tspec, "/nonexistent", "vgg16", tfp, dp=2,
-                                 device="cpu")
+                                 batch_size=3, device="cpu")
     assert not os.path.exists("/nonexistent")

@@ -108,6 +108,17 @@ def test_harnesses_read_no_environment_variable():
         assert "os.environ" not in text and "getenv" not in text, rel
 
 
+@pytest.mark.parametrize("rel", ["serving_continuous.py", "tools.py", "server.py",
+                                 "multiserver.py", "train/step.py", "nn/layers.py"])
+def test_multi_device_serving_reads_no_environment_variable(rel):
+    """The sharded pool, its command channel's callers, the daemons, the
+    decode and SpatialNet's dp statistics take their layout from the mesh
+    and the flags, not from the environment."""
+    with open(os.path.join(ROOT, "vcr_tpu_torch", rel)) as f:
+        text = f.read()
+    assert "os.environ" not in text and "getenv" not in text, rel
+
+
 def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     dims = dict(vocab_size=11, embed_size=4, hidden=8, vid_feat=6, max_len=3,
@@ -785,3 +796,22 @@ def test_artifact_exported_on_the_cpu_runs_the_kernels_on_the_card(cuda, monkeyp
         torch.cuda.synchronize()
         assert cuda_gru.launches - before == 2 * pool.stats["admit_chunks"]
         assert all(np.array_equal(on_card[k], on_cpu[k]) for k in reqs)
+
+
+@pytest.mark.cuda
+def test_sharded_flagship_pool_on_the_card(cuda):
+    """Two processes on the one card over gloo, the flagship pool sharded
+    dp=2 (R=64, A=16, a burst of 64): at least 98% of the tokens equal the
+    one-process pool's (bf16 near-ties may flip), and each rank launches B1
+    twice per admission chunk, on the tensor-core body."""
+    import chip_smoke
+
+    pool = dict(slots=64, admit=16, step=4, requests=64, seed=31)
+    ranks = chip_smoke.run_mesh_workers({"flagship": pool})
+    one = chip_smoke.one_process_pool("FLAGSHIP", pool)
+    lead = ranks[0]["flagship"]
+    assert chip_smoke.token_agreement(lead["tokens"], one["tokens"]) >= 0.98
+    chunks = lead["admit_chunks"]
+    for r in ranks:
+        assert r["flagship"]["launches"] == {"gru_seq": 2 * chunks, "gru_seq_tc": 2 * chunks,
+                                             "lstm_seq": 0, "lstm_seq_tc": 0}

@@ -79,13 +79,14 @@ def test_config_has_every_field_with_its_default():
 
 
 @pytest.mark.parametrize("argv, exc, item", [
-    # a mesh parses in the train modes since A15 (test_config_takes_a_mesh_
-    # in_the_train_modes); these cases keep their ids and hold what the
-    # config still refuses: a mesh for the pool and the artifacts (A15b)
-    pytest.param(["--mesh_dp", "2", "--mode", "serve"], NotImplementedError, "A15b",
+    # a mesh parses in the train modes since A15 and --mesh_dp in serve,
+    # decode and export_serving since A15b (test_config_takes_a_mesh_in_the_
+    # train_modes); these cases keep their ids and hold what the config still
+    # refuses: a flag the JAX package ignores in that mode
+    pytest.param(["--mesh_mp", "2", "--mode", "serve"], NotImplementedError, "ignores",
                  id="argv0-NotImplementedError-A15"),
     pytest.param(["--mesh_mp", "2", "--mode", "export_serving"], NotImplementedError,
-                 "A15b", id="argv1-NotImplementedError-A15"),
+                 "ignores", id="argv1-NotImplementedError-A15"),
     # the serving daemon's fields parse since A14 and its quantized modes
     # since A13 (test_config_takes_the_quantized_serving_modes); these cases
     # keep their ids and hold what the modes still refuse: an unknown mode
@@ -113,6 +114,26 @@ def test_config_takes_a_mesh_in_the_train_modes(mode):
     assert (cfg.mesh_dp, cfg.mesh_mp) == (2, 4)
     with pytest.raises(ValueError, match="mesh_dp must be >= 1"):
         tconfig.get_config(["--mode", mode, "--mesh_dp", "0"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "decode", "--mesh_dp", "2", "--mesh_mp", "4"],
+    ["--mode", "serve", "--mesh_dp", "2"],
+    ["--mode", "export_serving", "--mesh_dp", "2"]])
+def test_config_takes_a_mesh_where_the_jax_package_does(argv):
+    """The modes whose JAX counterparts read the flags take them (A15b); the
+    port's config equals the JAX package's."""
+    cfg, _ = tconfig.get_config(argv)
+    assert cfg.to_dict() == jconfig.get_config(argv).to_dict()
+
+
+@pytest.mark.parametrize("mode, flag", [("eval", "--mesh_dp"),
+                                        ("export_continuous", "--mesh_dp"),
+                                        ("verify_parity", "--mesh_mp")])
+def test_config_refuses_a_mesh_the_jax_package_ignores(mode, flag):
+    with pytest.raises(NotImplementedError, match=f"{flag} 2 with --mode {mode}: the JAX "
+                                                  "package ignores"):
+        tconfig.get_config(["--mode", mode, flag, "2"])
 
 
 @pytest.mark.parametrize("kv, dw", [("int8", "bf16"), ("int4", "int8"), ("bf16", "int8")])

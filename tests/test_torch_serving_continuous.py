@@ -393,8 +393,13 @@ def test_scheduler_on_one_fake_device_half_in_both_packages():
 def test_refusals():
     _, _, tspec, tparams, _ = _models("s2vt")
     kw = dict(device="cpu", **POOL)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsc.ContinuousCaptioner(tparams, tspec, mesh=object(), **kw)
+    # the mesh-sharded pool is ported (tests/test_torch_mesh_serving.py): a
+    # pool of 3 slots does not shard over dp=2
+    from vcr_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="not divisible by dp"):
+        tsc.ContinuousCaptioner(tparams, tspec, mesh=Mesh(2, 1, 0, torch.device("cpu")),
+                                **kw)
     # the quantized modes are ported (A13): S2VT has no attention cache to
     # quantize, and an unknown mode raises
     for mode, match in (({"kv_cache": "int8"}, "has none"), ({"kv_cache": "int4"}, "has none"),

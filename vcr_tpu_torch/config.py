@@ -7,10 +7,11 @@ What the port does with each field:
 
 * most fields mean what they mean in the JAX package;
 * :data:`INERT_FIELDS` are accepted and do nothing here (see there);
-* the values of features not ported yet raise ``NotImplementedError``
-  naming their ROADMAP item (:meth:`Config.validate`): ``mesh_*`` away from
-  1 in a mode other than the train modes (the sharded pool and the
-  multi-device artifact, A15b). An unknown architecture raises there too, before
+* a mesh where the JAX package ignores one raises ``NotImplementedError``
+  (:meth:`Config.validate`): ``--mesh_dp``/``--mesh_mp`` run in the train
+  modes and ``--mode decode``, ``--mesh_dp`` alone in ``--mode serve`` and
+  ``export_serving``; elsewhere this package refuses what the JAX package
+  would quietly drop. An unknown architecture raises there too, before
   any data is read, and so does ``--mode train_rationale`` or
   ``train_spatial`` with an ``--arch`` other than S2VT or S2VT-att, which
   the JAX package would quietly replace by S2VT; an unknown serving mode
@@ -32,8 +33,21 @@ from typing import Any, Dict, Optional, Tuple
 from vcr_tpu_torch.models import base as model_base
 
 CORPORA = ("msvd", "msrvtt", "msvd_vgg")
-# the modes that take --mesh_dp / --mesh_mp (multi-process training)
 TRAIN_MODES = ("train", "train_rationale", "train_spatial")
+# the modes that take each mesh flag: multi-process training and decoding,
+# the dp-sharded serving pool, the dp artifact
+MESH_MODES = {"mesh_dp": TRAIN_MODES + ("decode", "serve", "export_serving"),
+              "mesh_mp": TRAIN_MODES + ("decode",)}
+# why the JAX package drops a mesh flag it does not take in a mode (serve
+# and export_serving take --mesh_dp: there the flag is --mesh_mp)
+_MESH_IGNORED = {
+    "serve": "its daemon shards the slot pool over dp alone (make_mesh(mesh_dp, 1)); "
+             "the Python API (ContinuousCaptioner(mesh=...)) takes mp",
+    "export_serving": "its multi-chip artifact splits the batch over dp, the weights "
+                      "replicated",
+    "eval": "evaluate_checkpoint scores on one device",
+    "export_continuous": "the frozen pool is exported unsharded",
+}
 ARCHS = ("s2vt", "s2vt-att", "transformer")
 
 # Fields that steer the JAX package's compiler and have no meaning on the
@@ -173,11 +187,12 @@ class Config:
             value = getattr(self, name)
             if value < 1:
                 raise ValueError(f"--{name} must be >= 1, got {value}")
-            if value > 1 and self.mode not in TRAIN_MODES:
+            if value > 1 and self.mode not in MESH_MODES[name]:
+                why = _MESH_IGNORED.get(self.mode, "it runs on one device")
                 raise NotImplementedError(
-                    f"--{name} {value} with --mode {self.mode}: multi-device serving "
-                    "and artifacts are not ported yet: ROADMAP A15b (the train modes "
-                    "take a mesh)")
+                    f"--{name} {value} with --mode {self.mode}: the JAX package ignores "
+                    f"the flag there ({why}); this package refuses it instead (--{name} "
+                    f"runs in --mode {', '.join(MESH_MODES[name])})")
         model_base.check_serving_modes(self.serve_kv_cache, self.serve_decode_weights)
         return self
 

@@ -44,6 +44,13 @@ the program holds one.
 
 The batch dimension is symbolic (``torch.export.Dim("b")``) unless
 ``batch_size`` pins it.
+
+A data-parallel artifact (``dp > 1``, the JAX package's multi-chip one:
+the batch split dp ways, the weights replicated) holds the dp=1 program;
+its meta says dp. The loader places the program and the weights on each of
+dp devices once, and a call runs slice i of the rows on device i, one
+process for all of them. Its draws are drawn for the whole batch and
+sliced by rows, so its tokens are the dp=1 artifact's.
 """
 
 from __future__ import annotations
@@ -298,15 +305,24 @@ def draw_noise(plan, seed: int, batch: int, device) -> list:
     return out
 
 
+def _batch_axis(entry) -> int:
+    """The batch axis of a draw plan entry's tensor: a stack of per-step
+    draws puts the steps first."""
+    return entry["shape"].index("b") + (1 if "steps" in entry else 0)
+
+
+def noise_rows(plan, noise, start: int, stop: int, device=None) -> list:
+    """Rows [start, stop) of the batch of each of a plan's drawn tensors
+    (:func:`draw_noise`), on ``device`` (None: where they are)."""
+    return [x.narrow(_batch_axis(e), start, stop - start).to(device or x.device)
+            for e, x in zip(plan, noise)]
+
+
 # ---------------------------------------------------------------- export
 
 def _plan_dims(plan, batch_dim):
     """dynamic_shapes of the noise inputs: the batch axis of each."""
-    dims = []
-    for entry in plan:
-        axis = entry["shape"].index("b") + (1 if "steps" in entry else 0)
-        dims.append({axis: batch_dim} if batch_dim is not None else None)
-    return dims
+    return [{_batch_axis(e): batch_dim} if batch_dim is not None else None for e in plan]
 
 
 class _Caption(torch.nn.Module):
@@ -355,16 +371,18 @@ def export_captioner(params, spec, out_dir: str,
     ``featurizer`` ("vgg16", "resnet", "yolo" with its ``feat_params``, as
     ``serving.build_captioner`` takes them) puts the backbone in the program,
     which then takes frames (N, 3, ``image_size``, ``image_size``). ``dp >
-    1`` (the JAX package's multi-chip artifact) raises naming ROADMAP A15b.
+    1`` exports a data-parallel artifact (see the module docstring): its
+    loader needs dp devices, and a symbolic batch means any multiple of dp;
+    a fixed ``batch_size`` that dp does not divide raises ValueError.
     Returns ``out_dir``."""
     from vcr_tpu_torch import decode, serving
     from vcr_tpu_torch.device import params_to, resolve_device
     from vcr_tpu_torch.models import base as model_base
 
-    if dp > 1:
-        raise NotImplementedError(
-            f"dp={dp}: a multi-device artifact is not ported yet: ROADMAP A15b "
-            "(multi-device)")
+    if dp < 1:
+        raise ValueError(f"dp must be >= 1, got {dp}")
+    if batch_size is not None and int(batch_size) % dp:
+        raise ValueError(f"batch_size={batch_size} not divisible by dp={dp}")
     darknet, feat_params = serving.split_feat_params(featurizer, feat_params)
     device = resolve_device(device)
     eos_id = serving.resolve_eos_id(spec, eos_id, vocab)
@@ -383,7 +401,8 @@ def export_captioner(params, spec, out_dir: str,
     leaves, paths = flatten_tree(tree)
     item_shape = (tuple(int(d) for d in input_shape) if input_shape is not None
                   else default_input_shape(spec, featurizer, image_size))
-    example_b = 2 if batch_size is None else int(batch_size)
+    # the program is the dp=1 program at one device's share of the batch
+    example_b = 2 if batch_size is None else int(batch_size) // dp
     gen = torch.Generator().manual_seed(0)
     frames = torch.randn((example_b, *item_shape), generator=gen).to(device)
     noise = draw_noise(plan, seed, example_b, device)
@@ -427,8 +446,8 @@ def export_captioner(params, spec, out_dir: str,
         "draws": {"seed": seed, "plan": plan},
         "float32_conv": _holds_float32_conv([program]),
         "kernel_sources": _kernel_sources([program]),
-        "dp": 1,
-        "nr_devices": 1,
+        "dp": int(dp),
+        "nr_devices": int(dp),
         "exported_on": device.type,
         "platforms": ["cpu", "cuda"],
         "torch_version": torch.__version__,
@@ -443,20 +462,26 @@ def export_captioner(params, spec, out_dir: str,
 
 class ServingArtifact:
     """A loaded artifact: ``caption(frames) -> tokens (B, max_len) int32``,
-    a tensor on the artifact's device. Only torch, numpy and the op library
-    run: the program replays the exported graph."""
+    a tensor on the artifact's (first) device. Only torch, numpy and the op
+    library run: the program replays the exported graph. ``replicas``: the
+    (module, leaves) of each of a dp artifact's devices after the first."""
 
-    def __init__(self, module, leaves, meta, device: torch.device):
-        self._module = module
-        self._leaves = leaves
+    def __init__(self, module, leaves, meta, device: torch.device,
+                 devices: Optional[Sequence[torch.device]] = None, replicas=()):
         self.meta = meta
         self.device = device
-        self._tf32 = tf32_scope(meta, device)
+        self.devices = list(devices) if devices is not None else [device]
+        self._replicas = [(module, leaves)] + list(replicas)
+
+    @property
+    def _module(self):
+        """The program on the (first) device."""
+        return self._replicas[0][0]
 
     @property
     def leaves(self):
-        """The weight leaves in call order, on the device."""
-        return self._leaves
+        """The weight leaves in call order, on the (first) device."""
+        return self._replicas[0][1]
 
     def noise(self, batch: int) -> list:
         """The draws of a call of ``batch`` rows (empty where the decode
@@ -475,23 +500,53 @@ class ServingArtifact:
         if b != "symbolic" and frames.shape[0] != b:
             raise ValueError(
                 f"artifact was exported at fixed batch {b}, got {frames.shape[0]}")
-        with torch.no_grad(), self._tf32():
-            return self._module(self._leaves, frames, self.noise(frames.shape[0]))
+        dp = len(self._replicas)
+        if frames.shape[0] % dp:
+            raise ValueError(f"a dp={dp} artifact needs batch % dp == 0, got "
+                             f"{frames.shape[0]}")
+        noise = self.noise(frames.shape[0])
+        # slice i of the rows runs on device i; every slice is launched before
+        # any result is read
+        n = frames.shape[0] // dp
+        outs = []
+        for i, ((module, leaves), dev) in enumerate(zip(self._replicas, self.devices)):
+            part = frames[i * n:(i + 1) * n].to(dev)
+            with torch.no_grad(), tf32_scope(self.meta, dev)():
+                outs.append(module(leaves, part, noise_rows(
+                    self.meta["draws"]["plan"], noise, i * n, (i + 1) * n, dev)))
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])
 
     __call__ = caption
 
 
-def load_artifact(artifact_dir: str, device=None) -> ServingArtifact:
+def load_artifact(artifact_dir: str, device=None, devices=None) -> ServingArtifact:
     """Load an artifact directory onto ``device`` (the card unless given;
     none raises). The program is moved there and the leaves copied there
-    once. A JAX artifact, a continuous one, or one exported against other
-    kernel sources raises ValueError."""
+    once. A dp artifact (``meta["dp"] > 1``) takes its first dp devices
+    from ``devices`` (default: cards 0..dp-1), fewer raise ValueError; a
+    device may repeat, and each distinct one gets the program and the
+    weights once. A JAX artifact, a continuous one, or one exported against
+    other kernel sources raises ValueError."""
     from vcr_tpu_torch.device import resolve_device
 
-    device = resolve_device(device)
     meta = read_meta(artifact_dir, "serving")
     check_kernel_sources(meta)
-    module = load_program(os.path.join(artifact_dir, GRAPH_FILE), device)
-    leaves = _load_leaves(os.path.join(artifact_dir, WEIGHTS_FILE), meta["leaf_dtypes"],
-                          device)
-    return ServingArtifact(module, leaves, meta, device)
+    dp = int(meta.get("dp", 1))
+    if devices is None:
+        devices = ([device] if dp == 1 else
+                   [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    devices = list(devices)
+    if len(devices) < dp:
+        raise ValueError(f"a dp={dp} artifact needs {dp} devices, got {len(devices)}")
+    devices = [resolve_device(d) for d in devices[:dp]]
+    placed = {}
+    for dev in devices:
+        if dev not in placed:
+            placed[dev] = (load_program(os.path.join(artifact_dir, GRAPH_FILE), dev),
+                           _load_leaves(os.path.join(artifact_dir, WEIGHTS_FILE),
+                                        meta["leaf_dtypes"], dev))
+    module, leaves = placed[devices[0]]
+    return ServingArtifact(module, leaves, meta, devices[0], devices,
+                           [placed[d] for d in devices[1:]])

@@ -40,6 +40,21 @@ def vocab_scope(shard):
         _VOCAB_SHARD.reset(token)
 
 
+# The dp layout (``parallel.mesh.Mesh``) whose global batch BatchNorm's train
+# statistics run over (None: this process's batch).
+_DP_MESH: contextvars.ContextVar = contextvars.ContextVar("dp_mesh", default=None)
+
+
+@contextlib.contextmanager
+def dp_scope(mesh):
+    """Run BatchNorm's train statistics over ``mesh``'s dp (None: local)."""
+    token = _DP_MESH.set(mesh if mesh is not None and mesh.dp > 1 else None)
+    try:
+        yield
+    finally:
+        _DP_MESH.reset(token)
+
+
 class _MatmulF32(torch.autograd.Function):
     """x (M, K) @ w (K, N) on the card, both operands in the compute dtype,
     with a float32 result from cuBLAS.
@@ -341,18 +356,35 @@ def batchnorm_init(ch: int) -> dict:
             "mean": torch.zeros((ch,)), "var": torch.ones((ch,))}
 
 
-def batchnorm(params, x: torch.Tensor, train: bool) -> Tuple[torch.Tensor, dict]:
+def batchnorm(params, x: torch.Tensor, train: bool, mesh=None) -> Tuple[torch.Tensor, dict]:
     """BatchNorm2d over NCHW -> (y, new params). The running statistics are
     returned, never updated in place: at train the batch's mean and biased
     variance normalize, and the new stats take the mean and the unbiased
     variance with momentum 0.1; at eval the stored stats normalize and the
     params come back unchanged. ``F.batch_norm`` would update its buffers in
     place, so a checkpointed forward's replay would apply the momentum
-    twice."""
-    if train:
+    twice.
+
+    ``mesh`` (default: the :func:`dp_scope`'s): at train the statistics are
+    the global batch's over its dp, as one process's over the whole batch:
+    the sum of x over dp gives the mean, then the sum of squared deviations
+    from it the variance (two passes, as ``jnp.mean`` and ``jnp.var``; not
+    E[x^2] - E[x]^2, which loses digits in float32), each sum differentiable
+    over dp (``parallel.mesh.sum_over_dp``). Every rank's batch has one
+    shape, so the count is dp times this rank's."""
+    mesh = _DP_MESH.get() if mesh is None else mesh
+    if train and mesh is not None and mesh.dp > 1:
+        from vcr_tpu_torch.parallel.mesh import sum_over_dp
+
+        n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.dp
+        mean = sum_over_dp(x.sum(dim=(0, 2, 3)), mesh) / n
+        var = sum_over_dp(((x - mean[None, :, None, None]) ** 2).sum(dim=(0, 2, 3)),
+                          mesh) / n
+    elif train:
         mean = x.mean(dim=(0, 2, 3))
         var = x.var(dim=(0, 2, 3), unbiased=False)
         n = x.shape[0] * x.shape[2] * x.shape[3]
+    if train:
         new = dict(params)
         m = _BN_MOMENTUM
         new["mean"] = (1 - m) * params["mean"] + m * mean

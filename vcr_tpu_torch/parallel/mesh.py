@@ -22,18 +22,28 @@ Ranks are laid out row-major, like ``mesh_utils.create_device_mesh``: rank
 = dp_index * mp + mp_index. The ranks of one dp index form an mp group; the
 ranks of one mp index form a dp group.
 
+Serving (``serving_continuous.ContinuousCaptioner(mesh=...)``): dp index d
+owns the slots :func:`slot_block` gives it, mp splits the vocab projection
+and embedding as in training, and :func:`gather_vocab` gives the full
+logits where a decode needs them (the beam's top-k, the sampling filters).
+Rank 0 leads: it sends each operation of a pool as a command
+(:func:`send_command`, :func:`recv_command`) before it runs it, and the
+other ranks run what they receive; the pools' channel keeps its own state
+(``serving_continuous.CommandChannel``).
+
 Every collective here is an ``all_reduce`` (a gather is an all-reduce of a
 zero buffer in which each rank fills its own block: each element is one
 rank's value plus zeros, so it is exact) or a ``broadcast``: gloo carries
 both for CUDA tensors, so two processes can share one card over gloo, and
-NCCL carries them for one card per process.
+NCCL carries them for one card per process. A command is sent as CPU
+tensors, over a gloo group (:func:`host_group`).
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -450,3 +460,121 @@ def clip_sum_of_squares(grads: Sequence[torch.Tensor], split: Sequence[bool],
     if any(split):
         dist.all_reduce(shd, group=group)
     return rep + shd
+
+
+# ------------------------------------------------------------------ serving
+
+def slot_block(mesh: Mesh, slots: int) -> Tuple[int, int]:
+    """[start, stop) of the slots that this rank's dp index owns: block d
+    of ``slots`` / dp contiguous slots. A count dp does not divide raises."""
+    if slots % mesh.dp:
+        raise ValueError(f"slots={slots} not divisible by dp={mesh.dp}")
+    n = slots // mesh.dp
+    return mesh.dp_index * n, (mesh.dp_index + 1) * n
+
+
+def gather_vocab(logits: torch.Tensor, shard: VocabShard) -> torch.Tensor:
+    """(rows, V/mp) split logits -> the full (rows, V) on every rank of the
+    split: an all-reduce of a zero buffer, so every value is exact."""
+    return all_gather(logits.contiguous(), shard.size, shard.index, shard.group,
+                      axis=-1)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over a group, forward; the backward sums the gradient over
+    the group too, since every rank's result feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_over_dp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of every dp index's ``x`` (one shape on all), differentiable:
+    the gradient of each rank's ``x`` is the sum of the gradients of every
+    rank's result. With losses seeded by their share of the global batch
+    (``train.step``), that is the gradient of one process's loss."""
+    if mesh.dp == 1:
+        return x
+    return _SumOverGroup.apply(x, mesh.dp_group)
+
+
+def sum_grads_over_dp(values: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """Every dp index's gradients summed, for a list of tensors at once (one
+    all-reduce of one flat buffer)."""
+    if mesh.dp == 1:
+        return values
+    flat = torch.cat([v.float().reshape(-1) for v in values])
+    dist.all_reduce(flat, group=mesh.dp_group)
+    out, i = [], 0
+    for v in values:
+        out.append(flat[i:i + v.numel()].reshape(v.shape).to(v.dtype))
+        i += v.numel()
+    return out
+
+
+def host_group():
+    """A group of every rank that carries CPU tensors: the default group
+    where it is gloo's (None), else a new gloo group. Collective: every rank
+    calls it, in one order with its other groups."""
+    return None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+
+
+# A command: rank 0 broadcasts a header of int64s, then each array as a CPU
+# tensor, over a group that carries CPU tensors (host_group). Header: [op,
+# pool, number of arrays] and, per array, its dtype's index in _WIRE_DTYPES,
+# its rank and its dims.
+_WIRE_DTYPES = (np.float32, np.int32, np.bool_, np.int64, np.float64, np.uint8)
+_MAX_ARRAYS, _MAX_DIMS = 8, 6
+_HEADER = 3 + _MAX_ARRAYS * (2 + _MAX_DIMS)
+
+
+def send_command(group, op: int, arrays: Sequence[np.ndarray] = (), pool: int = 0
+                 ) -> None:
+    """Rank 0: broadcast command ``op`` of pool ``pool`` with its host
+    ``arrays`` to every rank of ``group`` (each rank > 0 takes it with
+    :func:`recv_command`)."""
+    if len(arrays) > _MAX_ARRAYS:
+        raise ValueError(f"a command carries at most {_MAX_ARRAYS} arrays")
+    header = torch.zeros(_HEADER, dtype=torch.int64)
+    header[:3] = torch.tensor([op, pool, len(arrays)])
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    for i, a in enumerate(arrays):
+        if a.ndim > _MAX_DIMS:
+            raise ValueError(f"a command's array has at most {_MAX_DIMS} dims")
+        kind = [np.dtype(t) for t in _WIRE_DTYPES].index(a.dtype)
+        at = 3 + i * (2 + _MAX_DIMS)
+        header[at:at + 2 + a.ndim] = torch.tensor([kind, a.ndim, *a.shape])
+    dist.broadcast(header, 0, group=group)
+    for a in arrays:
+        if a.size:
+            # bool travels as uint8, which every backend carries
+            dist.broadcast(torch.from_numpy(a.view(np.uint8) if a.dtype == np.bool_
+                                            else a), 0, group=group)
+
+
+def recv_command(group) -> Tuple[int, int, List[np.ndarray]]:
+    """Ranks > 0: the next command of rank 0 over ``group`` -> (op, pool,
+    host arrays)."""
+    header = torch.zeros(_HEADER, dtype=torch.int64)
+    dist.broadcast(header, 0, group=group)
+    h = header.tolist()
+    arrays = []
+    for i in range(h[2]):
+        at = 3 + i * (2 + _MAX_DIMS)
+        dtype = np.dtype(_WIRE_DTYPES[h[at]])
+        shape = tuple(h[at + 2:at + 2 + h[at + 1]])
+        a = np.zeros(shape, np.uint8 if dtype == np.bool_ else dtype)
+        if a.size:
+            dist.broadcast(torch.from_numpy(a), 0, group=group)
+        arrays.append(a.view(np.bool_) if dtype == np.bool_ else a)
+    return h[0], h[1], arrays

@@ -55,12 +55,32 @@ the per-step dense weights once, at construction: the Transformer's decoder
 denses are replaced by int8 codes, the GRU families' step dicts augmented
 beside their float32 originals, which the encoders keep reading (B1 and B2
 launch as before). ``kv_cache="int8"|"int4"`` (the Transformer's) stores its
-self and cross K/V caches quantized. Not ported: ``mesh`` (ROADMAP A15b)
-raises.
+self and cross K/V caches quantized.
+
+Several processes (``mesh``, a ``parallel.mesh.Mesh`` of dp x mp processes,
+one device each): dp index d holds the slots ``parallel.mesh.slot_block``
+gives it, R/dp of them, and a sink slot of its own; mp splits the vocab
+projection and the embedding as training does, and every other weight is
+replicated. Every rank encodes the whole admission chunk and draws what the
+one-process pool draws (RationaleNet's selection per admission, the
+sampling streams per admitted row), then writes only the rows whose slots
+it owns; the others go to its sink. A tick steps each rank's own rows:
+under mp the greedy token is ``sharded_argmax``'s and the embedding
+``embed_rows``', while the beam's top-k and the sampling filters run on the
+full logits (``gather_vocab``): simple and exact, since mp serving buys
+memory for a large vocab, not speed. ``poll_active`` and ``read_tokens``
+return every slot's, gathered over dp. Rank 0 leads: each public operation
+sends its command (``parallel.mesh.send_command``) before it runs, under the
+lock of the pools' :class:`CommandChannel` (one for all of a process's pools
+on a mesh), so ``run_slot_scheduler`` drives a sharded pool as it drives one
+pool; ranks > 0 call :func:`follow`, which runs what they receive until rank
+0's :func:`stop_followers`.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -74,10 +94,92 @@ from vcr_tpu_torch.models import rationale, s2vt, s2vt_att, spatial
 from vcr_tpu_torch.models import transformer as tr
 from vcr_tpu_torch.nn.attention import bahdanau_project_keys
 from vcr_tpu_torch.nn.gumbel import sample_gumbel
+from vcr_tpu_torch.nn.layers import vocab_scope
 from vcr_tpu_torch.scheduler import run_slot_scheduler, stream_seed
 from vcr_tpu_torch.serving import resolve_eos_id
 
 _ARCHS = ("s2vt", "s2vt-att", "spatial", "rationale", "transformer")
+
+# A command names its operation by its index here and its pool by the order
+# in which the process built its channel's pools, which every rank builds in
+# one order.
+_COMMANDS = ("stop", "noop", "admit", "tick", "poll", "read", "release")
+# rank 0 of an idle daemon sends a command this often (keepalive)
+KEEPALIVE_S = 5.0
+
+
+class CommandChannel:
+    """How rank 0 drives the sharded pools that one process builds on a
+    mesh: the pools in the order built, the group the commands travel on
+    (``parallel.mesh.host_group``), the lock rank 0 sends and runs each
+    command under, and when it last sent one. Under the lock the commands of
+    several pools driven from several threads reach every rank in the order
+    rank 0 runs them. Every rank makes it (collective), in one order with
+    its pools."""
+
+    def __init__(self, mesh):
+        from vcr_tpu_torch.parallel.mesh import host_group
+
+        self.mesh = mesh
+        self.group = host_group()
+        self.pools = []
+        self.lock = threading.Lock()
+        self.last_command = 0.0
+
+    def send(self, name: str, arrays=(), pool: int = 0) -> None:
+        """Rank 0, under :attr:`lock`: send command ``name``."""
+        from vcr_tpu_torch.parallel.mesh import send_command
+
+        send_command(self.group, _COMMANDS.index(name), arrays, pool)
+        self.last_command = time.monotonic()
+
+    def gather_rows(self, local: np.ndarray) -> np.ndarray:
+        """Each dp index's host ``local`` rows (one shape on all ranks, the
+        same on the mp ranks of a dp index) concatenated in dp order, on
+        every rank: an all-reduce of a CPU zero buffer over the channel's
+        group, so a poll sends nothing to a device and back."""
+        import torch.distributed as dist
+
+        mesh, local = self.mesh, np.ascontiguousarray(local)
+        if mesh.dp == 1:
+            return local
+        src = torch.from_numpy(local)
+        buf = torch.zeros((mesh.dp * mesh.mp, *local.shape), dtype=src.dtype)
+        buf[mesh.rank] = src
+        dist.all_reduce(buf, group=self.group)
+        return buf[::mesh.mp].reshape(-1, *local.shape[1:]).numpy()
+
+
+def follow(channel: CommandChannel) -> None:
+    """Ranks > 0 of a mesh: run rank 0's commands on the channel's pools
+    until it sends stop (:func:`stop_followers`). A broken group raises."""
+    if channel.mesh.rank == 0:
+        raise RuntimeError("rank 0 leads a sharded pool; the other ranks follow")
+    from vcr_tpu_torch.parallel.mesh import recv_command
+
+    while True:
+        op, pool, arrays = recv_command(channel.group)
+        name = _COMMANDS[op]
+        if name == "stop":
+            return
+        if name != "noop":
+            channel.pools[pool]._run(name, arrays)
+
+
+def stop_followers(channel: CommandChannel) -> None:
+    """Rank 0: end every follower's :func:`follow`. A command sent after it
+    reaches no follower until they follow again."""
+    with channel.lock:
+        channel.send("stop")
+
+
+def keepalive(channel: CommandChannel) -> None:
+    """Rank 0: send a command that does nothing where none went for
+    :data:`KEEPALIVE_S` seconds, so that an idle pool's followers, which
+    wait in a collective, stay inside the process group's timeout."""
+    with channel.lock:
+        if time.monotonic() - channel.last_command >= KEEPALIVE_S:
+            channel.send("noop")
 
 
 def _row_sampling_filters(logits: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
@@ -123,7 +225,15 @@ class ContinuousCaptioner:
       eos_id / vocab: the end token (``serving.resolve_eos_id``).
       rng: int seed of RationaleNet's frame selection and of the sampling
         streams (see the module docstring).
-      mesh: not ported (ROADMAP A15b); anything but None raises.
+      mesh: a ``parallel.mesh.Mesh`` of the initialised process group: the
+        slots shard over dp (slots % dp == 0) and the vocab projection and
+        embedding over mp (the padded vocab % mp == 0); every rank builds
+        the pool from the same whole ``params``. Rank 0 drives it; ranks
+        > 0 call :func:`follow` (see the module docstring).
+      channel: the :class:`CommandChannel` of ``mesh``. Pools that one
+        process drives at once on a mesh (a daemon serving several models)
+        must share one, since a command names its pool by its index in the
+        channel; None makes one for this pool alone.
       beam_size: K > 1 makes each slot a beam of K rows.
       sample_temperature / sample_top_k / sample_top_p: temperature > 0
         samples per slot (beam_size 1 only): the logits pass the row-wise
@@ -143,13 +253,14 @@ class ContinuousCaptioner:
       sample_noise: (admission index, chunk row) -> (max_len, padded vocab)
         Gumbel noise of that request's sampling steps; None draws it.
       device: where the pool lives: the card unless given (``"cpu"`` runs
-        the plain versions).
+        the plain versions); under a mesh, the mesh's device unless given.
     """
 
     def __init__(self, params, spec: model_base.ModelSpec, *,
                  slots: int = 64, admit_chunk: int = 8, step_chunk: int = 4,
                  eos_id: Optional[int] = None, vocab=None, rng: Optional[int] = None,
-                 mesh=None, beam_size: int = 1,
+                 mesh=None, channel: Optional[CommandChannel] = None,
+                 beam_size: int = 1,
                  sample_temperature: float = 0.0, sample_top_k: int = 0,
                  sample_top_p: float = 0.0, request_sampling: bool = False,
                  kv_cache: Optional[str] = None, decode_weights: Optional[str] = None,
@@ -162,15 +273,32 @@ class ContinuousCaptioner:
         if (sample_temperature > 0 or request_sampling) and beam_size > 1:
             raise ValueError("per-slot sampling and beam search are mutually exclusive "
                              "(beam maximizes sequence log-prob; sampling draws from it)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded slot pool is not ported yet: "
-                "ROADMAP A15b (multi-device serving)")
         self.kv_cache, self.decode_weights = model_base.check_serving_modes(
             kv_cache, decode_weights)
+        # this process's slots [offset, offset + local); the sink is row local
+        self.mesh, self._offset, self._local, self._shard = mesh, 0, slots, None
+        if mesh is not None:
+            from vcr_tpu_torch.parallel import mesh as pmesh
+
+            if self.decode_weights == "int8" and mesh.mp > 1:
+                raise ValueError("decode_weights='int8' with an mp>1 mesh is unsupported: "
+                                 "the int8 vocab projection does not column-shard")
+            self._offset, stop = pmesh.slot_block(mesh, slots)
+            self._local = stop - self._offset
+            if mesh.mp > 1 and spec.padded_vocab_size % mesh.mp:
+                raise ValueError(
+                    f"padded vocab {spec.padded_vocab_size} not divisible by mesh "
+                    f"mp={mesh.mp}: the vocab projection and embedding cannot shard. Set "
+                    "vocab_pad_to to a multiple of mp (or pass an mp=1 mesh)")
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
         self.spec = spec
         self.params = params_to(params, self.device)
+        if mesh is not None and mesh.mp > 1:
+            specs = pmesh.param_specs(self.params, spec.padded_vocab_size, mesh.mp)
+            self.params = pmesh.shard_params(self.params, mesh, specs)
+            self._shard = pmesh.vocab_shard_for(self.params, specs, mesh,
+                                                spec.padded_vocab_size)
         self.slots = slots
         self.admit_chunk = admit_chunk
         self.step_chunk = min(step_chunk, spec.max_len)
@@ -211,6 +339,13 @@ class ContinuousCaptioner:
         self._fns = self._device_fns(self._step_params)
         with torch.inference_mode():
             self.state = self._init_state()
+        self.channel = None
+        if mesh is not None:
+            if channel is not None and channel.mesh is not mesh:
+                raise ValueError("the channel belongs to another mesh")
+            self.channel = CommandChannel(mesh) if channel is None else channel
+            self._pool_index = len(self.channel.pools)
+            self.channel.pools.append(self)
 
     # ---------------------------------------------------------- device fns
     #
@@ -245,7 +380,7 @@ class ContinuousCaptioner:
                 steps = st["gstep"].repeat_interleave(k) if k > 1 else st["steps"]
                 return slot_step(dec, words, steps.clamp(max=spec.max_len - 1))
         elif self._base == "s2vt":
-            s2vt_step = _s2vt_stepper(dec_params, spec, (self.slots + 1) * k, dw)
+            s2vt_step = _s2vt_stepper(dec_params, spec, (self._local + 1) * k, dw)
 
             def cell(dec, words, st):
                 return s2vt_step(dec, words, 0)
@@ -282,8 +417,8 @@ class ContinuousCaptioner:
                                   device=dev)}
 
     def _init_state(self):
-        """The empty pool: R slots and the sink slot."""
-        r, l, dev = self.slots + 1, self.spec.max_len, self.device
+        """The empty pool: this process's slots and its sink slot."""
+        r, l, dev = self._local + 1, self.spec.max_len, self.device
 
         def i32(n, value=0):
             return torch.full((n,), value, dtype=torch.int32, device=dev)
@@ -373,7 +508,7 @@ class ContinuousCaptioner:
         also installs each request's filters ``row_opts`` (temp, top_k,
         top_p), (A,) each, and Gumbel block ``row_noise`` (A, L, V)."""
         k, sos = self.beam_size, self.spec.sos_id
-        ids = torch.where(valid, ids.long(), self.slots)
+        ids = torch.where(valid, ids.long(), self._local)
         if k == 1:
             _tree_map(lambda leaf, new: leaf.index_copy_(0, ids, new.to(leaf.dtype)),
                       state["dec"], new_dec)
@@ -427,8 +562,13 @@ class ContinuousCaptioner:
         if self._sample:
             # each slot filters by its request's (temperature, top_k, top_p)
             # and adds its own stream's noise for this step
-            filt = _row_sampling_filters(logits, st["stemp"], st["stopk"], st["stopp"])
+            filt = _row_sampling_filters(self._full_vocab(logits), st["stemp"],
+                                         st["stopk"], st["stopp"])
             nxt = (filt + st["gumbel"][rows, pos]).argmax(dim=-1).to(torch.int32)
+        elif self._shard is not None:
+            from vcr_tpu_torch.parallel.mesh import sharded_argmax
+
+            nxt = sharded_argmax(logits, self._shard).to(torch.int32)
         else:
             nxt = logits.argmax(dim=-1).to(torch.int32)
         toks = st["toks"].index_put((rows, pos),
@@ -437,6 +577,14 @@ class ContinuousCaptioner:
         return dict(st, dec=dec, toks=toks, steps=steps,
                     active=active & (nxt != self.eos_id) & (steps < l),
                     last=torch.where(active, nxt, st["last"]))
+
+    def _full_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The logits over the whole vocab: gathered over mp under a split."""
+        if self._shard is None:
+            return logits
+        from vcr_tpu_torch.parallel.mesh import gather_vocab
+
+        return gather_vocab(logits, self._shard)
 
     def _step_once_beam(self, cell, st):
         """One beam-search step of every slot's K rows (``decode.beam_search``'s
@@ -447,7 +595,7 @@ class ContinuousCaptioner:
         g, dev = active.shape[0], active.device
         rows_idx = torch.arange(g * k, device=dev)
         dec, logits = cell(st["dec"], st["last"], st)
-        logp = torch.log_softmax(logits.float(), dim=-1)
+        logp = torch.log_softmax(self._full_vocab(logits).float(), dim=-1)
         vocab = torch.arange(logp.shape[-1], device=dev)
         eos_only = torch.where(vocab == self.eos_id, 0.0, NEG_INF)[None].to(torch.float32)
         cont = torch.where(st["bfin"][:, None], eos_only, logp)
@@ -485,68 +633,123 @@ class ContinuousCaptioner:
                     steps=torch.where(active, hsteps, st["steps"]))
 
     # ----------------------------------------------- scheduler ops protocol
+    #
+    # Each public operation goes through _command: under a mesh rank 0 sends
+    # it to the other ranks first; every rank then runs it in _run.
+
+    def _command(self, name: str, *arrays):
+        if self.mesh is None:
+            return self._run(name, arrays)
+        if self.mesh.rank != 0:
+            raise RuntimeError("rank 0 drives a sharded pool; the other ranks run "
+                               "serving_continuous.follow(channel)")
+        with self.channel.lock:
+            self.channel.send(name, arrays, self._pool_index)
+            return self._run(name, arrays)
+
+    def _run(self, name: str, arrays):
+        with torch.inference_mode():
+            if name == "admit":
+                return self._encode_admit(*arrays)
+            if name == "tick":
+                with vocab_scope(self._shard):
+                    self.state = self.step(self._step_params, self.state)
+                return None
+            if name == "poll":
+                return self._gather(self.state["active"][:self._local].to(torch.int32)
+                                    ).astype(bool)
+            if name == "read":
+                both = torch.cat([self.state["toks"][:self._local],
+                                  self.state["steps"][:self._local, None]], dim=1)
+                both = self._gather(both)
+                return both[:, :-1], both[:, -1]
+            if name == "release":
+                ids = torch.as_tensor(arrays[0].astype(np.int64), device=self.device)
+                local = ids - self._offset
+                local = local[(local >= 0) & (local < self._local)]
+                self.state["active"][local] = False
+                return None
+        raise ValueError(f"unknown pool command {name!r}")
+
+    def _gather(self, local: torch.Tensor) -> np.ndarray:
+        """This process's rows -> every slot's, in slot order (over dp, on
+        the host)."""
+        local = local.cpu().numpy()
+        return local if self.channel is None else self.channel.gather_rows(local)
+
+    def _request_opts(self, opts, a: int):
+        """Each chunk row's sampling filters (temp, top_k, top_p), (A,) each,
+        from its request's opts and the pool's defaults."""
+        t0, k0, p0 = self._row_defaults
+        temp = np.full((a,), t0, np.float32)
+        topk = np.full((a,), k0, np.int32)
+        topp = np.full((a,), p0, np.float32)
+        # a request that carries opts starts from the pool's sampling
+        # config, or neutral (T=1, no top_k/top_p) when the pool is greedy
+        # by default: not from the argmax trick (1, 1, 0), which would keep
+        # ?temperature=5 greedy
+        bt, bk, bp = ((self.sample_temperature, self.sample_top_k, self.sample_top_p)
+                      if self.sample_temperature > 0 else (1.0, 0, 0.0))
+        for j, o in enumerate(opts or []):
+            if not o:
+                continue
+            # sanitized here too: an exception on the scheduler thread ends
+            # the daemon. top_k clamped into int32; a non-finite or
+            # non-positive temperature (NaN fails every comparison) is greedy
+            t = float(o.get("temperature", bt))
+            topk[j] = min(max(int(o.get("top_k", bk)), 0), 2**31 - 1)
+            p = float(o.get("top_p", bp))
+            temp[j] = t if np.isfinite(t) else 0.0
+            topp[j] = p if 0.0 <= p <= 1.0 else 0.0
+            if not (temp[j] > 0):  # "temperature 0" = greedy
+                temp[j], topk[j], topp[j] = 1.0, 1, 0.0
+        return temp, topk, topp
 
     def encode_admit(self, feats: np.ndarray, ids: np.ndarray, valid: np.ndarray,
                      opts=None) -> None:
+        row_opts = self._request_opts(opts, ids.shape[0]) if self._sample else ()
+        valid = np.asarray(valid, bool)
+        # only the valid rows go out (to the card, and under a mesh to the
+        # other ranks); the chunk's other rows are zeros, as on the host
+        self._command("admit", np.asarray(feats, np.float32)[valid],
+                      np.asarray(ids, np.int32), valid, *row_opts)
+
+    def _encode_admit(self, rows: np.ndarray, ids: np.ndarray, valid: np.ndarray,
+                      *row_opts) -> None:
+        """Encode the whole chunk (``rows``: its valid rows) and admit the
+        rows of this process's slots; ``row_opts`` (temp, top_k, top_p)
+        when the pool samples."""
         self._admit_count += 1
         admit = self._admit_count
         dev = self.device
-        with torch.inference_mode():
-            # only the valid rows cross to the card; the chunk's other rows
-            # are zeros there, as on the host
-            sel = np.flatnonzero(valid)
-            x = torch.zeros(feats.shape, dtype=torch.float32, device=dev)
-            x[torch.as_tensor(sel, device=dev)] = torch.as_tensor(feats[sel], device=dev)
-            noise = (self._select_noise_for(admit, (*feats.shape[:2], 2))
-                     if self.spec.arch == "rationale" else None)
-            new_dec = self.encode(self._step_params, x, noise)
-            ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
-            valid_t = torch.as_tensor(valid, dtype=torch.bool, device=dev)
-            if not self._sample:
-                self.state = self.admit(self.state, new_dec, ids_t, valid_t)
-                return
-            a = ids.shape[0]
-            t0, k0, p0 = self._row_defaults
-            temp = np.full((a,), t0, np.float32)
-            topk = np.full((a,), k0, np.int32)
-            topp = np.full((a,), p0, np.float32)
-            # a request that carries opts starts from the pool's sampling
-            # config, or neutral (T=1, no top_k/top_p) when the pool is
-            # greedy by default: not from the argmax trick (1, 1, 0), which
-            # would keep ?temperature=5 greedy
-            bt, bk, bp = ((self.sample_temperature, self.sample_top_k, self.sample_top_p)
-                          if self.sample_temperature > 0 else (1.0, 0, 0.0))
-            for j, o in enumerate(opts or []):
-                if not o:
-                    continue
-                # sanitized here too: an exception on the scheduler thread
-                # ends the daemon. top_k clamped into int32; a non-finite or
-                # non-positive temperature (NaN fails every comparison) is
-                # greedy
-                t = float(o.get("temperature", bt))
-                topk[j] = min(max(int(o.get("top_k", bk)), 0), 2**31 - 1)
-                p = float(o.get("top_p", bp))
-                temp[j] = t if np.isfinite(t) else 0.0
-                topp[j] = p if 0.0 <= p <= 1.0 else 0.0
-                if not (temp[j] > 0):  # "temperature 0" = greedy
-                    temp[j], topk[j], topp[j] = 1.0, 1, 0.0
-            row_noise = torch.stack([
-                self._sample_noise_for(admit, j) if valid[j] else
-                torch.zeros((self.spec.max_len, self.spec.padded_vocab_size), device=dev)
-                for j in range(a)])
-            opts_t = tuple(torch.as_tensor(v, device=dev) for v in (temp, topk, topp))
-            self.state = self.admit(self.state, new_dec, ids_t, valid_t, opts_t, row_noise)
+        x = torch.zeros((ids.shape[0], *rows.shape[1:]), dtype=torch.float32, device=dev)
+        x[torch.as_tensor(np.flatnonzero(valid), device=dev)] = torch.as_tensor(rows,
+                                                                             device=dev)
+        noise = (self._select_noise_for(admit, (*x.shape[:2], 2))
+                 if self.spec.arch == "rationale" else None)
+        new_dec = self.encode(self._step_params, x, noise)
+        local = ids.astype(np.int64) - self._offset
+        mine = valid & (local >= 0) & (local < self._local)
+        ids_t = torch.as_tensor(local, dtype=torch.long, device=dev)
+        valid_t = torch.as_tensor(mine, dtype=torch.bool, device=dev)
+        if not self._sample:
+            self.state = self.admit(self.state, new_dec, ids_t, valid_t)
+            return
+        row_noise = torch.stack([
+            self._sample_noise_for(admit, j) if mine[j] else
+            torch.zeros((self.spec.max_len, self.spec.padded_vocab_size), device=dev)
+            for j in range(ids.shape[0])])
+        opts_t = tuple(torch.as_tensor(v, device=dev) for v in row_opts)
+        self.state = self.admit(self.state, new_dec, ids_t, valid_t, opts_t, row_noise)
 
     def tick(self) -> None:
-        with torch.inference_mode():
-            self.state = self.step(self._step_params, self.state)
+        self._command("tick")
 
     def poll_active(self) -> np.ndarray:
-        return self.state["active"][:self.slots].cpu().numpy()
+        return self._command("poll")
 
     def read_tokens(self) -> Tuple[np.ndarray, np.ndarray]:
-        return (self.state["toks"][:self.slots].cpu().numpy(),
-                self.state["steps"][:self.slots].cpu().numpy())
+        return self._command("read")
 
     def check_feat_shape(self, shape) -> Optional[str]:
         """None if a request of this feature shape is admissible, else the
@@ -568,9 +771,18 @@ class ContinuousCaptioner:
     def release_slots(self, ids: np.ndarray) -> None:
         """Deactivate the slots of cancelled requests: their rows become dead
         weight until the next admission instead of decoding to max_len."""
-        with torch.inference_mode():
-            self.state["active"][torch.as_tensor(np.asarray(ids, np.int64),
-                                                 device=self.device)] = False
+        self._command("release", np.asarray(ids, np.int32))
+
+    def follow(self) -> None:
+        """Ranks > 0: run rank 0's commands until it stops the followers
+        (:func:`follow`; it serves every sharded pool of this process)."""
+        follow(self.channel)
+
+    def stop(self) -> None:
+        """Rank 0: end the followers' :meth:`follow` (:func:`stop_followers`).
+        Nothing without a mesh."""
+        if self.channel is not None:
+            stop_followers(self.channel)
 
     # ------------------------------------------------------------ host loop
 

@@ -17,7 +17,7 @@ import torch.utils.checkpoint
 
 from vcr_tpu_torch.device import resolve_device
 from vcr_tpu_torch.models import base
-from vcr_tpu_torch.nn.layers import vocab_scope
+from vcr_tpu_torch.nn.layers import dp_scope, vocab_scope
 from vcr_tpu_torch.nn.rnn import gate_remat_default
 from vcr_tpu_torch.parallel import mesh as mesh_mod
 from vcr_tpu_torch.train import losses
@@ -89,10 +89,6 @@ class StepFns:
         _, self._apply = base.build_model(model_name)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-        if mesh is not None and mesh.dp > 1 and model_name == "spatial":
-            raise NotImplementedError(
-                "SpatialNet over a dp-split batch needs BatchNorm statistics synced over "
-                "dp, which are not ported yet: ROADMAP A15b (mesh_mp alone trains it)")
         self.model_name, self.spec, self.optimizer = model_name, spec, optimizer
         self.lambdas = (lambda_brev, lambda_cont)
         self.remat, self.grad_accum, self.static_tf = remat, grad_accum, static_tf
@@ -115,7 +111,7 @@ class StepFns:
             # are entered here, inside what remat=True checkpoints, so that
             # its replay sees them too.
             with gate_remat_default(train and self.model_name in ("s2vt", "s2vt-att")), \
-                    vocab_scope(self._shard(params)):
+                    vocab_scope(self._shard(params)), dp_scope(self.mesh):
                 return self._apply(params, self.spec, vid_feats, sent, sent_len, rng=rng,
                                    train=train, teacher_force_prob=tf_prob)
 
@@ -142,15 +138,16 @@ class StepFns:
             return _forward(self.model_name, self._fwd(True), params, batch, rng, tf_prob,
                             *self.lambdas, shard=self._shard(params))
 
-    def grads(self, params, leaves: List[torch.Tensor], batch, rng: int, tf_prob):
+    def grads(self, params, leaves: List[torch.Tensor], batch, rng: int, tf_prob,
+              seed=None):
         """(gradients of the loss for ``leaves``, detached metrics, pred,
-        aux)."""
+        aux); ``seed`` (a 0-d tensor) scales the loss's gradient."""
         loss, metrics, pred, aux = self.loss(params, batch, rng, tf_prob)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+        grads = torch.autograd.grad(loss, leaves, grad_outputs=seed, allow_unused=True,
                                     materialize_grads=True)
         return list(grads), {k: v.detach() for k, v in metrics.items()}, pred, aux
 
-    def _accum_grads(self, params, leaves, batch, rng: int, tf_prob):
+    def _accum_grads(self, params, leaves, batch, rng: int, tf_prob, total=None):
         """The full-batch gradient from ``grad_accum`` microbatches: each
         microbatch's gradient weighted by its count of valid rows, the sum
         divided by the batch's. Metrics take the same weights; aux (the
@@ -158,7 +155,11 @@ class StepFns:
         starting stats, as the JAX package's scan takes ``aux[-1]``. That
         is neither one big batch's stats nor what torch's chained in-place
         ``F.batch_norm`` would leave (the momentum applied once per
-        microbatch)."""
+        microbatch).
+
+        ``total`` (under dp, the global batch's count of valid rows): each
+        microbatch's backward is seeded with its count over ``total``
+        instead, and the gradients are summed, to be summed over dp next."""
         b, k = batch["vid_feats"].shape[0], self.grad_accum
         if b % k:
             raise ValueError(f"batch size {b} not divisible by grad_accum={k}")
@@ -166,17 +167,23 @@ class StepFns:
         g_sum, ms, preds, ns = None, [], [], []
         for i in range(k):
             micro = {name: x[i * m:(i + 1) * m] for name, x in batch.items()}
-            grads, metrics, pred, aux = self.grads(params, leaves, micro,
-                                                   microbatch_seed(rng, i, k), tf_prob)
             n = micro["valid"].float().sum()
-            g_sum = ([g * n for g in grads] if g_sum is None
-                     else [a + g * n for a, g in zip(g_sum, grads)])
+            grads, metrics, pred, aux = self.grads(
+                params, leaves, micro, microbatch_seed(rng, i, k), tf_prob,
+                None if total is None else n / total)
+            if total is not None:
+                g_sum = grads if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
+            else:
+                g_sum = ([g * n for g in grads] if g_sum is None
+                         else [a + g * n for a, g in zip(g_sum, grads)])
             ms.append(metrics)
             preds.append(pred)
             ns.append(n)
         w_sum = torch.stack(ns).sum().clamp(min=1.0)
         metrics = {name: sum(mi[name] * (n / w_sum) for mi, n in zip(ms, ns))
                    for name in ms[0]}
+        if total is not None:
+            return g_sum, metrics, torch.cat(preds), aux
         return [g / w_sum for g in g_sum], metrics, torch.cat(preds), aux
 
     def train_step(self, params, opt_state: OptState, batch: Dict[str, torch.Tensor],
@@ -190,7 +197,17 @@ class StepFns:
                 x is not y for x, y in zip(leaves, opt_state.leaves)):
             raise ValueError("opt_state was built for other parameter tensors: "
                              "call optimizer.init(params)")
-        if self.grad_accum > 1:
+        if self.mesh is not None and self.mesh.dp > 1:
+            # each rank's backward seeded with its share of the global batch's
+            # valid rows, the gradients summed over dp: the gradient of one
+            # process on the global batch, BatchNorm's terms through the other
+            # ranks' rows included (their sums' backward sums over dp too)
+            total = mesh_mod.sum_grads_over_dp([batch["valid"].float().sum()],
+                                               self.mesh)[0].clamp(min=1.0)
+            grads, metrics, pred, aux = self._accum_grads(params, leaves, batch, rng,
+                                                          tf_prob, total)
+            grads = mesh_mod.sum_grads_over_dp(grads, self.mesh)
+        elif self.grad_accum > 1:
             grads, metrics, pred, aux = self._accum_grads(params, leaves, batch, rng,
                                                           tf_prob)
         else:
@@ -198,7 +215,6 @@ class StepFns:
         if self.mesh is None:
             self.optimizer.step(opt_state, grads)
         else:
-            grads = mesh_mod.weighted_mean(grads, batch["valid"].sum(), self.mesh)
             metrics = self._sync_metrics(metrics, batch)
             split = [mesh_mod.spec_at(self.specs, path) is not None
                      for path in opt_state.paths]
@@ -274,8 +290,10 @@ def build_step_fns(model_name: str, spec: base.ModelSpec, optimizer: Optimizer,
     (``param_specs``); ``params`` are then this rank's blocks
     (``shard_params``) and ``batch`` this dp index's rows. The logits stay
     split over mp, the gradients are averaged over dp weighted by valid
-    rows, the clip's norm counts the split leaves over mp, and the metrics
-    are the global batch's on every rank. SpatialNet with dp > 1 raises.
+    rows (each rank's backward seeded with its share of the global batch's
+    valid rows, then summed), SpatialNet's BatchNorm statistics are the
+    global batch's, the clip's norm counts the split leaves over mp, and the
+    metrics are the global batch's on every rank.
 
     Both steps are bound methods of one :class:`StepFns`."""
     fns = StepFns(model_name, spec, optimizer, lambda_brev, lambda_cont, remat,

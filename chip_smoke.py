@@ -246,6 +246,22 @@ exit code and no result line:
    The dp=2 flagship artifact (exported on the CPU) at B=2048 on
    ["cuda:0", "cuda:0"]: at least 98% equal to the dp=1 artifact, B1
    twice per dp slice, ms of both (CUDA events, best of 3).
+17. bench -- the bench modules as a user runs them, each in a fresh
+   interpreter, the three started at once (their rows share the card, so
+   they check the modules and are not readings): python -m
+   vcr_tpu_torch.cli --mode bench (the flagship at
+   B=2048, 20 calls a timed call), python -m vcr_tpu_torch.bench_train s2vt
+   (B=1024, 10 steps) and python -m vcr_tpu_torch.bench_all at full width
+   with --iters 1 (one row per row of the JAX package's bench_all.py, under
+   its names). Every line of their output parses, each prints its number of
+   rows, every value is above 0 and every MFU in (0, 1.05]; the flagship's
+   FLOPs per call equal phase 15's count; each row's timed call launched
+   what its path launches (B1 twice per flagship, artifact, RationaleNet
+   and S2VT train call, once per S2VT-att and SpatialNet call, B2 twice
+   per RationaleNet call, nothing for the Transformer and the pools'
+   ticks), read around the row's best timed call in its process; and in
+   this process the flagship bench row's tokens equal build_captioner's on
+   the bench's features.
 
 Then come a JSON object listing every kernel, nvidia-smi's name and power
 limit line, and, last, {"ok": true, "device": {...}}. Needs one CUDA card;
@@ -377,6 +393,8 @@ MESH_SPATIAL = dict(batch=16, steps=3)  # SpatialNet over S2VT trained at dp=2
 MESH_DAEMON_REQUESTS = 256   # POST /caption to the dp=2 daemon, from
 MESH_DAEMON_THREADS = 32     # this many client threads
 MESH_ART_BATCH = 2048        # the dp=2 flagship artifact's batch
+BENCH_ALL_ITERS = 1          # phase 17: bench_all's --iters, cut from its 10 for
+                             # the script's time limit (widths and batches full)
 FEAT_F32_TOL = 1e-4          # float32 features, card (TF32 off) against CPU,
                              # relative to the largest |feature|
 FEAT_BF16_GAP = {"vgg16": 0.03, "resnet": 0.03, "yolo": 0.03}  # bf16 features,
@@ -3094,6 +3112,143 @@ def multidevice_serving_phase(cuda_gru, cuda_lstm, smi):
     return out
 
 
+BENCH_RUNS = {  # phase 17: each module and its arguments
+    "bench": ["vcr_tpu_torch.cli", "--mode", "bench"],
+    "bench_train": ["vcr_tpu_torch.bench_train", "s2vt"],
+    "bench_all": ["vcr_tpu_torch.bench_all", "--iters", str(BENCH_ALL_ITERS)],
+}
+BENCH_TIMEOUT_S = 600
+# B1 and B2 launches per captioner call of each bench_all row, by the start of
+# its metric: the S2VT artifact launches B1 through its op; the Transformer
+# and the pools' ticks launch nothing
+BENCH_ALL_KERNELS = (("S2VT (MSVD-VGG", 2, 0), ("S2VT serving-artifact", 2, 0),
+                     ("S2VT-att (MSVD", 1, 0), ("RationaleNet", 2, 2), ("SpatialNet", 1, 0))
+
+
+def run_benches(runs):
+    """python -m <arguments> of every entry of ``runs``, each in a fresh
+    interpreter, all started at once -> {name: (its JSON rows, seconds)};
+    every line of a standard output must parse, but for the command line's
+    corpus banner (``config.get_config``), which comes first."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = tempfile.mkdtemp(prefix="vcr_bench_")
+    t0 = time.perf_counter()
+    procs, seconds = {}, {}
+    try:
+        for name, module_args in runs.items():
+            with open(os.path.join(logs, name + ".out"), "w") as out, \
+                    open(os.path.join(logs, name + ".err"), "w") as err:
+                procs[name] = subprocess.Popen([sys.executable, "-m", *module_args],
+                                               stdout=out, stderr=err, cwd=root)
+        while len(seconds) < len(procs) and time.perf_counter() - t0 < BENCH_TIMEOUT_S:
+            for name, proc in procs.items():
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            time.sleep(0.5)
+        check(len(seconds) == len(procs),
+              f"the benches {sorted(set(procs) - set(seconds))} ran past {BENCH_TIMEOUT_S} s")
+        results = {}
+        for name, proc in procs.items():
+            with open(os.path.join(logs, name + ".out")) as f:
+                lines = f.read().strip().splitlines()
+            with open(os.path.join(logs, name + ".err")) as f:
+                err = f.read()
+            check(proc.returncode == 0, f"{name} exited {proc.returncode}:\n{err[-3000:]}")
+            if runs[name][0] == "vcr_tpu_torch.cli":
+                check(lines[:1] == ["Running on MSVD_VGG corpus"],
+                      f"the command line's first line {lines[:1]}")
+                lines = lines[1:]
+            rows = []
+            for line in lines:
+                try:
+                    rows.append(json.loads(line))
+                except json.JSONDecodeError:
+                    check(False, f"{name} printed a line that is no JSON: {line!r}")
+            results[name] = (rows, seconds[name])
+        return results
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def bench_phase(smi, flagship_flops):
+    """Phase 17: the bench modules as a user runs them, each in a fresh
+    interpreter, the three at once (their rows share the card and the host:
+    they check the modules, they are not readings): --mode bench (the
+    flagship, B=2048, 20 calls), bench_train s2vt and bench_all at full
+    width with --iters BENCH_ALL_ITERS. Every
+    line parses; 1, 1 and one row per JAX row; every value above 0 and
+    every MFU in (0, 1.05]; the launches of each row's timed call; the
+    flagship's FLOPs per call equal to phase 15's count
+    (``flagship_flops``); then, in this process, the flagship bench row's
+    tokens equal to build_captioner's on the bench's features."""
+    from vcr_tpu_torch import bench, bench_all, entry, serving
+
+    t_phase = time.perf_counter()
+    n_rows = {"bench": 1, "bench_train": 1,
+              "bench_all": len(bench_all.plan(device="cuda"))}
+    out = {}
+    for name, (rows, seconds) in run_benches(BENCH_RUNS).items():
+        check(len(rows) == n_rows[name],
+              f"{name} printed {len(rows)} rows, want {n_rows[name]}")
+        for row in rows:
+            check(row.get("value") is not None and row["value"] > 0, f"{name}: {row}")
+            check(0 < row.get("mfu", 0) <= 1.05, f"{name}: the MFU of {row}")
+        out[name] = {"rows": rows, "seconds": seconds}
+        emit(f"bench_{name}", rows=rows, seconds=seconds, concurrent=sorted(BENCH_RUNS),
+             nvidia_smi=smi)
+
+    (flagship,) = out["bench"]["rows"]
+    iters = flagship["iters"]
+    check(flagship["metric"] == bench.METRIC % TIMING_BATCH
+          and flagship["flops"] == iters * flagship_flops,
+          f"the flagship bench row {flagship}: FLOPs per call "
+          f"{flagship['flops'] / iters}, phase 15 counted {flagship_flops}")
+    want = {"gru_seq": 2 * iters, "gru_seq_tc": 2 * iters, "lstm_seq": 0}
+    check(all(flagship["launches"][k] == v for k, v in want.items()),
+          f"the flagship bench row launched {flagship['launches']}, want {want}")
+    (train,) = out["bench_train"]["rows"]
+    want = {"gru_seq": 2 * train["iters"], "gru_seq_tc": 2 * train["iters"], "lstm_seq": 0}
+    check(all(train["launches"][k] == v for k, v in want.items()),
+          f"the S2VT train bench launched {train['launches']}, want {want}")
+    names = [m for m, _ in bench_all.plan(device="cuda")]
+    rows = out["bench_all"]["rows"]
+    check([r["metric"] for r in rows] == names,
+          f"bench_all's metrics {[r['metric'] for r in rows]}, want {names}")
+    for r in rows:
+        b1, b2 = next(((g, l) for prefix, g, l in BENCH_ALL_KERNELS
+                       if r["metric"].startswith(prefix)), (0, 0))
+        want = {"gru_seq": b1 * BENCH_ALL_ITERS, "gru_seq_tc": b1 * BENCH_ALL_ITERS,
+                "lstm_seq": b2 * BENCH_ALL_ITERS, "lstm_seq_tc": b2 * BENCH_ALL_ITERS}
+        check(all(r["launches"][k] == v for k, v in want.items()),
+              f"{r['metric']} launched {r['launches']}, want {want}")
+
+    # the bench's features and weights, in this process: its tokens are
+    # build_captioner's
+    spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device="cuda")
+    feats = bench.normal_feats(np.random.default_rng(0),
+                               (TIMING_BATCH, spec.num_frames, spec.vid_feat_size), "cuda")
+    row = bench.flagship_row(spec, params, feats, 1, "cuda")
+    got = row.run_n(*row.args)
+    check(torch.equal(got, serving.build_captioner(params, spec)(feats)),
+          "the flagship bench row's tokens differ from build_captioner's")
+    # each kernel's launches in each row's best timed call, as the row read
+    # them around that call: per module, bench_all's by row where nonzero
+    launches = {k: {"bench": flagship["launches"][k],
+                    "bench_train_s2vt": train["launches"][k],
+                    "bench_all": {r["metric"]: r["launches"][k] for r in rows
+                                  if r["launches"][k]}}
+                for k in ("gru_seq", "lstm_seq")}
+    emit("bench", flagship_gflop_per_call=flagship["flops"] / iters / 1e9,
+         bench_all_iters=BENCH_ALL_ITERS, tokens_equal_build_captioner=True,
+         launches_per_timed_call=launches, phase_seconds=time.perf_counter() - t_phase,
+         nvidia_smi=smi)
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3674,6 +3829,9 @@ def main() -> int:
     # 16. multi-device serving: the sharded pools, SpatialNet's dp training,
     # the dp daemon and the dp artifact, two processes on the one card
     mesh = multidevice_serving_phase(cuda_gru, cuda_lstm, smi)
+
+    # 17. the bench modules, each in a fresh interpreter
+    bench_run = bench_phase(smi, harness["mfu"]["flops"])
     backward_route = ("autograd recompute through vcr_tpu_torch/nn/rnn.{} "
                       "(JAX: vcr_tpu/ops/pallas_gru.py:{})")
 
@@ -3718,6 +3876,7 @@ def main() -> int:
         "launches_per_spatial_dp2_step_per_rank":
             mesh["spatial"]["launches_per_step_per_rank"],
         "launches_per_dp2_artifact_call": mesh["artifact"]["gru_seq"],
+        "launches_per_bench_timed_call": bench_run["launches"]["gru_seq"],
         "flagship_mfu": harness["mfu"]["mfu"],
         "at_admission_batch": cont["kernel_timing"]["gru_seq"],
         "at_admission_batch_max_abs_err": worst(cont["kernel_cases"], "bfloat16",
@@ -3776,6 +3935,7 @@ def main() -> int:
         "launches_w8_rationale_pool": quant["rationale_w8"]["lstm_seq"],
         "w8_rationale_pool_admit_chunks": quant["rationale_w8_admit_chunks"],
         "launches_per_rank_mesh_rationale_pool": mesh["rationale"],
+        "launches_per_bench_timed_call": bench_run["launches"]["lstm_seq"],
         "launches_per_artifact_call": {name: art[name]["lstm_seq"] for name in (
             "flagship", "rationale", "s2vt_beam5", "transformer")},
         "at_admission_batch": cont["kernel_timing"]["lstm_seq"],

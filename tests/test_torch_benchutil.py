@@ -97,6 +97,17 @@ def test_op_formulas_equal_their_plain_versions(t, b, hidden):
         lambda u, v: torch.nn.functional.conv2d(u, v, stride=2, padding=1), img, k)
 
 
+def test_float32_output_products_count():
+    """The card's float32-output bf16 products (``torch.mm``/``torch.bmm``
+    with ``out_dtype``, ``nn.layers.vdot``/``bmm_f32``), on meta tensors
+    since the CPU has no such kernel: 2 * M * K * N each."""
+    a = torch.empty((3, 4, 5), device="meta", dtype=torch.bfloat16)
+    b = torch.empty((3, 5, 6), device="meta", dtype=torch.bfloat16)
+    assert benchutil.flops(torch.bmm, a, b, out_dtype=torch.float32) == 3 * 2 * 4 * 5 * 6
+    assert benchutil.flops(torch.bmm, a, b) == 3 * 2 * 4 * 5 * 6
+    assert benchutil.flops(torch.mm, a[0], b[0], out_dtype=torch.float32) == 2 * 4 * 5 * 6
+
+
 def test_mfu_and_peaks(monkeypatch):
     assert benchutil.peak_bf16_flops("cpu") is None
     assert benchutil.mfu(1e9, 1.0, torch.device("cpu")) is None

@@ -56,7 +56,7 @@ def test_port_imports_no_jax_and_nothing_of_vcr_tpu():
                  "data.prep.captions", "data.prep.glove", "data.prep.video_feats",
                  "data.prep.bbox_feats", "evals.attention_export", "utils.benchutil",
                  "utils.backend_probe", "sweep", "tune_serving", "checks", "parallel",
-                 "parallel.mesh", "parallel.launch"):
+                 "parallel.mesh", "parallel.launch", "bench", "bench_all", "bench_train"):
         assert f"vcr_tpu_torch.{name}" in mods
     assert "chip_smoke" in mods
     # nor what the JAX package's counterparts of the command line need:
@@ -95,14 +95,15 @@ def test_native_code_reads_no_environment_variable():
 
 
 def test_harnesses_read_no_environment_variable():
-    """The bench helpers, the probe, the sweep, the tuner, the checks and
-    the mesh take their knobs as arguments and flags (the JAX modules'
-    VCR_BENCH_TAG, VCR_PROBE_*, VCR_SKIP_PROBE, VCR_UPLOAD_CHUNK_MB,
+    """The bench helpers, the probe, the sweep, the tuner, the checks, the
+    mesh and the benches take their knobs as arguments and flags (the JAX
+    modules' VCR_BENCH_*, VCR_PROBE_*, VCR_SKIP_PROBE, VCR_UPLOAD_CHUNK_MB,
     VCR_CHECKS_FORCE and VCR_COMPILE_CACHE)."""
     pkg = os.path.join(ROOT, "vcr_tpu_torch")
     for rel in ("utils/benchutil.py", "utils/backend_probe.py", "sweep.py",
                 "tune_serving.py", "checks.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/launch.py"):
+                "parallel/mesh.py", "parallel/launch.py", "bench.py", "bench_all.py",
+                "bench_train.py"):
         with open(os.path.join(pkg, rel)) as f:
             text = f.read()
         assert "os.environ" not in text and "getenv" not in text, rel
@@ -158,6 +159,20 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(monkeypatch):
                                "valid": torch.ones((2,))}, "cpu")
     _, _, metrics, pred = train(params, opt.init(params), batch, 0, 1.0)
     assert metrics["loss"].device.type == "cpu" and pred.shape == (2, 3)
+    # the benches: a row runs on the CPU when asked, and the timing and
+    # every main refuse the CPU and a missing card before anything is built
+    from vcr_tpu_torch import bench, bench_all, bench_train
+
+    spec, params = entry.make_spec_and_params(**dims, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.flagship_row(spec, params, torch.zeros((2, 2, 6)), 2)
+    row = bench.flagship_row(spec, params, torch.zeros((2, 2, 6)), 2, device="cpu")
+    assert row.run_n(*row.args).shape == (2, 3)
+    for main in (bench.main, bench_all.main, bench_train.main):
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            main([])
+        with pytest.raises(RuntimeError, match="a CPU time is not a device measurement"):
+            main(["--device", "cpu"])
 
 
 def test_featurizer_entry_points_raise_without_a_card(monkeypatch, tmp_path):
@@ -815,3 +830,46 @@ def test_sharded_flagship_pool_on_the_card(cuda):
     for r in ranks:
         assert r["flagship"]["launches"] == {"gru_seq": 2 * chunks, "gru_seq_tc": 2 * chunks,
                                              "lstm_seq": 0, "lstm_seq_tc": 0}
+
+
+@pytest.mark.cuda
+def test_flagship_bench_row_on_the_card(cuda):
+    """The flagship bench's row on the card: its tokens are
+    build_captioner's on the same features, each captioner call launches B1
+    twice, and the timing returns a positive time and an MFU."""
+    from vcr_tpu_torch import bench
+    from vcr_tpu_torch.utils import benchutil
+
+    spec, params = entry.make_spec_and_params(**entry.FLAGSHIP, device=cuda)
+    feats = bench.normal_feats(np.random.default_rng(0),
+                               (64, spec.num_frames, spec.vid_feat_size), cuda)
+    row = bench.flagship_row(spec, params, feats, 2, cuda)
+    assert torch.equal(row.run_n(*row.args), serving.build_captioner(params, spec)(feats))
+    timed = bench.measure(row, cuda)
+    assert timed["best_s"] > 0 and timed["median_s"] >= timed["best_s"]
+    assert timed["flops"] > 0 and timed["launches"]["gru_seq"] == 4
+    assert timed["launches"]["gru_seq_tc"] == 4 and timed["launches"]["lstm_seq"] == 0
+    assert benchutil.mfu(timed["flops"], timed["best_s"], cuda) == timed["mfu"]
+
+
+@pytest.mark.cuda
+def test_bench_row_launches_come_from_its_timed_call(cuda):
+    """A row's launches are read around its own timed call: a row whose
+    timed call launches no kernel reads none, though the call its products
+    are counted on launches B1 twice; the S2VT artifact's row reads the
+    exported program's own launches, B1 twice per call."""
+    from vcr_tpu_torch import bench, bench_all
+
+    dims = dict(vocab_size=40, embed_size=16, hidden=32, vid_feat=64, max_len=7,
+                num_frames=6)
+    spec, params = entry.make_spec_and_params(**dims, device=cuda)
+    feats = torch.randn((5, 6, 64), generator=torch.Generator().manual_seed(6)).to(cuda)
+    caption = serving.build_captioner(params, spec)
+    row = bench.Row(lambda x: x + 1, (feats,), 5, "no kernel", (caption, (feats,), 1))
+    timed = bench.measure(row, cuda)
+    assert timed["flops"] > 0 and not any(timed["launches"].values())
+    art = bench_all.artifact_row(spec, params, feats.bfloat16(), 3, dims["vocab_size"] - 3,
+                                 cuda)
+    timed = bench.measure(art, cuda)
+    assert timed["launches"]["gru_seq"] == 6 and timed["launches"]["lstm_seq"] == 0
+

@@ -1,14 +1,15 @@
 """Command line: ``python -m vcr_tpu_torch.cli --mode extract_captions |
 extract_video_feats | extract_bbox_feats | extract_glove | train |
 train_rationale | train_spatial | eval | decode | eval_attention | serve |
-verify_parity | export_reference | export_serving | export_continuous
-[--flags]``, the counterpart of ``vcr_tpu/cli.py``.
+verify_parity | export_reference | export_serving | export_continuous |
+bench [--flags]``, the counterpart of ``vcr_tpu/cli.py``.
 
 Every flag of the JAX package's command line parses to the same Config;
 ``--device cuda`` (the default, which raises without a card) or ``--device
-cpu`` chooses where the model, and a prep mode's backbone, runs. The JAX
-package's ``--mode bench`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+cpu`` chooses where the model, and a prep mode's backbone, runs. ``--mode
+bench`` runs the flagship bench (``vcr_tpu_torch.bench``) at its defaults,
+on the card only: with ``--device cpu`` it raises (a CPU time is not a
+device measurement), and a failed probe exits 1.
 """
 
 from __future__ import annotations
@@ -20,11 +21,6 @@ import sys
 import numpy as np
 
 from vcr_tpu_torch.config import Config, get_config
-
-# modes of the JAX package's command line that this package has not ported
-NOT_PORTED_MODES = {
-    "bench": "ROADMAP A4 (the port's benchmark)",
-}
 
 
 def set_random_seeds(seed: int) -> None:
@@ -49,9 +45,13 @@ def main(argv=None):
 
 
 def dispatch(cfg: Config, device=None):
-    if cfg.mode in NOT_PORTED_MODES:
-        raise NotImplementedError(
-            f"--mode {cfg.mode} is not ported yet: {NOT_PORTED_MODES[cfg.mode]}")
+    if cfg.mode == "bench":
+        from vcr_tpu_torch import bench
+
+        rc = bench.main([] if device is None else ["--device", str(device)])
+        if rc:
+            raise SystemExit(rc)
+        return rc
     if cfg.mode == "extract_captions":
         from vcr_tpu_torch.data.prep.captions import extract_captions
 

@@ -7,7 +7,8 @@ is the products' FLOPs over the wall time over the card's peak bf16 rate.
 The FLOPs come from ``torch.utils.flop_counter.FlopCounterMode``, which
 counts the aten products (matrix products and convolutions) of one call.
 It sees a custom op as one opaque call, so importing this module registers
-a FLOP formula for each of the eight ops of ``ops/library.py``:
+a FLOP formula for each of the eight ops of ``ops/library.py`` (and lets
+torch's bmm formula count ``torch.bmm(..., out_dtype=)``, which it cannot):
 
 * ``gru_recurrence``, ``gru_recurrence_bt``, ``gru_recurrence_dma`` (B1,
   B3, B4): T steps of ``h @ W_hh``, T * 2 * B * H * 3H;
@@ -86,11 +87,15 @@ def mfu(flops_total: Optional[float], seconds: float, device) -> Optional[float]
 
 # ------------------------------------------------------------------- timing
 
-def _require_card(device) -> torch.device:
+def require_card(device) -> torch.device:
+    """``device`` as a ``torch.device`` if it is a CUDA device and a card is
+    there; RuntimeError otherwise: a CPU time is not a device measurement."""
     device = torch.device(device)
-    if device.type != "cuda" or not torch.cuda.is_available():
+    if device.type != "cuda":
         raise RuntimeError(f"timing needs a CUDA device, not {device}: a CPU time "
                            "is not a device measurement")
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing needs a CUDA device, and no CUDA device is available")
     return device
 
 
@@ -118,30 +123,50 @@ def median_best_ms(fn: Callable) -> Tuple[float, float]:
     return runs[0], runs[1]
 
 
-def time_chained(run_n: Callable, args: tuple, device, reps: int = 3) -> dict:
+def time_chained(run_n: Callable, args: tuple, device, reps: int = 3,
+                 count: Optional[int] = None) -> dict:
     """Time ``run_n(*args)`` on the card: one warm-up call, then ``reps``
     calls, each between two CUDA events, and one synchronise at the end.
 
-    -> {"best_s", "median_s", "flops", "mfu", "loadavg"}: the best and median
-    seconds of a call, the products of one call (:func:`flops`), the MFU of
-    the best call, and the host's 1/5/15-minute load averages at the end,
-    since readings that the host paces move with its load."""
-    device = _require_card(device)
+    -> {"best_s", "median_s", "flops", "mfu", "loadavg", "launches"}: the
+    best and median seconds of a call, the products of one call (``count``
+    where the caller has them, else :func:`flops` of one more call), the MFU
+    of the best call, the host's 1/5/15-minute load averages at the end,
+    since readings that the host paces move with its load, and the kernel
+    launches of the best call (:func:`kernel_launches` read before and after
+    it: a wrapper counts on the host as it launches)."""
+    device = require_card(device)
     run_n(*args)
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
+    launches = []
     for start, end in events:
+        before = kernel_launches()
         start.record()
         run_n(*args)
         end.record()
+        launches.append({k: v - before[k] for k, v in kernel_launches().items()})
     torch.cuda.synchronize(device)
-    secs = sorted(start.elapsed_time(end) / 1e3 for start, end in events)
-    count = flops(run_n, *args)
-    return {"best_s": secs[0], "median_s": secs[len(secs) // 2], "flops": count,
-            "mfu": mfu(count, secs[0], device), "loadavg": list(os.getloadavg())}
+    secs = [start.elapsed_time(end) / 1e3 for start, end in events]
+    best = min(range(reps), key=secs.__getitem__)
+    if count is None:
+        count = flops(run_n, *args)
+    return {"best_s": secs[best], "median_s": sorted(secs)[reps // 2], "flops": count,
+            "mfu": mfu(count, secs[best], device), "loadavg": list(os.getloadavg()),
+            "launches": launches[best]}
 
 
 # --------------------------------------------------------------- the counts
+
+def kernel_launches() -> Dict[str, int]:
+    """The launch counters of B1-B4 (``ops.cuda_gru``, ``ops.cuda_lstm``):
+    each wrapper adds one where it launches its kernel, on the card only."""
+    from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+
+    return {"gru_seq": cuda_gru.launches, "gru_seq_tc": cuda_gru.launches_tc,
+            "gru_seq_bt": cuda_gru.launches_bt, "gru_seq_dma": cuda_gru.launches_dma,
+            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc}
+
 
 def flops(fn: Callable, *args, **kwargs) -> int:
     """The products' FLOPs of one call ``fn(*args, **kwargs)``, by
@@ -197,7 +222,20 @@ def _conv_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
     return conv_flop_count(list(x_shape), list(w_shape), list(out_shape))
 
 
+def _drop_out_dtype(formula):
+    """torch's bmm formula reads the ``.dtype`` overload's ``out_dtype`` (the
+    card's float32-output product, ``nn.layers.bmm_f32``) as its output shape
+    and raises; the count drops it."""
+    def count(a, b, *_out_dtype, **kwargs):
+        return formula(a, b, **kwargs)
+    count.drops_out_dtype = True
+    return count
+
+
 def _register_formulas() -> None:
+    bmm = torch.ops.aten.bmm
+    if not getattr(flop_registry[bmm], "drops_out_dtype", False):
+        flop_registry[bmm] = _drop_out_dtype(flop_registry[bmm])
     ops = torch.ops.vcr_tpu_torch
     for op, formula in ((ops.gru_recurrence, _recurrence_flops(3)),
                         (ops.gru_recurrence_dma, _recurrence_flops(3)),

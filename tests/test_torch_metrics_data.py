@@ -393,7 +393,7 @@ def test_stream_sampler_and_step_timer(tmp_path, capsys):
     summary = timer.summary()
     assert summary["steps"] == 3.0 and summary["step_ms_p50"] >= 0.0
     with tprofiling.trace(str(tmp_path)):
-        with tprofiling.annotate("span"):
+        with tprofiling.span("span"):
             torch.ones(3).sum()
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "span" for e in trace["traceEvents"])

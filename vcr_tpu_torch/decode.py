@@ -54,6 +54,7 @@ from vcr_tpu_torch.nn.gumbel import sample_gumbel
 from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, torch_norm, vdot
 from vcr_tpu_torch.nn.rnn import gru_gates
 from vcr_tpu_torch.ops import wquant
+from vcr_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 
@@ -132,28 +133,31 @@ def beam_search(step_fn: Callable, init_state, batch: int, beam_size: int,
     state = init_state
     eos_only = None
     for i in range(max_len):
-        state, logits = step_fn(state, words, i)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        if eos_only is None:
-            eos_only = torch.full((1, logp.shape[-1]), NEG_INF, device=device)
-            eos_only[0, eos_id] = 0.0
-        # a finished beam continues with eos for free, with nothing else
-        cont = torch.where(finished[:, None], eos_only, logp)
-        # two stages: each beam's top k over the vocabulary, then the top k
-        # of the K*K survivors. A global winner is in its own beam's top k,
-        # and with index-stable ties this equals a top k over (B, K*V).
-        s1, i1 = _top_k(scores[:, None] + cont, k)               # (B*K, K)
-        top_scores, top_idx = _top_k(s1.reshape(batch, k * k), k)  # (B, K)
-        beam_idx = torch.div(top_idx, k, rounding_mode="floor")
-        word_idx = i1.reshape(batch, k * k).gather(1, top_idx).to(torch.int32)
-        flat_src = (rows + beam_idx).reshape(-1)
-        state = reorder(state, flat_src)
-        # the histories follow their beams before step i is written
-        tokens = tokens[flat_src]
-        finished = finished[flat_src]
-        words = word_idx.reshape(-1)
-        tokens[:, i] = words
-        finished = finished | (words == eos_id)
+        with span("decode.cell"):
+            state, logits = step_fn(state, words, i)
+        with span("decode.pick"):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            if eos_only is None:
+                eos_only = torch.full((1, logp.shape[-1]), NEG_INF, device=device)
+                eos_only[0, eos_id] = 0.0
+            # a finished beam continues with eos for free, with nothing else
+            cont = torch.where(finished[:, None], eos_only, logp)
+            # two stages: each beam's top k over the vocabulary, then the top
+            # k of the K*K survivors. A global winner is in its own beam's top
+            # k, and with index-stable ties this equals a top k over (B, K*V).
+            s1, i1 = _top_k(scores[:, None] + cont, k)               # (B*K, K)
+            top_scores, top_idx = _top_k(s1.reshape(batch, k * k), k)  # (B, K)
+            beam_idx = torch.div(top_idx, k, rounding_mode="floor")
+            word_idx = i1.reshape(batch, k * k).gather(1, top_idx).to(torch.int32)
+            flat_src = (rows + beam_idx).reshape(-1)
+        with span("decode.reorder"):
+            state = reorder(state, flat_src)
+            # the histories follow their beams before step i is written
+            tokens = tokens[flat_src]
+            finished = finished[flat_src]
+            words = word_idx.reshape(-1)
+            tokens[:, i] = words
+            finished = finished | (words == eos_id)
         scores = top_scores.reshape(-1)
     return tokens.reshape(batch, k, max_len), scores.reshape(batch, k)
 
@@ -195,13 +199,15 @@ def sample_search(step_fn: Callable, init_state, rows: int, max_len: int,
     finished = torch.zeros((rows,), dtype=torch.bool, device=device)
     state, out = init_state, []
     for i in range(max_len):
-        state, logits = step_fn(state, words, i)
-        logits = apply_sampling_filters(logits, temperature, top_k, top_p)
-        noise = gumbel[i] if gumbel is not None else sample_gumbel(
-            logits.shape, gen, device)
-        sampled = (logits + noise).argmax(dim=-1).to(torch.int32)
-        words = torch.where(finished, eos_id, sampled).to(torch.int32)
-        finished = finished | (words == eos_id)
+        with span("decode.cell"):
+            state, logits = step_fn(state, words, i)
+        with span("decode.pick"):
+            logits = apply_sampling_filters(logits, temperature, top_k, top_p)
+            noise = gumbel[i] if gumbel is not None else sample_gumbel(
+                logits.shape, gen, device)
+            sampled = (logits + noise).argmax(dim=-1).to(torch.int32)
+            words = torch.where(finished, eos_id, sampled).to(torch.int32)
+            finished = finished | (words == eos_id)
         out.append(words)
     return torch.stack(out, dim=1)
 
@@ -289,7 +295,8 @@ def s2vt_sample_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tens
                        decode_weights: Optional[str] = None) -> torch.Tensor:
     """Temperature/top-k/top-p sampling decode for S2VT -> tokens (B, L)."""
     model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
-    enc_outs, state1 = s2vt.encode(params, spec, vid_feats.to(spec.cdtype))
+    with span("encode"):
+        enc_outs, state1 = s2vt.encode(params, spec, vid_feats.to(spec.cdtype))
     return s2vt_sample_from_states(params, spec, enc_outs, state1, rng, eos_id,
                                    temperature, top_k, top_p, gumbel=gumbel,
                                    decode_weights=decode_weights)
@@ -301,7 +308,8 @@ def s2vt_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode for S2VT: the greedy decode's cell, B*K rows."""
     model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
-    enc_outs, state1 = s2vt.encode(params, spec, vid_feats.to(spec.cdtype))
+    with span("encode"):
+        enc_outs, state1 = s2vt.encode(params, spec, vid_feats.to(spec.cdtype))
     return s2vt_beam_from_states(params, spec, enc_outs, state1, beam_size, eos_id,
                                  decode_weights=decode_weights)
 
@@ -376,7 +384,9 @@ def s2vt_att_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Te
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode for S2VT-att: the greedy decode's cell, B*K rows."""
     model_base.check_serving_modes(decode_weights=decode_weights)  # before B1 runs
-    encoder_outs, encoder_final = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
+    with span("encode"):
+        encoder_outs, encoder_final = s2vt_att.encode(params, spec,
+                                                      vid_feats.to(spec.cdtype))
     return s2vt_att_beam_from_states(params, spec, encoder_outs, encoder_final, beam_size,
                                      eos_id, decode_weights=decode_weights)
 
@@ -390,11 +400,12 @@ def _rationale_select(params, spec: model_base.ModelSpec, vid_feats: torch.Tenso
     The noise is ``gumbel_noise`` (B, N, 2), else drawn from ``gen`` as
     ``rationale.apply`` draws it at eval."""
     model_base.base_module(spec)  # raises for a base not ported
-    vid_feats = vid_feats.to(spec.cdtype)
-    if gumbel_noise is None:
-        gumbel_noise = sample_gumbel((*vid_feats.shape[:2], 2), gen, vid_feats.device)
-    sel, _ = rationale.generator(params["gen"], spec, vid_feats,
-                                 gumbel_noise=gumbel_noise, train=False)
+    with span("encode"), span("select_frames"):
+        vid_feats = vid_feats.to(spec.cdtype)
+        if gumbel_noise is None:
+            gumbel_noise = sample_gumbel((*vid_feats.shape[:2], 2), gen, vid_feats.device)
+        sel, _ = rationale.generator(params["gen"], spec, vid_feats,
+                                     gumbel_noise=gumbel_noise, train=False)
     return sel
 
 
@@ -435,8 +446,9 @@ def _transformer_encode(params, spec: model_base.ModelSpec,
                         vid_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(source mask, encoder outputs) of the eval encoder, on the features
     as given (serving casts them to the compute dtype first)."""
-    src_mask = tr.create_masks_inp(vid_feats)
-    return src_mask, tr.encode(params, spec, vid_feats, src_mask)
+    with span("encode"):
+        src_mask = tr.create_masks_inp(vid_feats)
+        return src_mask, tr.encode(params, spec, vid_feats, src_mask)
 
 
 def transformer_beam_decode(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
@@ -538,7 +550,8 @@ def sample_tokens(params, spec: model_base.ModelSpec, vid_feats: torch.Tensor,
         return s2vt_sample_decode(params, spec, vid_feats, rng, eos_id, temperature,
                                   top_k, top_p, gumbel=gumbel, decode_weights=decode_weights)
     if spec.arch == "s2vt-att":
-        eo, ef = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
+        with span("encode"):
+            eo, ef = s2vt_att.encode(params, spec, vid_feats.to(spec.cdtype))
         return s2vt_att_sample_from_states(params, spec, eo, ef, rng, eos_id, temperature,
                                            top_k, top_p, gumbel=gumbel,
                                            decode_weights=decode_weights)

@@ -28,6 +28,7 @@ from vcr_tpu_torch.nn.gumbel import gumbel_softmax, sample_gumbel
 from vcr_tpu_torch.nn.layers import apply_keep_mask, dense, dense_init, keep_mask
 from vcr_tpu_torch.nn.rnn import bilstm_init
 from vcr_tpu_torch.ops.cuda_lstm import bilstm_sequence_fused
+from vcr_tpu_torch.utils.profiling import span
 
 
 def init_params(gen: torch.Generator, spec: base.ModelSpec, glove_vectors) -> dict:
@@ -78,17 +79,18 @@ def apply(params, spec: base.ModelSpec, vid_feats: torch.Tensor,
     the Gumbel noise instead."""
     captioner = base.base_module(spec)
     s2vt._check_call(s, train, emit)
-    vid_feats = vid_feats.to(spec.cdtype)
-    b, frames = vid_feats.shape[:2]
     gen = s2vt.generator_for(rng, vid_feats.device)
-    drop_keep = None
-    if train and spec.dropout_p > 0.0:
-        drop_keep = keep_mask((frames, b, 2 * spec.hidden_size), spec.dropout_p, gen,
-                              vid_feats.device)
-    if gumbel_noise is None:
-        gumbel_noise = sample_gumbel((b, frames, 2), gen, vid_feats.device)
-    sel, probs = generator(params["gen"], spec, vid_feats, gumbel_noise=gumbel_noise,
-                           train=train, drop_keep=drop_keep)
+    with span("encode"), span("select_frames"):
+        vid_feats = vid_feats.to(spec.cdtype)
+        b, frames = vid_feats.shape[:2]
+        drop_keep = None
+        if train and spec.dropout_p > 0.0:
+            drop_keep = keep_mask((frames, b, 2 * spec.hidden_size), spec.dropout_p, gen,
+                                  vid_feats.device)
+        if gumbel_noise is None:
+            gumbel_noise = sample_gumbel((b, frames, 2), gen, vid_feats.device)
+        sel, probs = generator(params["gen"], spec, vid_feats, gumbel_noise=gumbel_noise,
+                               train=train, drop_keep=drop_keep)
     return captioner.apply(params["caption_net"], spec, sel, s, rng=gen, train=train,
                            teacher_force_prob=teacher_force_prob, emit=emit), probs
 

@@ -45,6 +45,7 @@ from vcr_tpu_torch.nn.layers import (apply_keep_mask, dense, dense_init, embed,
                                      vocab_argmax, vdot)
 from vcr_tpu_torch.nn.rnn import gru_gates, gru_init
 from vcr_tpu_torch.ops.cuda_gru import gru_sequence_fused
+from vcr_tpu_torch.utils.profiling import span
 
 Rng = Union[int, torch.Generator, None]
 
@@ -79,9 +80,10 @@ def _prime_state2(params, spec: base.ModelSpec, enc_outs: torch.Tensor) -> torch
     """Run GRU2 over [enc_outs ; zero word embeddings], keep the final state.
     The zero half contributes nothing to the input projection, so only the
     first H rows of W_ih are multiplied."""
-    sliced = dict(params["rnn2"])
-    sliced["w_ih"] = params["rnn2"]["w_ih"][: spec.hidden_size]
-    _, state2 = gru_sequence_fused(sliced, enc_outs, compute_dtype=spec.cdtype)
+    with span("prime"):
+        sliced = dict(params["rnn2"])
+        sliced["w_ih"] = params["rnn2"]["w_ih"][: spec.hidden_size]
+        _, state2 = gru_sequence_fused(sliced, enc_outs, compute_dtype=spec.cdtype)
     return state2
 
 
@@ -183,16 +185,19 @@ def decode_from_states(params, spec: base.ModelSpec, state1: torch.Tensor,
         logits = mask_vocab_pad(dense(params["linear"], dropped, cd), spec.vocab_size)
         return logits.transpose(0, 1)
     for t in range(steps):
-        st1 = gru_gates(xg1, st1, rnn1, cd)
-        emb = _dropout(embed(params["embedding"], words), noise.emb_keep, p, t)
-        xg2 = vdot(torch.cat([st1, emb], dim=-1), rnn2["w_ih"], cd) + rnn2["b_ih"]
-        st2 = gru_gates(xg2, st2, rnn2, cd)
-        out = _dropout(st2, noise.out_keep, p, t)
-        logits = mask_vocab_pad(dense(params["linear"], out, cd), spec.vocab_size)
-        words = vocab_argmax(logits)
-        ys.append(words if emit == "tokens" else logits)
-        if train:
-            words = torch.where(noise.coins[t] < teacher_force_prob, s_in[:, t + 1], words)
+        with span("decode.cell"):
+            st1 = gru_gates(xg1, st1, rnn1, cd)
+            emb = _dropout(embed(params["embedding"], words), noise.emb_keep, p, t)
+            xg2 = vdot(torch.cat([st1, emb], dim=-1), rnn2["w_ih"], cd) + rnn2["b_ih"]
+            st2 = gru_gates(xg2, st2, rnn2, cd)
+            out = _dropout(st2, noise.out_keep, p, t)
+            logits = mask_vocab_pad(dense(params["linear"], out, cd), spec.vocab_size)
+        with span("decode.pick"):
+            words = vocab_argmax(logits)
+            ys.append(words if emit == "tokens" else logits)
+            if train:
+                words = torch.where(noise.coins[t] < teacher_force_prob, s_in[:, t + 1],
+                                    words)
     return torch.stack(ys, dim=1)
 
 
@@ -207,8 +212,9 @@ def apply(params, spec: base.ModelSpec, vid_feats: torch.Tensor,
     noise = (draw_train_noise(generator_for(rng, vid_feats.device), spec,
                               vid_feats.shape[0], vid_feats.device) if train else None)
     # features enter at the compute precision, as in the JAX package
-    vid_feats = vid_feats.to(spec.cdtype)
-    enc_outs, state1 = encode(params, spec, vid_feats)
+    with span("encode"):
+        vid_feats = vid_feats.to(spec.cdtype)
+        enc_outs, state1 = encode(params, spec, vid_feats)
     return decode(params, spec, enc_outs, state1, s, train=train,
                   teacher_force_prob=teacher_force_prob, emit=emit, noise=noise)
 

@@ -39,6 +39,7 @@ from vcr_tpu_torch.nn.layers import (apply_keep_mask, dense, dense_init, embed,
                                      vocab_argmax, vdot)
 from vcr_tpu_torch.nn.rnn import gate_remat_default, gru_gates, gru_init
 from vcr_tpu_torch.ops.cuda_gru import gru_sequence_fused
+from vcr_tpu_torch.utils.profiling import span
 
 
 def init_params(gen: torch.Generator, spec: base.ModelSpec, glove_vectors) -> dict:
@@ -256,7 +257,8 @@ def apply(params, spec: base.ModelSpec, vid_feats: torch.Tensor,
     out_keep = (draw_train_noise(generator_for(rng, vid_feats.device), spec,
                                  vid_feats.shape[0], vid_feats.device) if train else None)
     # features enter at the compute precision, as in the JAX package
-    encoder_outs, encoder_final = encode(params, spec, vid_feats.to(spec.cdtype))
+    with span("encode"):
+        encoder_outs, encoder_final = encode(params, spec, vid_feats.to(spec.cdtype))
     return decode(params, spec, encoder_outs, encoder_final, s, train=train,
                   teacher_force_prob=teacher_force_prob, emit=emit, out_keep=out_keep)
 

@@ -31,6 +31,7 @@ import torch
 from vcr_tpu_torch.models import base, s2vt, s2vt_att
 from vcr_tpu_torch.nn.attention import bahdanau_attend, bahdanau_init, bahdanau_project_keys
 from vcr_tpu_torch.nn.layers import batchnorm, batchnorm_init, conv2d, conv2d_init
+from vcr_tpu_torch.utils.profiling import span
 
 
 def init_params(gen: torch.Generator, spec: base.ModelSpec, glove_vectors) -> dict:
@@ -82,7 +83,8 @@ def encode_for_base(params, spec: base.ModelSpec, vid_feats: torch.Tensor, train
     """:func:`encode_spatial` with its outputs in the layout of the wrapped
     captioner's decoder: (outs (N, B, H) for S2VT, (B, N, H) for S2VT-att,
     final state (B, H), seq_alphas (B, N, K, K), new BN state)."""
-    output1, state, seq_alphas, bn_state = encode_spatial(params, spec, vid_feats, train)
+    with span("encode"):
+        output1, state, seq_alphas, bn_state = encode_spatial(params, spec, vid_feats, train)
     if base.base_module(spec) is s2vt_att:
         output1 = output1.transpose(0, 1)
     return output1, state, seq_alphas, bn_state

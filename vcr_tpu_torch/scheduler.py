@@ -5,8 +5,11 @@ The counterpart of ``run_slot_scheduler`` in
 scheduler-ops protocol: the live pool
 (``serving_continuous.ContinuousCaptioner``) and a frozen one
 (``export_continuous.ContinuousArtifact``), and the seeds of their
-per-request random streams. It imports numpy only, so a serving host that
-runs a frozen pool loads no model code with it.
+per-request random streams. It imports numpy and the span recorder
+(``utils.profiling``, which loads no torch) only, so a serving host that
+runs a frozen pool loads no model code with it. Each round's device half
+runs under the spans ``pool.admit`` (with the admitted keys), ``pool.tick``,
+``pool.poll`` and ``pool.harvest``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from collections import deque
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
+
+from vcr_tpu_torch.utils.profiling import span
 
 
 def run_slot_scheduler(ops, requests: Iterable[Optional[Tuple[object, np.ndarray]]],
@@ -113,10 +118,11 @@ def run_slot_scheduler(ops, requests: Iterable[Optional[Tuple[object, np.ndarray
                 keys.append(key)
                 chunk_opts[j] = opt
             ops.stats["admit_chunks"] += 1
-            if accepts_opts:
-                ops.encode_admit(feats, ids, valid, chunk_opts)
-            else:
-                ops.encode_admit(feats, ids, valid)
+            with span("pool.admit", keys=keys):
+                if accepts_opts:
+                    ops.encode_admit(feats, ids, valid, chunk_opts)
+                else:
+                    ops.encode_admit(feats, ids, valid)
             for j in range(n):
                 pending[int(ids[j])] = keys[j]
             ops.in_flight = len(pending)
@@ -127,13 +133,16 @@ def run_slot_scheduler(ops, requests: Iterable[Optional[Tuple[object, np.ndarray
             continue
 
         # advance all slots, then harvest finished ones
-        ops.tick()
+        with span("pool.tick"):
+            ops.tick()
         ops.stats["ticks"] += 1
         ops.stats["slot_steps"] += ops.slots * ops.step_chunk
-        active = ops.poll_active()
+        with span("pool.poll"):
+            active = ops.poll_active()
         done = [s for s in pending if not active[s]]
         if done:
-            toks, steps = ops.read_tokens()
+            with span("pool.harvest"):
+                toks, steps = ops.read_tokens()
             for s in done:
                 ops.stats["served"] += 1
                 ops.stats["useful_steps"] += int(steps[s])

@@ -31,7 +31,9 @@ API:
   GET  /healthz   -> {"status": "ok", "in_flight": N, ...scheduler stats}
   POST /profile?seconds=S  capture a torch.profiler trace of live serving
                   (the scheduler thread's operations and the card's
-                  kernels) for S seconds (cap 60), written as a Chrome trace
+                  kernels) for S seconds (cap 60), with the program's spans
+                  (``utils.profiling``: the pool's rounds and every other
+                  thread's), written as a Chrome trace
                   trace.json under a new directory of profile_dir
                   -> {"trace_dir": ..., "seconds": S}; requires the server
                   to be built with profile_dir= (--serve_profile_dir), 403
@@ -63,6 +65,7 @@ raises, ``error`` records it and every waiting client is released (504).
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -74,6 +77,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+
+from vcr_tpu_torch.utils import profiling
 
 
 class ServerOverloaded(Exception):
@@ -656,16 +661,22 @@ class CaptionServer:
                 job["prof"] = profile(activities=acts)
                 self._profile_job = job
                 job["prof"].start()   # its first start takes a while
+                job["spans"] = contextlib.ExitStack()
+                job["rec"] = job["spans"].enter_context(profiling.recording())
                 job["end"] = time.monotonic() + job["seconds"]
             elif time.monotonic() >= job["end"]:
                 self._profile_job = None
+                job["spans"].close()
                 job["prof"].stop()
                 os.makedirs(job["dir"], exist_ok=True)
-                job["prof"].export_chrome_trace(
-                    os.path.join(job["dir"], "trace.json"))
+                path = os.path.join(job["dir"], "trace.json")
+                job["prof"].export_chrome_trace(path)
+                profiling.add_spans_to_chrome_trace(path, job["rec"])
                 job["done"].set()
         except Exception as e:  # a profiler failure must not kill serving
             self._profile_job = None
+            if "spans" in job:
+                job["spans"].close()
             job["error"] = repr(e)
             job["done"].set()
 

@@ -16,6 +16,7 @@ ever silently ignored.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -25,6 +26,7 @@ from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
 from vcr_tpu_torch.models import rationale, resnet, spatial, vgg
 from vcr_tpu_torch.models import transformer as tr
+from vcr_tpu_torch.utils.profiling import span
 
 FEATURIZERS = ("none", "vgg16", "resnet", "yolo")
 
@@ -197,18 +199,25 @@ def make_caption_fn(spec: model_base.ModelSpec,
     tensors by their plan names: ``export_serving`` makes them inputs of the
     exported program. Under a fused ``featurizer`` the input is frames,
     featurized with ``feat_params`` first (:func:`make_featurize`;
-    ``darknet`` is the Darknet of ``"yolo"``)."""
+    ``darknet`` is the Darknet of ``"yolo"``). Each call is the root span
+    ``caption`` (``utils.profiling``); a caller with a request id of its own
+    opens a span with it around the call, and ``caption`` shares its root."""
     featurize = make_featurize(spec, featurizer, darknet)
     caption = _caption_fn(spec, beam_size, eos_id, sample_temperature, sample_top_k,
                           sample_top_p, rng, kv_cache, decode_weights)
-    if featurize is None:
-        return caption
 
     def featurized(params, frames: torch.Tensor, noise=None,
                    feat_params=None) -> torch.Tensor:
         return caption(params, featurize(feat_params, frames), noise)
 
-    return featurized
+    call = caption if featurize is None else featurized
+
+    @functools.wraps(call)
+    def spanned(*args, **kwargs) -> torch.Tensor:
+        with span("caption"):
+            return call(*args, **kwargs)
+
+    return spanned
 
 
 def _caption_fn(spec, beam_size, eos_id, sample_temperature, sample_top_k, sample_top_p,
@@ -304,7 +313,8 @@ def _transformer_caption_fn(spec: model_base.ModelSpec, beam_size: int, eos_id: 
         if beam_size > 1:
             return decode.transformer_beam_decode_fast(params, spec, feats, beam_size,
                                                        eos_id, **modes)[0][:, 0]
-        e_outputs = tr.encode(params, spec, feats, tr.create_masks_inp(feats))
+        with span("encode"):
+            e_outputs = tr.encode(params, spec, feats, tr.create_masks_inp(feats))
         return tr.decode_greedy_fast(params, spec, e_outputs, **modes)
 
     return caption

@@ -50,7 +50,7 @@ from vcr_tpu_torch.train import checkpoint as ckpt
 from vcr_tpu_torch.train import optim, schedule
 from vcr_tpu_torch.train.step import build_step_fns, device_batch
 from vcr_tpu_torch.utils.logging import TrainLogger
-from vcr_tpu_torch.utils.profiling import StepTimer, annotate, trace
+from vcr_tpu_torch.utils.profiling import StepTimer, span, trace
 from vcr_tpu_torch.utils.sampler import StreamSampler, print_sample_sents
 from vcr_tpu_torch.vocab import Vocab
 
@@ -501,7 +501,7 @@ def _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab, log_keys,
             for k, v in step_times.items():
                 logger.log_scalar(f"perf/{k}", v)
 
-            with annotate("evaluate"):
+            with span("evaluate"):
                 val_metrics, val_samples, time_taken = evaluate(
                     eval_step, params, val_it, vocab, log_keys, cfg.n_sample_sent,
                     cfg.seed, device, beam_fn, mesh, specs)
@@ -522,7 +522,7 @@ def _train_epochs(cfg, start_epoch, tf_probs, train_it, val_it, vocab, log_keys,
             is_best = val_metrics["METEOR"] >= best_val_meteor
             if is_best:
                 best_val_meteor = val_metrics["METEOR"]
-            with annotate("checkpoint"):
+            with span("checkpoint"):
                 whole = writable(params, opt_state)
                 if whole is not None:
                     manager.save_epoch(*whole, epoch, logger.n_iter, cfg.to_dict(),

@@ -22,6 +22,7 @@ from vcr_tpu_torch.nn.rnn import gate_remat_default
 from vcr_tpu_torch.parallel import mesh as mesh_mod
 from vcr_tpu_torch.train import losses
 from vcr_tpu_torch.train.optim import OptState, Optimizer, trainable_leaves
+from vcr_tpu_torch.utils.profiling import span
 
 BATCH_KEYS = ("vid_feats", "sent", "sent_len", "valid")
 
@@ -142,9 +143,11 @@ class StepFns:
               seed=None):
         """(gradients of the loss for ``leaves``, detached metrics, pred,
         aux); ``seed`` (a 0-d tensor) scales the loss's gradient."""
-        loss, metrics, pred, aux = self.loss(params, batch, rng, tf_prob)
-        grads = torch.autograd.grad(loss, leaves, grad_outputs=seed, allow_unused=True,
-                                    materialize_grads=True)
+        with span("train.forward"):
+            loss, metrics, pred, aux = self.loss(params, batch, rng, tf_prob)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, grad_outputs=seed, allow_unused=True,
+                                        materialize_grads=True)
         return list(grads), {k: v.detach() for k, v in metrics.items()}, pred, aux
 
     def _accum_grads(self, params, leaves, batch, rng: int, tf_prob, total=None):
@@ -190,7 +193,14 @@ class StepFns:
                    rng: int, tf_prob):
         """-> (params, opt_state, metrics, pred): one optimizer update of
         ``params``' trainable leaves, in place; then SpatialNet's new
-        BatchNorm running stats, written in place."""
+        BatchNorm running stats, written in place. The span ``train.step``
+        holds ``train.forward``, ``train.backward`` (per microbatch) and
+        ``train.optimizer``."""
+        with span("train.step"):
+            return self._train_step(params, opt_state, batch, rng, tf_prob)
+
+    def _train_step(self, params, opt_state: OptState, batch: Dict[str, torch.Tensor],
+                    rng: int, tf_prob):
         self._check(params, batch)
         _, leaves = trainable_leaves(params)
         if len(leaves) != len(opt_state.leaves) or any(
@@ -212,14 +222,16 @@ class StepFns:
                                                           tf_prob)
         else:
             grads, metrics, pred, aux = self.grads(params, leaves, batch, rng, tf_prob)
-        if self.mesh is None:
-            self.optimizer.step(opt_state, grads)
-        else:
+        if self.mesh is not None:
             metrics = self._sync_metrics(metrics, batch)
-            split = [mesh_mod.spec_at(self.specs, path) is not None
-                     for path in opt_state.paths]
-            self.optimizer.step(opt_state, grads, split if any(split) else None,
-                                self.mesh.mp_group)
+        with span("train.optimizer"):
+            if self.mesh is None:
+                self.optimizer.step(opt_state, grads)
+            else:
+                split = [mesh_mod.spec_at(self.specs, path) is not None
+                         for path in opt_state.paths]
+                self.optimizer.step(opt_state, grads, split if any(split) else None,
+                                    self.mesh.mp_group)
         if "bn_state" in aux:
             _merge_bn(params, aux["bn_state"])
         return params, opt_state, metrics, pred

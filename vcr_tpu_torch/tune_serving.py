@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from vcr_tpu_torch.device import resolve_device
-from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+from vcr_tpu_torch.utils import benchutil
 
 # the synthetic model of the JAX script (scripts/tune_serving.py)
 SYNTHETIC = dict(vocab_size=512, embed_size=300, hidden=256, vid_feat=512, max_len=12,
@@ -68,15 +68,11 @@ def make_workload(spec, n_requests: int, rates: Sequence[float], seed: int
     return feats, arrivals
 
 
-def _launches() -> Dict[str, int]:
-    return {"gru_seq": cuda_gru.launches, "lstm_seq": cuda_lstm.launches}
-
-
 def run_config(cc, feats: np.ndarray, arrivals: np.ndarray) -> dict:
     """Drive one pool over the timed workload -> its metrics."""
     n = len(arrivals)
     t_done = {}
-    before = _launches()
+    before = benchutil.kernel_launches()
     t0 = time.monotonic()
 
     def requests():
@@ -103,7 +99,7 @@ def run_config(cc, feats: np.ndarray, arrivals: np.ndarray) -> dict:
            "occupancy": st["useful_steps"] / max(st["slot_steps"], 1),
            "latency_p50_ms": None, "latency_p95_ms": None, "ticks": st["ticks"],
            "admit_chunks": st["admit_chunks"],
-           "launches": {k: v - before[k] for k, v in _launches().items()}}
+           "launches": {k: v - before[k] for k, v in benchutil.kernel_launches().items()}}
     if t_done:
         lat = np.asarray(sorted(t_done[k] - arrivals[k] for k in t_done))
         row["latency_p50_ms"] = 1e3 * float(lat[len(lat) // 2])

@@ -36,7 +36,13 @@ exit code and no result line:
    plain version and a library yardstick (B1 and B4 at both serving
    batches, and the input projection alone, which the yardsticks include, for B1 and
    for B2), and the flagship encoder with and without its feature
-   transpose (B1 against B3).
+   transpose (B1 against B3). Then the beam's word pick
+   (csrc/beam_pick.cu, beam_pick line) at the beam-5 serving cell's shape,
+   (2,560, 9,088) float32 logits at K=5: against its plain version on three
+   draws and on rows of equal logits (indices equal, values within 1e-5),
+   its time beside its bound and the plain version's, and the flagship's
+   beam-5 call at B=512 launching it once a step. Every launch count below
+   includes the pick's (beam_pick): one a step of every beam decode.
 
 6. train    -- the train step of each served captioner through
    train.step.build_step_fns at full width (random weights from a seed),
@@ -323,6 +329,7 @@ CLI_VAL_VIDEOS = 256
 CLI_BATCH = 256              # S2VT's --bsize in phase 7
 CLI_RATIONALE_BATCH = 128    # RationaleNet's
 CLI_BEAM = 5
+CLI_MAX_LEN = 20             # the CLI model's tokens: beam steps of a decode call
 CLI_PARAM_TOL = 1e-4         # float32 parameters after 2 epochs card vs CPU,
                              # times max(1, max|p|) of the leaf, TF32 off
 ATT_BATCH = 1024             # S2VT-att's serving and train batch (bench_all.py:151-152,
@@ -443,17 +450,24 @@ def lstm_inputs(t, b, hidden, dtype, seed):
 def launch_counts(cuda_gru, cuda_lstm) -> dict:
     """Kernel launches by counter; gru_seq_tc counts the B1 and B3 launches
     that ran the tensor-core body, gru_seq_dma_tc the B4 launches and
-    lstm_seq_tc the B2 launches that ran theirs."""
+    lstm_seq_tc the B2 launches that ran theirs; beam_pick the beam's word
+    pick, one a beam step."""
+    from vcr_tpu_torch.ops import beam_pick
+
     return {"gru_seq": cuda_gru.launches, "gru_seq_bt": cuda_gru.launches_bt,
             "gru_seq_dma": cuda_gru.launches_dma, "gru_seq_tc": cuda_gru.launches_tc,
             "gru_seq_dma_tc": cuda_gru.launches_dma_tc,
-            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc}
+            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc,
+            "beam_pick": beam_pick.launches}
 
 
 def reset_counts(cuda_gru, cuda_lstm) -> None:
+    from vcr_tpu_torch.ops import beam_pick
+
     cuda_gru.launches = cuda_gru.launches_bt = cuda_gru.launches_dma = 0
     cuda_gru.launches_tc = cuda_gru.launches_dma_tc = 0
     cuda_lstm.launches = cuda_lstm.launches_tc = 0
+    beam_pick.launches = 0
 
 
 def max_err(got, want) -> float:
@@ -583,7 +597,7 @@ def train_phase(family, cuda_gru, cuda_lstm, smi, device="cuda"):
     batch = train_batch(gen, b, spec, cd)
     expected = {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": 2,
                 "gru_seq_dma_tc": 0, "lstm_seq": 0 if s2vt_family else 2,
-                "lstm_seq_tc": 0 if s2vt_family else 2}
+                "lstm_seq_tc": 0 if s2vt_family else 2, "beam_pick": 0}
     caption_net = params if s2vt_family else params["caption_net"]
     before = caption_net["linear"]["w"].detach().clone()
     step_losses, step_launches = [], []
@@ -691,11 +705,12 @@ def train_phase(family, cuda_gru, cuda_lstm, smi, device="cuda"):
     return result
 
 
-def expected_counts(b1=0, b2=0) -> dict:
+def expected_counts(b1=0, b2=0, pick=0) -> dict:
     """Launch counts of a call that ran B1 ``b1`` times and B2 ``b2`` times,
-    all on their tensor-core bodies, and B3 and B4 never."""
+    all on their tensor-core bodies, B3 and B4 never, and the beam's word
+    pick ``pick`` times (one a beam step)."""
     return {"gru_seq": b1, "gru_seq_bt": 0, "gru_seq_dma": 0, "gru_seq_tc": b1,
-            "gru_seq_dma_tc": 0, "lstm_seq": b2, "lstm_seq_tc": b2}
+            "gru_seq_dma_tc": 0, "lstm_seq": b2, "lstm_seq_tc": b2, "beam_pick": pick}
 
 
 def counted(cuda_gru, cuda_lstm, fn):
@@ -705,6 +720,71 @@ def counted(cuda_gru, cuda_lstm, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, launch_counts(cuda_gru, cuda_lstm)
+
+
+PICK_ITEMS, PICK_BEAM = 512, 5   # the beam-5 serving cell: 2,560 rows a step
+PICK_TOL = 1e-5                   # float32 log-probabilities plus scores
+
+
+def beam_pick_phase(cuda_gru, cuda_lstm, spec, params, smi):
+    """The beam's word pick (ops/csrc/beam_pick.cu) at the beam-5 serving
+    cell's shape: (2,560, 9,088) float32 logits, K=5, a tenth of the beams
+    finished. On three draws and on rows of equal logits, the kernel against
+    its plain version on the card (indices equal, values within PICK_TOL);
+    its time beside its bound (the live rows' logits read once at the card's
+    memory rate: a finished row's are never read) and the plain version's (CUDA events, best of 3); then the
+    flagship's beam-5 call at B=512: B1 twice and the pick once a step."""
+    from vcr_tpu_torch import serving
+    from vcr_tpu_torch.ops import beam_pick
+
+    rows, vocab, eos = PICK_ITEMS * PICK_BEAM, spec.padded_vocab_size, spec.sos_id + 1
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cases = []
+    for draw in range(3):
+        cases.append((f"draw{draw}",
+                      torch.randn((rows, vocab), generator=gen, device="cuda") * 3.0,
+                      -30.0 * torch.rand((rows,), generator=gen, device="cuda"),
+                      torch.rand((rows,), generator=gen, device="cuda") < 0.1))
+    cases.append(("equal_rows", torch.zeros((rows, vocab), device="cuda"),
+                  torch.tensor([0.0, -1.0, 0.0, -1.0, -0.5], device="cuda").repeat(PICK_ITEMS),
+                  torch.zeros((rows,), dtype=torch.bool, device="cuda")))
+    checked = []
+    for name, logits, scores, finished in cases:
+        args = (logits, scores, finished, PICK_BEAM, eos)
+        got, want = beam_pick.beam_pick_cuda(*args), beam_pick.beam_pick_plain(*args)
+        torch.cuda.synchronize()
+        words_equal = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        err = (got[0] - want[0]).abs().max().item()
+        checked.append({"case": name, "indices_equal": words_equal, "max_abs_err": err})
+        check(words_equal and err <= PICK_TOL,
+              f"beam_pick {name}: indices equal {words_equal}, value error {err}")
+    logits, scores, finished = cases[0][1:]
+    args = (logits, scores, finished, PICK_BEAM, eos)
+    kernel_ms = time_ms(lambda: beam_pick.beam_pick_cuda(*args), iters=20)
+    plain_ms = time_ms(lambda: beam_pick.beam_pick_plain(*args), iters=5)
+    live = int((~finished).sum())
+    bound_ms = live * vocab * 4 / PEAKS[2] * 1e3
+    del cases, logits, scores, finished, args
+
+    feats = torch.randn((PICK_ITEMS, spec.num_frames, spec.vid_feat_size), generator=gen,
+                        device="cuda")
+    beam_caption = serving.build_captioner(params, spec, beam_size=PICK_BEAM)
+    beam_caption(feats)
+    tokens, launches = counted(cuda_gru, cuda_lstm, lambda: beam_caption(feats))
+    check(launches == expected_counts(2, pick=spec.max_len)
+          and tuple(tokens.shape) == (PICK_ITEMS, spec.max_len),
+          f"the flagship beam-{PICK_BEAM} captioner launched {launches}, not B1 twice "
+          f"and the pick {spec.max_len} times")
+    call_ms = median_best_ms(lambda: beam_caption(feats))
+    result = {"rows": rows, "live_rows": live, "vocab": vocab, "k": PICK_BEAM, "cases": checked,
+              "tolerance": PICK_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": "bytes",
+              "roofline_pct": 100.0 * bound_ms / kernel_ms,
+              "launches_per_beam5_call": launches["beam_pick"],
+              "beam5_call_ms_best_median": call_ms,
+              "beam5_captions_per_s": PICK_ITEMS / (call_ms[0] / 1e3)}
+    emit("beam_pick", **result, nvidia_smi=smi)
+    return result
 
 
 def run_cli(cuda_gru, cuda_lstm, argv):
@@ -793,7 +873,8 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         data = write_corpus(os.path.join(tmp, "full"), CLI_WORDS, 300, CLI_TRAIN_VIDEOS,
                             CLI_VAL_VIDEOS, 30, 4096, seed=7)
         corpus_s = time.perf_counter() - t0
-        model = ["--num_frames", "30", "--vid_feat_size", "4096", "--max_len", "20",
+        model = ["--num_frames", "30", "--vid_feat_size", "4096", "--max_len",
+                 str(CLI_MAX_LEN),
                  "--hidden_size", "512", "--compute_dtype", "bfloat16",
                  "--vocab_pad_to", "128", "--log_dir", ""]
         s2vt_dir, rat_dir = os.path.join(tmp, "s2vt"), os.path.join(tmp, "rationale")
@@ -809,8 +890,10 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         loop_route = [line.split(": ")[1].split()[0] for line in out.splitlines()
                       if line.startswith("====> Input route: ")]
         check(loop_route == ["native"], f"the train loop's input route: {loop_route}")
-        # per epoch: each step, then each val batch's greedy eval step and beam
-        want = expected_counts(2 * (2 * steps + (2 + 2) * val_batches))
+        # per epoch: each step, then each val batch's greedy eval step and
+        # beam search, whose word pick launches once a step (max_len 20)
+        want = expected_counts(2 * (2 * steps + (2 + 2) * val_batches),
+                               pick=2 * val_batches * CLI_MAX_LEN)
         check(launches["train"] == want,
               f"--mode train launched {launches['train']}, not {want}")
         check(math.isfinite(train["loss"]) and all(
@@ -821,7 +904,7 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
         evaluation, launches["eval"], _ = run(
             data + bsize + ["--mode", "eval", "--save_path", s2vt_dir,
                             "--beam_size", str(CLI_BEAM)])
-        want = expected_counts((2 + 2) * val_batches)
+        want = expected_counts((2 + 2) * val_batches, pick=val_batches * CLI_MAX_LEN)
         check(launches["eval"] == want, f"--mode eval launched {launches['eval']}, "
                                         f"not {want}")
         check(math.isfinite(evaluation["loss"]), f"eval loss {evaluation['loss']}")
@@ -829,7 +912,8 @@ def cli_phase(cuda_gru, cuda_lstm, smi):
             _, launches[f"decode_beam{beam}"], _ = run(
                 data + bsize + ["--mode", "decode", "--save_path", s2vt_dir,
                                 "--beam_size", str(beam)])
-            want = expected_counts(2 * val_batches)
+            want = expected_counts(2 * val_batches,
+                                   pick=val_batches * CLI_MAX_LEN if beam > 1 else 0)
             check(launches[f"decode_beam{beam}"] == want,
                   f"--mode decode --beam_size {beam} launched "
                   f"{launches[f'decode_beam{beam}']}, not {want}")
@@ -1046,8 +1130,9 @@ def s2vt_att_phase(cuda_gru, cuda_lstm, smi):
           f"S2VT-att tokens {tuple(tokens.shape)} {tokens.dtype}")
     beam_caption = serving.build_captioner(params, spec, beam_size=ATT_BEAM)
     beam_tokens, beam_launches = counted(cuda_gru, cuda_lstm, lambda: beam_caption(feats))
-    check(beam_launches == expected_counts(1) and tuple(beam_tokens.shape) == (
-        b, spec.max_len), f"the S2VT-att beam-{ATT_BEAM} captioner launched {beam_launches}")
+    check(beam_launches == expected_counts(1, pick=spec.max_len)
+          and tuple(beam_tokens.shape) == (b, spec.max_len),
+          f"the S2VT-att beam-{ATT_BEAM} captioner launched {beam_launches}")
 
     spec32 = spec.with_(compute_dtype="float32")
     few = feats[:4]
@@ -1250,9 +1335,9 @@ def spatial_phase(cuda_gru, cuda_lstm, smi):
           f"SpatialNet tokens {tuple(tokens.shape)} {tokens.dtype}")
     beam_caption = serving.build_captioner(params, spec, beam_size=SPATIAL_BEAM)
     beam_tokens, beam_launches = counted(cuda_gru, cuda_lstm, lambda: beam_caption(feats))
-    check(beam_launches == expected_counts(1) and tuple(beam_tokens.shape) == (
-        b, spec.max_len), f"the SpatialNet beam-{SPATIAL_BEAM} captioner launched "
-                          f"{beam_launches}")
+    check(beam_launches == expected_counts(1, pick=spec.max_len)
+          and tuple(beam_tokens.shape) == (b, spec.max_len),
+          f"the SpatialNet beam-{SPATIAL_BEAM} captioner launched {beam_launches}")
     aspec, aparams = entry.make_spec_and_params(**dict(entry.SPATIAL, base_arch="s2vt-att"),
                                                 device="cuda")
     att_caption = serving.build_captioner(aparams, aspec)
@@ -1385,7 +1470,8 @@ def spatial_phase(cuda_gru, cuda_lstm, smi):
             cuda_gru, cuda_lstm, io_flags + model + ["--mode", "train_spatial", "--epochs",
                                                      "1", "--beam_size", str(SPATIAL_BEAM)])
         # each step, then each val batch's greedy eval step and its beam search
-        check(cli_launches["train_spatial"] == expected_counts(steps + 2 * val_batches)
+        check(cli_launches["train_spatial"] == expected_counts(
+            steps + 2 * val_batches, pick=val_batches * spec.max_len)
               and math.isfinite(trained["loss"]),
               f"--mode train_spatial launched {cli_launches['train_spatial']}, loss "
               f"{trained['loss']}")
@@ -1481,7 +1567,8 @@ def transformer_phase(cuda_gru, cuda_lstm, smi):
              "parity_greedy": (parity_greedy, TF_PARITY_BATCH)}
     for name, (fn, b) in calls.items():
         tokens, launches[name] = counted(cuda_gru, cuda_lstm, fn)
-        check(launches[name] == expected_counts(0) and valid(tokens, b),
+        picks = spec.max_len if name.startswith("beam") else 0
+        check(launches[name] == expected_counts(0, pick=picks) and valid(tokens, b),
               f"Transformer {name} launched {launches[name]} or gave tokens "
               f"{tuple(tokens.shape)} {tokens.dtype}")
 
@@ -1802,11 +1889,14 @@ def continuous_phase(cuda_gru, cuda_lstm, smi, tf_timing):
         tpool = ContinuousCaptioner(tparams, tspec, slots=slots, admit_chunk=CONT_ADMIT,
                                     beam_size=beam)
         tpool.caption_all(dict(enumerate(feats[:CONT_ADMIT])))      # first use
+        ticks = tpool.stats["ticks"]
         t0 = time.perf_counter()
         out, counts = counted(cuda_gru, cuda_lstm, lambda: tpool.caption_all(
             dict(enumerate(feats[:slots]))))
         dt = time.perf_counter() - t0
-        check(counts == expected_counts(0) and len(out) == slots,
+        # a beam pool picks once a step, step_chunk steps a tick
+        picks = (tpool.stats["ticks"] - ticks) * tpool.step_chunk if beam > 1 else 0
+        check(counts == expected_counts(0, pick=picks) and len(out) == slots,
               f"the Transformer's {name} pool launched {counts} or lost requests")
         tokens = sum(len(t) for t in out.values())
         tf_runs[name] = {"slots": slots, "beam": beam, "requests": slots, "seconds": dt,
@@ -1928,8 +2018,8 @@ def quantized_phase(cuda_gru, cuda_lstm, smi):
                                                        spec.sos_id + 1, lineage=True,
                                                        kv_cache="int8")
     (btok, bscores), bcounts = counted(cuda_gru, cuda_lstm, lineage)
-    check(bcounts == expected_counts(0) and btok.shape == (TF_BEAM_BATCH, TF_BEAM,
-                                                           spec.max_len)
+    check(bcounts == expected_counts(0, pick=spec.max_len)
+          and btok.shape == (TF_BEAM_BATCH, TF_BEAM, spec.max_len)
           and all_finite(bscores), f"the int8 lineage beam launched {bcounts}")
     bbest, bmedian = median_best_ms(lineage)
     runs["lineage_beam5_int8_kv"] = {"batch": TF_BEAM_BATCH, "beam": TF_BEAM,
@@ -2125,7 +2215,8 @@ print(json.dumps({"load_s": load_s, "first_call_s": first_s, "launches": launche
 """
 # the package's modules a serving host of an exported program imports
 HOST_MODULES = {"vcr_tpu_torch", "vcr_tpu_torch.ops", "vcr_tpu_torch.ops._build",
-                "vcr_tpu_torch.ops.cuda_gru", "vcr_tpu_torch.ops.cuda_lstm",
+                "vcr_tpu_torch.ops.beam_pick", "vcr_tpu_torch.ops.cuda_gru",
+                "vcr_tpu_torch.ops.cuda_lstm",
                 "vcr_tpu_torch.ops.library", "vcr_tpu_torch.nn", "vcr_tpu_torch.nn.init",
                 "vcr_tpu_torch.nn.layers", "vcr_tpu_torch.nn.rnn"}
 
@@ -2240,12 +2331,12 @@ def artifact_phase(cuda_gru, cuda_lstm, smi, tf_export):
 
         # 2.-3. RationaleNet (its selection noise an input, drawn by the
         # loader), S2VT beam 5 and the Transformer's KV-cached greedy
-        cases = (("rationale", entry.RATIONALE, RATIONALE_BATCH, {}, {"gru_seq": 2,
-                                                                      "lstm_seq": 2}),
+        cases = (("rationale", entry.RATIONALE, RATIONALE_BATCH, {},
+                  {"gru_seq": 2, "lstm_seq": 2, "beam_pick": 0}),
                  ("s2vt_beam5", entry.FLAGSHIP, ART_BEAM_BATCH, {"beam_size": 5},
-                  {"gru_seq": 2, "lstm_seq": 0}),
+                  {"gru_seq": 2, "lstm_seq": 0, "beam_pick": spec.max_len}),
                  ("transformer", entry.TRANSFORMER, TF_FAST_BATCH, {},
-                  {"gru_seq": 0, "lstm_seq": 0}))
+                  {"gru_seq": 0, "lstm_seq": 0, "beam_pick": 0}))
         for name, dims, batch, kw, launches_want in cases:
             cspec, cparams_cpu = entry.make_spec_and_params(**dims, device="cpu")
             cparams = params_to(cparams_cpu, "cuda")
@@ -3260,7 +3351,7 @@ def main() -> int:
     from vcr_tpu_torch.device import params_to
     from vcr_tpu_torch.models import rationale, s2vt
     from vcr_tpu_torch.nn.layers import vdot
-    from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+    from vcr_tpu_torch.ops import beam_pick, cuda_gru, cuda_lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3278,10 +3369,12 @@ def main() -> int:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for built in [pool.submit(lib) for lib in
-                      (cuda_gru._lib, cuda_gru._dma_lib, cuda_lstm._lib, native.get_lib)]:
+                      (cuda_gru._lib, cuda_gru._dma_lib, cuda_lstm._lib, beam_pick._lib,
+                       native.get_lib)]:
             built.result()
     emit("build", seconds=round(time.perf_counter() - t0, 2),
-         kernels=["gru_seq", "gru_seq_dma", "lstm_seq"], host_libraries=["npy_loader"])
+         kernels=["gru_seq", "gru_seq_dma", "lstm_seq", "beam_pick"],
+         host_libraries=["npy_loader"])
     # phase 13's Transformer artifact, exported on the host from here on
     tf_export = start_tf_export()
 
@@ -3480,7 +3573,7 @@ def main() -> int:
           "token outside the vocabulary")
     check(main_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
                             "gru_seq_tc": 2, "gru_seq_dma_tc": 0, "lstm_seq": 0,
-                            "lstm_seq_tc": 0},
+                            "lstm_seq_tc": 0, "beam_pick": 0},
           f"the S2VT captioner launched {main_launches}, not B1 twice on the "
           "tensor-core body and nothing else")
 
@@ -3514,7 +3607,7 @@ def main() -> int:
           "rationale token outside the vocabulary")
     check(rationale_launches == {"gru_seq": 2, "gru_seq_bt": 0, "gru_seq_dma": 0,
                                  "gru_seq_tc": 2, "gru_seq_dma_tc": 0, "lstm_seq": 2,
-                                 "lstm_seq_tc": 2},
+                                 "lstm_seq_tc": 2, "beam_pick": 0},
           f"the rationale captioner launched {rationale_launches}, not B2 and B1 "
           "twice each (both on their tensor-core bodies) and nothing else")
     with torch.inference_mode():
@@ -3567,11 +3660,13 @@ def main() -> int:
         torch.cuda.synchronize()
         dma_launches = launch_counts(cuda_gru, cuda_lstm)
     check(bt_launches == {"gru_seq": 0, "gru_seq_bt": 1, "gru_seq_dma": 0, "gru_seq_tc": 1,
-                          "gru_seq_dma_tc": 0, "lstm_seq": 0, "lstm_seq_tc": 0},
+                          "gru_seq_dma_tc": 0, "lstm_seq": 0, "lstm_seq_tc": 0,
+                          "beam_pick": 0},
           f"gru_sequence_fused_bt launched {bt_launches}, not B3 once on the "
           "tensor-core body and nothing else")
     check(dma_launches == {"gru_seq": 0, "gru_seq_bt": 0, "gru_seq_dma": 1, "gru_seq_tc": 0,
-                           "gru_seq_dma_tc": 1, "lstm_seq": 0, "lstm_seq_tc": 0},
+                           "gru_seq_dma_tc": 1, "lstm_seq": 0, "lstm_seq_tc": 0,
+                           "beam_pick": 0},
           f"gru_sequence_fused_dma launched {dma_launches}, not B4 once on its "
           "tensor-core body and nothing else")
     check(tuple(bt_outs.shape) == (SMOKE_BATCH, frames, hidden)
@@ -3794,6 +3889,9 @@ def main() -> int:
                    "bound_ms": lstm_bound, "bound_by": lstm_bound_by},
          nvidia_smi=smi)
 
+    # the beam's word pick against its plain version, its time, a beam call
+    pick = beam_pick_phase(cuda_gru, cuda_lstm, spec, params, smi)
+
     # 6. training of both served captioners
     train_s2vt = train_phase("s2vt", cuda_gru, cuda_lstm, smi)
     train_rationale = train_phase("rationale", cuda_gru, cuda_lstm, smi)
@@ -3952,7 +4050,16 @@ def main() -> int:
             "transformer": tf["train"]["lstm_seq"]},
         "backward": {"route": backward_route.format("lstm_sequence", "414-423"),
                      "batch": RATIONALE_TRAIN_BATCH,
-                     **train_rationale["lstm_seq_forward_direction"]}}]}))
+                     **train_rationale["lstm_seq_forward_direction"]}}, {
+        "name": "beam_pick", "route": "cuda",
+        "source": "vcr_tpu_torch/ops/csrc/beam_pick.cu",
+        "replaces": "none: vcr_tpu/decode.py beam_search's log_softmax and lax.top_k",
+        "launches_per_beam5_call": pick["launches_per_beam5_call"],
+        "launches_per_artifact_call": art["s2vt_beam5"]["beam_pick"],
+        "max_abs_err": max(c["max_abs_err"] for c in pick["cases"]),
+        "tolerance": PICK_TOL, "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+        "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
+        "roofline_pct": pick["roofline_pct"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

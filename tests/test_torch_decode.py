@@ -18,6 +18,9 @@ from vcr_tpu_torch import decode as tdecode
 from vcr_tpu_torch import serving as tserving
 from vcr_tpu_torch.models import rationale as trationale
 from vcr_tpu_torch.models import s2vt as ts2vt
+from vcr_tpu_torch.ops.beam_pick import top_k
+from util_steppers import random_stepper as _random_stepper
+from util_steppers import tie_stepper as _tie_stepper
 
 DIMS = dict(vocab_size=21, embed_size=16, hidden=32, vid_feat=12, max_len=6,
             num_frames=5)
@@ -66,28 +69,6 @@ def _jax_gumbel(rng, shape):
 
 # ------------------------------------------------------------ the search
 
-def _random_stepper(xp, w, e, u, vocab):
-    """A small recurrent stepper in numpy-style ops: xp is jnp or torch."""
-    def step(state, words, i):
-        h = xp.tanh(state["h"] @ u + e[words])
-        return {"h": h}, 3.0 * xp.tanh(h @ w)[:, :vocab]
-    return step
-
-
-def _tie_stepper(xp, vocab):
-    """Each row's logits are 0 at one or two word ids that depend on its
-    history and -30 elsewhere, so log-probabilities repeat exactly within a
-    row and across beams, and ties decide the search."""
-    def step(state, words, i):
-        hist = state["hist"]
-        ids = xp.arange(vocab)[None, :]
-        a = (hist[:, None] + i) % vocab
-        b = (hist[:, None] * 3 + 1) % vocab
-        logits = xp.where((ids == a) | (ids == b), 0.0, -30.0)
-        return {"hist": (hist * 7 + words) % 1009}, logits
-    return step
-
-
 @pytest.mark.parametrize("kind", ["random", "ties"])
 @pytest.mark.parametrize("k", [1, 3, 4])
 def test_beam_search_matches_jax(kind, k):
@@ -118,7 +99,7 @@ def test_beam_search_matches_jax(kind, k):
 
 def test_top_k_breaks_ties_by_lower_index():
     x = torch.tensor([[1.0, 3.0, 3.0, 0.0, 3.0], [2.0, 2.0, 2.0, 2.0, 2.0]])
-    values, idx = tdecode._top_k(x, 3)
+    values, idx = top_k(x, 3)
     assert idx.tolist() == [[1, 2, 4], [0, 1, 2]]
     assert values.tolist() == [[3.0, 3.0, 3.0], [2.0, 2.0, 2.0]]
     jv, ji = jax.lax.top_k(jnp.asarray(x.numpy()), 3)

@@ -31,7 +31,8 @@ def test_tuner_grid_end_to_end(capsys):
         assert r["admit_chunks"] >= 12 // 2
         # the CPU runs the plain versions: no kernel launches
         assert r["launches"] == {"gru_seq": 0, "gru_seq_tc": 0, "gru_seq_bt": 0,
-                                 "gru_seq_dma": 0, "lstm_seq": 0, "lstm_seq_tc": 0}
+                                 "gru_seq_dma": 0, "lstm_seq": 0, "lstm_seq_tc": 0,
+                                 "beam_pick": 0}
     best = [ln for ln in lines if "best" in ln]
     assert len(best) == 2
     for b in best:

@@ -19,10 +19,16 @@ caches are either gathered with their beams or, with ``lineage=True``, left
 in place behind an ancestry matrix. Its sampling runs the KV-cached stepper
 too.
 
-Ties break as in the JAX package, whose ``lax.top_k`` is index-stable: among
-equal scores the lower word id wins within a beam, and the lower beam across
-beams. ``torch.topk`` promises no order among ties, so :func:`_top_k` takes
-the first k of a stable descending sort.
+Every family's beam picks its words through one function, :func:`beam_pick`
+(the custom op ``vcr_tpu_torch::beam_pick``, ``ops/beam_pick.py``): on the
+card one hand-written kernel a step (the log-softmax, the finished mask and
+both top-k stages in one read of the logits; K <= 32), on the CPU its plain
+version (the log-softmax, the ``where`` and two stable sorts). Both keep the
+JAX package's ties, whose ``lax.top_k`` is index-stable: among equal scores
+the lower word id wins within a beam, and the lower beam across beams.
+``torch.topk`` promises no order among ties, so the plain version's
+``ops.beam_pick.top_k`` takes the first k of a stable descending sort, and
+the kernel orders its candidates by (value, index) exactly.
 
 Sampling draws ``argmax(logits + g)`` with Gumbel noise g, which is
 ``jax.random.categorical``'s form; the noise comes from a ``torch.Generator``
@@ -54,9 +60,8 @@ from vcr_tpu_torch.nn.gumbel import sample_gumbel
 from vcr_tpu_torch.nn.layers import dense, embed, mask_vocab_pad, torch_norm, vdot
 from vcr_tpu_torch.nn.rnn import gru_gates
 from vcr_tpu_torch.ops import wquant
+from vcr_tpu_torch.ops.beam_pick import NEG_INF
 from vcr_tpu_torch.utils.profiling import span
-
-NEG_INF = -1e9
 
 
 def check_decode_mode(beam_size: int, temperature: float, top_k: int,
@@ -79,11 +84,17 @@ def _unknown(arch: str):
     raise NotImplementedError(f"decode for {arch!r}")
 
 
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest along the last axis, in descending order; among equal
-    values the lower index first (``lax.top_k``'s order)."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
+def beam_pick(logits: torch.Tensor, scores: torch.Tensor, finished: torch.Tensor,
+              k: int, eos_id: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One beam step's word pick over B items of k beams: logits (B*K, V),
+    scores (B*K,) float32, finished (B*K,) bool -> (top_scores (B, K)
+    float32, word_idx (B, K) int32, flat_src (B*K,) int64, the row each new
+    beam continues). A finished beam continues with eos alone, at no cost.
+    Through the custom op ``vcr_tpu_torch::beam_pick``: the kernel on CUDA
+    tensors (k <= 32), the plain version on CPU tensors."""
+    return torch.ops.vcr_tpu_torch.beam_pick(logits.float().contiguous(),
+                                             scores.contiguous(), finished.contiguous(),
+                                             k, eos_id)
 
 
 def _tile_beam(tree, k: int):
@@ -129,27 +140,12 @@ def beam_search(step_fn: Callable, init_state, batch: int, beam_size: int,
     scores = scores.reshape(-1)
     finished = torch.zeros((batch * k,), dtype=torch.bool, device=device)
     tokens = torch.zeros((batch * k, max_len), dtype=torch.int32, device=device)
-    rows = torch.arange(batch, device=device)[:, None] * k
     state = init_state
-    eos_only = None
     for i in range(max_len):
         with span("decode.cell"):
             state, logits = step_fn(state, words, i)
         with span("decode.pick"):
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            if eos_only is None:
-                eos_only = torch.full((1, logp.shape[-1]), NEG_INF, device=device)
-                eos_only[0, eos_id] = 0.0
-            # a finished beam continues with eos for free, with nothing else
-            cont = torch.where(finished[:, None], eos_only, logp)
-            # two stages: each beam's top k over the vocabulary, then the top
-            # k of the K*K survivors. A global winner is in its own beam's top
-            # k, and with index-stable ties this equals a top k over (B, K*V).
-            s1, i1 = _top_k(scores[:, None] + cont, k)               # (B*K, K)
-            top_scores, top_idx = _top_k(s1.reshape(batch, k * k), k)  # (B, K)
-            beam_idx = torch.div(top_idx, k, rounding_mode="floor")
-            word_idx = i1.reshape(batch, k * k).gather(1, top_idx).to(torch.int32)
-            flat_src = (rows + beam_idx).reshape(-1)
+            top_scores, word_idx, flat_src = beam_pick(logits, scores, finished, k, eos_id)
         with span("decode.reorder"):
             state = reorder(state, flat_src)
             # the histories follow their beams before step i is written

@@ -74,7 +74,8 @@ RUNTIME = "torch"
 _NONPORTABLE_DTYPES = ("bfloat16",)
 # the CUDA source of each kernel op (ops/csrc/<name>.cu)
 _OP_SOURCES = {"gru_recurrence": "gru_seq", "gru_recurrence_bt": "gru_seq",
-               "gru_recurrence_dma": "gru_seq_dma", "lstm_recurrence": "lstm_seq"}
+               "gru_recurrence_dma": "gru_seq_dma", "lstm_recurrence": "lstm_seq",
+               "beam_pick": "beam_pick"}
 
 
 def default_input_shape(spec, featurizer: str = "none",

@@ -7,7 +7,9 @@ sees it as one opaque call:
 * ``vcr_tpu_torch::gru_recurrence`` (B1, time-major),
 * ``vcr_tpu_torch::gru_recurrence_bt`` (B3, batch-major),
 * ``vcr_tpu_torch::gru_recurrence_dma`` (B4),
-* ``vcr_tpu_torch::lstm_recurrence`` (B2, one direction a launch).
+* ``vcr_tpu_torch::lstm_recurrence`` (B2, one direction a launch),
+* ``vcr_tpu_torch::beam_pick`` (the beam's word pick, ``ops/beam_pick.py``;
+  below, with the products).
 
 Each op has three implementations. On CUDA tensors it is the hand-written
 kernel's launcher (``gru_recurrence_cuda`` etc.), with its checks, its
@@ -28,6 +30,13 @@ Beside them are four device-neutral product ops (``mm_f32``, ``bmm_f32``,
 in place of the models' bf16 products. Importing ``vcr_tpu_torch.ops``
 registers all of them; a serving host that runs an exported program imports
 this module and nothing of the models.
+
+``beam_pick`` runs once a decode step, so it is registered, like the
+products, through the low-level ``Library`` API, which dispatches in a few
+microseconds: its kernel on CUDA tensors (with the launcher's checks and
+launch counter), its plain version on CPU tensors, and a fake that gives
+``(B, K)`` float32 scores, ``(B, K)`` int32 words and ``(B*K,)`` int64 source
+rows. It is forward only: its outputs are picks, with no gradient.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from typing import Tuple
 
 import torch
 
-from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+from vcr_tpu_torch.ops import beam_pick, cuda_gru, cuda_lstm
 
 NAMESPACE = "vcr_tpu_torch"
 
@@ -188,3 +197,20 @@ def _fake_conv2d_f32out(x, w, stride, padding):
     size = [(n + 2 * p - k) // s + 1
             for n, k, s, p in zip(x.shape[2:], w.shape[2:], stride, padding)]
     return x.new_empty((x.shape[0], w.shape[0], *size), dtype=torch.float32)
+
+
+# ------------------------------------------------------------ the word pick
+
+_PICK = torch.library.Library(NAMESPACE, "FRAGMENT")
+_PICK.define("beam_pick(Tensor logits, Tensor scores, Tensor finished, int k, int eos_id) "
+             "-> (Tensor, Tensor, Tensor)")
+_PICK.impl("beam_pick", beam_pick.beam_pick_cuda, "CUDA")
+_PICK.impl("beam_pick", beam_pick.beam_pick_plain, "CPU")
+
+
+@torch.library.register_fake(f"{NAMESPACE}::beam_pick", lib=_PICK)
+def _fake_beam_pick(logits, scores, finished, k, eos_id):
+    batch = logits.shape[0] // k
+    return (logits.new_empty((batch, k), dtype=torch.float32),
+            logits.new_empty((batch, k), dtype=torch.int32),
+            logits.new_empty((logits.shape[0],), dtype=torch.int64))

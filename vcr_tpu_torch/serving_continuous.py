@@ -86,7 +86,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from vcr_tpu_torch.decode import (NEG_INF, _s2vt_att_stepper, _s2vt_stepper, _top_k,
+from vcr_tpu_torch.decode import (NEG_INF, _s2vt_att_stepper, _s2vt_stepper, beam_pick,
                                   augment_decode_weights, check_gru_kv_cache)
 from vcr_tpu_torch.device import params_to, resolve_device
 from vcr_tpu_torch.models import base as model_base
@@ -595,15 +595,8 @@ class ContinuousCaptioner:
         g, dev = active.shape[0], active.device
         rows_idx = torch.arange(g * k, device=dev)
         dec, logits = cell(st["dec"], st["last"], st)
-        logp = torch.log_softmax(self._full_vocab(logits).float(), dim=-1)
-        vocab = torch.arange(logp.shape[-1], device=dev)
-        eos_only = torch.where(vocab == self.eos_id, 0.0, NEG_INF)[None].to(torch.float32)
-        cont = torch.where(st["bfin"][:, None], eos_only, logp)
-        s1, i1 = _top_k(st["scores"][:, None] + cont, k)
-        top_scores, top_idx = _top_k(s1.reshape(g, k * k), k)        # (G, K)
-        beam_idx = torch.div(top_idx, k, rounding_mode="floor")
-        word_idx = i1.reshape(g, k * k).gather(1, top_idx).to(torch.int32)
-        flat_src = (torch.arange(g, device=dev)[:, None] * k + beam_idx).reshape(-1)
+        top_scores, word_idx, flat_src = beam_pick(self._full_vocab(logits), st["scores"],
+                                                   st["bfin"], k, self.eos_id)
         if self._base == "transformer":
             # lineage: only the ancestry moves, never the caches
             dec = dict(dec, anc=dec["anc"][flat_src])

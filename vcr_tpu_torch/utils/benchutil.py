@@ -159,13 +159,15 @@ def time_chained(run_n: Callable, args: tuple, device, reps: int = 3,
 # --------------------------------------------------------------- the counts
 
 def kernel_launches() -> Dict[str, int]:
-    """The launch counters of B1-B4 (``ops.cuda_gru``, ``ops.cuda_lstm``):
-    each wrapper adds one where it launches its kernel, on the card only."""
-    from vcr_tpu_torch.ops import cuda_gru, cuda_lstm
+    """The launch counters of B1-B4 (``ops.cuda_gru``, ``ops.cuda_lstm``) and
+    of the beam's word pick (``ops.beam_pick``): each wrapper adds one where
+    it launches its kernel, on the card only."""
+    from vcr_tpu_torch.ops import beam_pick, cuda_gru, cuda_lstm
 
     return {"gru_seq": cuda_gru.launches, "gru_seq_tc": cuda_gru.launches_tc,
             "gru_seq_bt": cuda_gru.launches_bt, "gru_seq_dma": cuda_gru.launches_dma,
-            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc}
+            "lstm_seq": cuda_lstm.launches, "lstm_seq_tc": cuda_lstm.launches_tc,
+            "beam_pick": beam_pick.launches}
 
 
 def flops(fn: Callable, *args, **kwargs) -> int:
